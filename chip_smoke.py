@@ -1,12 +1,13 @@
-"""Drive the PyTorch port's MCCM batch path on one NVIDIA card, and check it.
+"""Drive the PyTorch port's MCCM paths on one NVIDIA card, and check them.
 
     python3 chip_smoke.py [--seed N] [--designs N]
 
 Phases, each printing one JSON line:
 
 1. card and build: the card, torch/CUDA versions, both TF32 flags (set
-   False here: no matmul may run in TF32), and the ``nvcc`` build of the
-   search kernel with its ptxas report;
+   False here: no matmul or convolution may run in TF32), and the ``nvcc``
+   builds of the three kernels, started together, with their ptxas
+   reports;
 2. the search kernel against its plain PyTorch version on the card, on the
    baseline templates of every CNN x board, on 4096 ``sample_mixed`` rows
    of every CNN and on an all-infeasible batch: ⟨pf, ph, pw⟩ exactly equal,
@@ -19,7 +20,23 @@ Phases, each printing one JSON line:
    ``--designs`` (default 100,000, the DSE budget) ``sample_mixed`` designs
    from ``--seed``: end-to-end µs per design, the kernel's and the plain
    version's ms per chunk, the kernel's bound, launches, peak memory and a
-   profiler breakdown (written to ``chiprun_out/``).
+   profiler breakdown (written to ``chiprun_out/``);
+5. the scalar path, ``Session(board).evaluate(spec, net)`` on every
+   template of every CNN x board, against the golden scalar metrics the JAX
+   package's Builder computed (exactly equal: both are the same Python
+   arithmetic), and the batch path on the card against it within the JAX
+   package's own scalar-vs-batch tolerances;
+6. the Eq. 1 latency kernel at full width: the ⟨pf, ph, pw⟩ of each layer
+   of the ``--designs`` designs of phase 4, as the batch path chooses them,
+   through ``mccm_latency``: equal to its plain version and to the batch
+   path's own cycles bit for bit, and to the scalar Builder's on the
+   templates; ms, plain ms, bound, launches, peak memory;
+7. the CE convolution kernel at full width: the 53 conv layers of
+   ResNet-50 at their published widths (batch 1, unit-normal data from
+   ``--seed``), each on its CE's ⟨pf, ph, pw⟩ in the port's Builder for
+   every baseline arch with 11 CEs on ZCU102: the grid identity of Eq. 1
+   exactly, the kernel equal to its plain version bit for bit and near
+   ``conv2d``; ms per ResNet-50 pass beside ``conv2d``'s and the bound.
 
 Then the ``kernels`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
@@ -44,11 +61,20 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-KERNEL = dict(
-    name="parallelism_search",
-    route="cuda",
-    source="src/repro_torch/kernels/mccm_eval/csrc/parallelism_search.cu",
-    replaces="src/repro/kernels/mccm_eval/kernel.py:119")
+KERNELS = {
+    "parallelism_search": dict(
+        name="parallelism_search", route="cuda",
+        source="src/repro_torch/kernels/mccm_eval/csrc/parallelism_search.cu",
+        replaces="src/repro/kernels/mccm_eval/kernel.py:119"),
+    "mccm_latency": dict(
+        name="mccm_latency", route="cuda",
+        source="src/repro_torch/kernels/mccm_eval/csrc/mccm_latency.cu",
+        replaces="src/repro/kernels/mccm_eval/kernel.py:44"),
+    "conv_ce": dict(
+        name="conv_ce", route="cuda",
+        source="src/repro_torch/kernels/conv_ce/csrc/conv_ce.cu",
+        replaces="src/repro/kernels/conv_ce/kernel.py:66"),
+}
 
 #: device cycles of the sleep queued ahead of a timed run (~0.1 s)
 SLEEP_CYCLES = 200_000_000
@@ -56,6 +82,21 @@ SLEEP_CYCLES = 200_000_000
 TEMPLATE_NS = (2, 5, 9, 11)
 RTOL_KERNEL_COST = 1e-6
 RTOL_METRICS = 1e-5
+#: batch path (f32) against the scalar Builder (exact), the JAX package's
+#: own tolerances (tests/test_batch_eval.py:15): f32 threshold flips move
+#: access_bytes
+RTOL_SCALAR = {"latency_s": 1e-4, "throughput_ips": 1e-4,
+               "buffer_bytes": 1e-4, "access_bytes": 0.04}
+#: mccm_latency against the scalar Builder's exact integer cycles: f32
+#: rounds a product above 2**24 (three roundings per layer), and the
+#: total adds 160 such values
+RTOL_LAYER_CYCLES = 1e-6
+RTOL_TOTAL_CYCLES = 1e-5
+#: conv_ce against conv2d (cuDNN, TF32 off): the two add each output's
+#: C*KH*KW terms (up to 4608) in different orders, so they part by a few
+#: f32 ulps of the largest partial sums
+RTOL_CONV = 1e-4
+CONV_ARCH_CES = 11
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -93,31 +134,61 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def cuda_ms_each(fns) -> list[float]:
+    """Device ms of each of ``fns``, run once each back to back behind a
+    device-side sleep, by a CUDA event between consecutive calls."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(fns) + 1)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    events[0].record()
+    for fn, ev in zip(fns, events[1:]):
+        fn()
+        ev.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
 # --------------------------------------------------------------------------
 # phase 1
 # --------------------------------------------------------------------------
 def phase_build(card: str) -> dict:
+    """Build every kernel, one ``nvcc`` per source, all started together."""
     import torch
-    from repro_torch.kernels.mccm_eval.ops import library
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.conv_ce import ops as conv_ops
+    from repro_torch.kernels.mccm_eval import ops as mccm_ops
+    loaders = {"parallelism_search": lambda: mccm_ops.library(
+                   "parallelism_search"),
+               "mccm_latency": lambda: mccm_ops.library("mccm_latency"),
+               "conv_ce": conv_ops.library}
     t0 = time.perf_counter()
-    built = library()
+    with ThreadPoolExecutor(len(loaders)) as ex:
+        futs = {k: ex.submit(f) for k, f in loaders.items()}
+        built = {k: f.result() for k, f in futs.items()}
     wall = time.perf_counter() - t0
-    report = [ln.strip() for ln in built.ptxas.splitlines()
-              if "ptxas info" in ln and ("Used" in ln or "spill" in ln
-                                         or "Compiling" in ln)]
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", built.ptxas)]
-    spills = [int(x) for x in
-              re.findall(r"(\d+) bytes spill stores", built.ptxas)]
+    kernels = {}
+    for name, b in built.items():
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers",
+                                           b.ptxas)]
+        if not regs:
+            raise PhaseFailed(f"no ptxas report for the {name} kernel")
+        kernels[name] = dict(
+            build_s=b.seconds, library=os.path.relpath(b.path, ROOT),
+            registers=regs, spill_store_bytes=[int(x) for x in re.findall(
+                r"(\d+) bytes spill stores", b.ptxas)],
+            ptxas=[ln.strip() for ln in b.ptxas.splitlines()
+                   if "ptxas info" in ln and ("Used" in ln or "spill" in ln
+                                              or "Compiling" in ln)])
     info = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                 device=torch.cuda.get_device_name(0),
                 matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
                 cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-                build_s=built.seconds, load_s=wall,
-                library=os.path.relpath(built.path, ROOT),
-                registers=regs, spill_store_bytes=spills, ptxas=report)
+                load_s=wall, kernels=kernels)
     emit("build", **info)
-    if not regs:
-        raise PhaseFailed("no ptxas report for the kernel")
     return info
 
 
@@ -197,8 +268,9 @@ def phase_kernel(card: str, device) -> dict:
     if not (bool((pf == 1).all()) and bool((ph == 1).all())
             and bool((pw == 1).all()) and bool(torch.isinf(cost).all())):
         raise PhaseFailed("all-infeasible CEs did not give <1, 1, 1, inf>")
-    emit("kernel_vs_plain", card=card, kernel=KERNEL["name"],
-         replaces=KERNEL["replaces"], rtol_cost=RTOL_KERNEL_COST, **worst)
+    emit("kernel_vs_plain", card=card, kernel="parallelism_search",
+         replaces=KERNELS["parallelism_search"]["replaces"],
+         rtol_cost=RTOL_KERNEL_COST, **worst)
     return worst
 
 
@@ -316,7 +388,7 @@ def phase_load(card: str, device, seed: int, n_designs: int) -> dict:
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
     kernel = dict(
-        **KERNEL, chunk_designs=B, layers_padded=L, pairs=P,
+        **KERNELS["parallelism_search"], chunk_designs=B, layers_padded=L, pairs=P,
         live_layers=live_layers, bytes=in_bytes + out_bytes, ops=ops,
         ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -374,6 +446,358 @@ def _profile(ses, batch, net, wall_unprofiled: float) -> dict:
                         for e in top]}
 
 
+# --------------------------------------------------------------------------
+# phase 5
+# --------------------------------------------------------------------------
+def _scalar_rows(metrics, fields) -> dict:
+    """Scalar Metrics as the golden file keeps them: a float64 array per
+    field, and ce_busy_s as (rows, 16) by CE id with NaN for no CE."""
+    import numpy as np
+    out = {k: np.array([float(getattr(m, k)) for m in metrics], np.float64)
+           for k in fields if k != "ce_busy_s"}
+    busy = np.full((len(metrics), 16), np.nan)
+    for i, m in enumerate(metrics):
+        for ce, b in m.ce_busy_s.items():
+            busy[i, ce] = b
+    out["ce_busy_s"] = busy
+    return out
+
+
+def phase_scalar(card: str, device) -> dict:
+    import numpy as np
+    from repro_torch.api import Session, get_board, get_cnn
+    from repro_torch.cnn.registry import CNN_NAMES
+    from repro_torch.fpga.archs import ARCH_NAMES, make_arch
+    from repro_torch.fpga.boards import BOARD_NAMES
+    from repro_torch.kernels import launches, reset_launches
+
+    golden = np.load(os.path.join(ROOT, "src", "repro_torch", "data",
+                                  "golden_mccm.npz"))
+    worst = {k: 0.0 for k in RTOL_SCALAR}
+    parted: list[dict] = []
+    designs = 0
+    wall = 0.0
+    reset_launches()
+    for cnn in CNN_NAMES:
+        net = get_cnn(cnn)
+        specs = [make_arch(a, net, n) for a in ARCH_NAMES
+                 for n in TEMPLATE_NS]
+        for board in BOARD_NAMES:
+            ses = Session(get_board(board), device=str(device))
+            prefix = f"scalar/{cnn}/{board}/"
+            fields = [k[len(prefix):] for k in golden.files
+                      if k.startswith(prefix)]
+            t0 = time.perf_counter()
+            ms = [ses.evaluate(s, net) for s in specs]
+            wall += time.perf_counter() - t0
+            got = _scalar_rows(ms, fields)
+            if sorted(got) != sorted(fields):
+                raise PhaseFailed(f"{prefix}: golden fields {fields}")
+            for k, g in got.items():
+                if not np.array_equal(g, golden[prefix + k],
+                                      equal_nan=True):
+                    raise PhaseFailed(f"{prefix}{k} differs from the "
+                                      f"golden scalar metrics")
+            batch = ses.evaluate(specs, net)           # on the card
+            for k, tol in RTOL_SCALAR.items():
+                rel = np.abs(batch[k] - got[k]) / np.abs(got[k])
+                # rows where the JAX package's own batch path and Builder
+                # part (the golden file holds both): phase 3 holds the
+                # card's batch to the reference's batch there instead
+                want = golden[f"tmpl/{cnn}/{board}/{k}"]
+                ref_rel = np.abs(want - got[k]) / np.abs(got[k])
+                for i in np.nonzero(ref_rel > tol)[0]:
+                    parted.append(dict(cnn=cnn, board=board,
+                                       design=specs[i].name, metric=k,
+                                       reference_rel=float(ref_rel[i]),
+                                       port_rel=float(rel[i])))
+                rel = float(np.where(ref_rel > tol, 0.0, rel).max())
+                worst[k] = max(worst[k], rel)
+                if rel > tol:
+                    raise PhaseFailed(f"{cnn}/{board}: batch {k} is {rel} "
+                                      f"from the scalar Builder (> {tol})")
+            designs += len(specs)
+    n = launches()
+    emit("scalar_path", card=card, designs=designs, scalar_s=wall,
+         scalar_ms_per_design=wall / designs * 1e3, golden="exact",
+         batch_vs_scalar_rtol=RTOL_SCALAR, batch_vs_scalar_max_rel=worst,
+         reference_batch_parts_from_scalar=parted, launches=n)
+    if n["parallelism_search"] == 0:
+        raise PhaseFailed("the batch path launched no search kernel")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phase 6
+# --------------------------------------------------------------------------
+def _layer_par(db, t, dt, search):
+    """The per-layer ⟨pf, ph, pw⟩ (B, L, 3) that the batch path chooses
+    for ``db``, chunk by chunk as ``evaluate_batch`` runs it, masked to 1
+    off the valid layers as ``layer_state`` does; and ``layer_state``'s
+    own (B, L) cycles for the same choice."""
+    import torch
+    from repro_torch.core.batch_eval import (DEFAULT_CHUNK, _ce_maps,
+                                             _per_layer, _search_ce,
+                                             layer_state)
+    from repro_torch.kernels.mccm_eval import parallelism_search
+    pars, comps = [], []
+    for s in range(0, db.batch, DEFAULT_CHUNK):
+        chunk = db.take(slice(s, s + DEFAULT_CHUNK))
+        m = _ce_maps(chunk, t, dt)
+        pf, ph, pw, _ = parallelism_search(m.pes_ce, _search_ce(m), *search)
+        pars.append(torch.stack(
+            [torch.where(m.valid_b, _per_layer(x, m), 1.0)
+             for x in (pf, ph, pw)], -1))
+        comps.append(layer_state(chunk, t, dt, m, (pf, ph, pw), 2).comp)
+    return torch.cat(pars), torch.cat(comps)
+
+
+def phase_latency(card: str, device, seed: int, n_designs: int) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.api import Session, get_board, get_cnn
+    from repro_torch.core.batch_eval import (_pair_layer_tables,
+                                             make_device_tables,
+                                             make_tables, pes_hint)
+    from repro_torch.core.blocks import layer_cycles
+    from repro_torch.core.dse import encode_specs, sample_mixed
+    from repro_torch.fpga.archs import ARCH_NAMES, make_arch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.mccm_eval import (mccm_latency,
+                                               mccm_latency_ref,
+                                               pair_tables)
+
+    net, board = get_cnn("resnet50"), get_board("zcu102")
+    t = make_tables(net, device=device)
+    dt = make_device_tables(board, device=device)
+    search = _pair_layer_tables(t, pair_tables(t.candidates,
+                                               pes_hint(board.pes)))
+    dims = torch.stack([t.F, t.CKK, t.OH, t.OW], 1)        # (L, 4)
+    db = sample_mixed(np.random.default_rng(seed), len(net),
+                      n_designs).to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    par, comp = _layer_par(db, t, dt, search)
+    tot, cyc = mccm_latency(dims, par)
+    torch.cuda.synchronize()
+    n = launches()
+    peak = torch.cuda.max_memory_allocated(device)
+    if n["mccm_latency"] == 0:
+        raise PhaseFailed("the latency path launched no mccm_latency kernel")
+
+    ref_tot, ref_cyc = mccm_latency_ref(dims, par)
+    torch.cuda.synchronize()
+    if not (torch.equal(tot, ref_tot) and torch.equal(cyc, ref_cyc)):
+        raise PhaseFailed(
+            f"mccm_latency differs from its plain version: "
+            f"{int((tot != ref_tot).sum())} totals, "
+            f"{int((cyc != ref_cyc).sum())} cycles")
+    if not torch.equal(cyc, comp):
+        raise PhaseFailed(f"mccm_latency differs from layer_state's comp in "
+                          f"{int((cyc != comp).sum())} entries")
+    max_abs_err = max(float((tot - ref_tot).abs().max()),
+                      float((cyc - ref_cyc).abs().max()))
+
+    # the 12 templates against the scalar Builder's exact cycles
+    ses = Session(board, device=str(device))
+    specs = [make_arch(a, net, n_) for a in ARCH_NAMES for n_ in TEMPLATE_NS]
+    tpar, _ = _layer_par(encode_specs(specs, len(net), device=device), t, dt,
+                         search)
+    ttot, tcyc = mccm_latency(dims, tpar)
+    tcyc, ttot = tcyc.cpu().numpy(), ttot.cpu().numpy()
+    worst_layer = worst_total = 0.0
+    for i, spec in enumerate(specs):
+        acc = ses.build(spec, net)
+        want = np.zeros(len(net))
+        for seg in acc.segments:
+            for k, li in enumerate(range(seg.spec.layer_lo,
+                                         seg.spec.layer_hi + 1)):
+                want[li] = layer_cycles(net[li], seg.ces[k % len(seg.ces)])
+        worst_layer = max(worst_layer, float(
+            (np.abs(tcyc[i, :len(net)] - want) / want).max()))
+        worst_total = max(worst_total, abs(ttot[i] - want.sum())
+                          / want.sum())
+    if worst_layer > RTOL_LAYER_CYCLES or worst_total > RTOL_TOTAL_CYCLES:
+        raise PhaseFailed(f"mccm_latency vs the scalar Builder: layer rel "
+                          f"{worst_layer}, total rel {worst_total}")
+
+    kernel_ms = cuda_ms(lambda: mccm_latency(dims, par), 20)
+    plain_ms = cuda_ms(lambda: mccm_latency_ref(dims, par), 3)
+    B, L = par.shape[0], dims.shape[0]
+    nbytes = 4 * (dims.numel() + par.numel() + B + B * L)
+    ops = 10 * B * L        # 3 divisions, 3 ceils, 3 products, 1 add
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    kernel = dict(
+        **KERNELS["mccm_latency"], designs=B, layers_padded=L,
+        bytes=nbytes, ops=ops, ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None, launches=n["mccm_latency"],
+        max_abs_err=max_abs_err)
+    emit("latency", card=card, cnn="resnet50", board="zcu102", seed=seed,
+         launches=n, max_memory_allocated=peak, equal_plain=True,
+         equal_layer_state=True, template_layer_max_rel=worst_layer,
+         template_total_max_rel=worst_total, kernel=kernel)
+    return kernel
+
+
+# --------------------------------------------------------------------------
+# phase 7
+# --------------------------------------------------------------------------
+def _conv_layers(net, seed: int, device):
+    """Each conv layer's 'same'-padded IFM and its weights, unit-normal f32
+    from ``seed`` by numpy, on the card.  conv_ce is valid-only, so the
+    IFM is padded here: total max((OH-1)*s + K - I, 0), half (rounded
+    down) on top and left."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as nnf
+    rng = np.random.default_rng(seed)
+    out = []
+    for l in net:
+        x = torch.from_numpy(rng.standard_normal(
+            (l.in_ch, l.ih, l.iw), dtype=np.float32)).to(device)
+        w = torch.from_numpy(rng.standard_normal(
+            (l.out_ch, l.in_ch, l.kh, l.kw), dtype=np.float32)).to(device)
+        ph = max((l.oh - 1) * l.stride + l.kh - l.ih, 0)
+        pw = max((l.ow - 1) * l.stride + l.kw - l.iw, 0)
+        x = nnf.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+        out.append((x, w))
+    return out
+
+
+def _ce_tiles(ses, spec, net):
+    """⟨pf, ph, pw⟩ and the CE of every layer in the Builder's design."""
+    acc = ses.build(spec, net)
+    tiles = [None] * len(net)
+    for seg in acc.segments:
+        for k, li in enumerate(range(seg.spec.layer_lo,
+                                     seg.spec.layer_hi + 1)):
+            ce = seg.ces[k % len(seg.ces)]
+            tiles[li] = (ce, (ce.par_of("f"), ce.par_of("oh"),
+                              ce.par_of("ow")))
+    return tiles
+
+
+def phase_conv(card: str, device, seed: int) -> dict:
+    import statistics as stats
+    import torch
+    import torch.nn.functional as nnf
+    from repro_torch.api import Session, get_board, get_cnn
+    from repro_torch.core.blocks import layer_cycles
+    from repro_torch.fpga.archs import ARCH_NAMES, make_arch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.conv_ce import conv_ce, conv_ref, grid_size
+
+    net = get_cnn("resnet50")
+    if any(l.kind == "dw" for l in net):
+        raise PhaseFailed("the conv phase expects no depthwise layer")
+    ses = Session(get_board("zcu102"), device=str(device))
+    data = _conv_layers(net, seed, device)
+    designs = {a: _ce_tiles(ses, make_arch(a, net, CONV_ARCH_CES), net)
+               for a in ARCH_NAMES}
+    for a, tiles in designs.items():
+        for l, (ce, par) in zip(net, tiles):
+            ckk = l.in_ch * l.kh * l.kw
+            if grid_size(l.out_ch, l.oh, l.ow, *par) * ckk != \
+                    layer_cycles(l, ce):
+                raise PhaseFailed(f"{a}/{l.name}: grid x C*KH*KW is not "
+                                  f"Eq. 1")
+
+    def run(tiles):
+        return [conv_ce(x, w, stride=l.stride, par_f=par[0],
+                        par_oh=par[1], par_ow=par[2])
+                for l, (x, w), (_, par) in zip(net, data, tiles)]
+
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = {a: run(tiles) for a, tiles in designs.items()}
+    torch.cuda.synchronize()
+    n = launches()
+    if n["conv_ce"] != len(designs) * len(net):
+        raise PhaseFailed(f"conv_ce launched {n['conv_ce']} times, not "
+                          f"{len(designs) * len(net)}")
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = [conv_ref(x, w, l.stride) for l, (x, w) in zip(net, data)]
+    stop.record()
+    torch.cuda.synchronize()
+    plain_pass_ms = start.elapsed_time(stop)
+    lib = [nnf.conv2d(x[None], w, stride=l.stride)[0]
+           for l, (x, w) in zip(net, data)]
+    max_abs_err = 0.0
+    worst_lib = 0.0
+    for a, got in outs.items():
+        for l, g, r, lr in zip(net, got, plain, lib):
+            if g.shape != (l.out_ch, l.oh, l.ow):
+                raise PhaseFailed(f"{a}/{l.name}: shape {tuple(g.shape)}")
+            if not torch.equal(g, r):
+                raise PhaseFailed(
+                    f"{a}/{l.name}: conv_ce differs from its plain version "
+                    f"in {int((g != r).sum())} of {g.numel()} outputs")
+            max_abs_err = max(max_abs_err, float((g - r).abs().max()))
+            scale = float(lr.abs().max())
+            excess = float(((g - lr).abs() - RTOL_CONV * lr.abs()).max())
+            worst_lib = max(worst_lib, excess / scale)
+            if excess > RTOL_CONV * scale:
+                raise PhaseFailed(f"{a}/{l.name}: conv_ce is further from "
+                                  f"conv2d than rtol {RTOL_CONV}, atol "
+                                  f"{RTOL_CONV}*max|conv2d|")
+
+    pass_ms = {a: cuda_ms(lambda t=tiles: run(t), 5)
+               for a, tiles in designs.items()}
+    # where a pass's time goes: the slowest layers of each design, with
+    # the grid's blocks and the outputs a full tile holds
+    slowest = {}
+    for a, tiles in designs.items():
+        each = cuda_ms_each([
+            lambda l=l, x=x, w=w, par=par: conv_ce(
+                x, w, stride=l.stride, par_f=par[0], par_oh=par[1],
+                par_ow=par[2])
+            for l, (x, w), (_, par) in zip(net, data, tiles)])
+        top = sorted(range(len(net)), key=lambda i: -each[i])[:5]
+        slowest[a] = [dict(
+            layer=net[i].name, ms=each[i], tile=tiles[i][1],
+            blocks=grid_size(net[i].out_ch, net[i].oh, net[i].ow,
+                             *tiles[i][1]),
+            ckk=net[i].in_ch * net[i].kh * net[i].kw) for i in top]
+    library_ms = cuda_ms(lambda: [nnf.conv2d(x[None], w, stride=l.stride)
+                                  for l, (x, w) in zip(net, data)], 5)
+    big = max(range(len(net)), key=lambda i: net[i].in_ch * net[i].kh
+              * net[i].kw)
+    x, w = data[big]
+    plain_big_ms = cuda_ms(lambda: conv_ref(x, w, net[big].stride), 1)
+    # bound: 2 operations a MAC; each padded input, weight and output once
+    flops = 2 * sum(l.macs for l in net)
+    nbytes = 4 * sum(x.numel() + w.numel() + l.out_ch * l.oh * l.ow
+                     for l, (x, w) in zip(net, data))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_OPS_PER_S * 1e3
+    kernel = dict(
+        **KERNELS["conv_ce"], layers=len(net), designs=list(designs),
+        flops=flops, bytes=nbytes,
+        ms=stats.mean(pass_ms.values()), plain_ms=plain_pass_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=library_ms, launches=n["conv_ce"],
+        max_abs_err=max_abs_err)
+    emit("conv", card=card, cnn="resnet50", board="zcu102", seed=seed,
+         ces=CONV_ARCH_CES, layer_runs=len(designs) * len(net),
+         launches=n, grid_is_eq1=True, equal_plain=True,
+         vs_conv2d=dict(rtol=RTOL_CONV, atol_of_max=RTOL_CONV,
+                        worst_excess_of_max=worst_lib),
+         pass_ms=pass_ms, slowest_layers=slowest,
+         conv2d_pass_ms=library_ms,
+         plain_pass_ms=plain_pass_ms,
+         plain_one_layer=dict(layer=net[big].name, ms=plain_big_ms),
+         kernel=kernel)
+    return kernel
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -393,16 +817,20 @@ def main(argv=None) -> int:
     phase_build(card)
     err = phase_kernel(card, device)
     phase_main_vs_golden(card, device)
-    kernel = phase_load(card, device, args.seed, args.designs)
+    search = phase_load(card, device, args.seed, args.designs)
+    search["max_abs_err"] = err["max_abs_err"]
+    phase_scalar(card, device)
+    latency = phase_latency(card, device, args.seed, args.designs)
+    conv = phase_conv(card, device, args.seed)
     lost = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             or m == "repro" or m.startswith("repro.")]
     if lost:
         raise PhaseFailed(f"imported {lost}")
-    keys = ("name", "route", "source", "replaces", "launches", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    line = {k: kernel[k] for k in keys}
-    line["max_abs_err"] = err["max_abs_err"]
-    print(json.dumps({"kernels": [line]}), flush=True)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: kernel[k] for k in keys}
+                                  for kernel in (search, latency, conv)]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """The evaluation error taxonomy and the finite guard.
 
-:class:`EvalError` is how every Session-level failure is expressed;
-:func:`nonfinite_keys` backs the NaN/Inf check of ``Session.evaluate``.
+:class:`EvalError` is how every Session-level failure is expressed, and
+:func:`classify`/:func:`wrap` map an arbitrary exception onto it (the
+error boundary of ``Session.evaluate`` on one design);
+:func:`nonfinite_keys` backs the NaN/Inf check of the batch path.
 Retries, the circuit breaker and checkpoints are still to be ported.
 """
 from __future__ import annotations
@@ -39,6 +41,31 @@ class EvalError(RuntimeError):
         super().__init__(f"[{code}] {message}")
         self.code = code
         self.message = message
+
+
+#: exception families that mean "the caller's input was bad" rather than
+#: "the backend broke"
+_INPUT_ERRORS = (ValueError, TypeError, KeyError, IndexError,
+                 AttributeError)
+
+
+def classify(exc: BaseException) -> str:
+    """Map an arbitrary exception onto an :class:`EvalError` code."""
+    if isinstance(exc, EvalError):
+        return exc.code
+    if isinstance(exc, _INPUT_ERRORS):
+        return EvalError.INVALID_INPUT
+    return EvalError.BACKEND_FAULT
+
+
+def wrap(exc: BaseException, code: str | None = None) -> EvalError:
+    """Wrap ``exc`` as an :class:`EvalError` (pass-through if it already
+    is one), keeping the original message so callers matching on detail
+    text keep working."""
+    if isinstance(exc, EvalError):
+        return exc
+    return EvalError(code or classify(exc),
+                     f"{type(exc).__name__}: {exc}")
 
 
 def nonfinite_keys(out: dict) -> list[str]:

@@ -1,11 +1,14 @@
 """The front door of the port: a :class:`Session` owns the memoized tables
 and the evaluation knobs, and scores designs on one device.
 
-The PyTorch port of the JAX package's ``core/session.py``, trimmed to the
-batch-evaluation path: ``evaluate`` on a list of specs or notation strings
-and on a ``DesignBatch``.  The device is explicit: ``cuda`` unless the
-caller passes ``device="cpu"``, and a Session asked for ``cuda`` on a
-machine without a visible card raises instead of running on the CPU.
+The PyTorch port of the JAX package's ``core/session.py``, trimmed to
+evaluation: ``evaluate`` on one spec or notation string (the scalar
+Builder, plain Python on the host, whatever the session's device), on a
+list of them and on a ``DesignBatch`` (the batch path, on the session's
+device); ``build`` and ``explain`` on one design.  The device is explicit:
+``cuda`` unless the caller passes ``device="cpu"``, and a Session asked
+for ``cuda`` on a machine without a visible card raises instead of running
+on the CPU.
 """
 from __future__ import annotations
 
@@ -15,14 +18,16 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..telemetry.report import bottleneck_report
 from .batch_eval import (DEFAULT_CHUNK, DEFAULT_TILE, DeviceTables,
                          NetTables, _evaluate_specs, bucket_max_L,
                          evaluate_batch, make_device_tables, make_tables)
 from .cache import DEFAULT_MAX_TABLES, TABLES_ENV, BoundedLRU, env_bound
 from .device import DeviceSpec
 from .dse.encoding import NC, DesignBatch, validate_batch
+from .evaluator import _evaluate_design, build_design
 from .notation import AcceleratorSpec, parse
-from .resilience import EvalError, nonfinite_keys
+from .resilience import EvalError, nonfinite_keys, wrap
 from .workload import Network
 
 
@@ -65,12 +70,14 @@ class SessionStats:
     net_table_evictions: int = 0
     device_table_evictions: int = 0
     batch_designs: int = 0
+    scalar_evals: int = 0
 
 
 class Session:
-    """One front door for batch MCCM evaluation on one device.
+    """One front door for MCCM evaluation on one device.
 
     >>> ses = Session(get_board("zc706"))                 # on the card
+    >>> ses.evaluate(spec, net)                           # Metrics
     >>> ses.evaluate([spec_a, spec_b], net)               # metric arrays
     >>> ses.evaluate(design_batch, net)                   # metric tensors
     """
@@ -152,22 +159,34 @@ class Session:
     # ---- evaluation ------------------------------------------------------
     def evaluate(self, designs, net: Network, dev: DeviceSpec | None = None,
                  *, inter_segment_pipelining: bool = True):
-        """Evaluate designs of ``net`` on ``dev``, dispatching on input:
+        """Evaluate design(s) of ``net`` on ``dev``, dispatching on input:
 
+        * a single spec or notation string -> the scalar Builder, returning
+          a full :class:`~repro_torch.core.accelerator.Metrics` (with
+          per-segment, per-layer and per-CE detail).  It runs on the host
+          in plain Python, on a ``cuda`` session too;
         * a list/tuple of specs or notation strings -> the chunked batch
           path, returning ``{metric: np.ndarray}``;
         * a ``DesignBatch`` -> the batch path verbatim, returning
           ``{metric: torch.Tensor}`` on the session's device.
 
         ``inter_segment_pipelining`` applies to notation strings only.
-        A single spec or string (the scalar Builder path) is not ported yet.
         """
-        if isinstance(designs, (str, AcceleratorSpec)):
-            raise NotImplementedError(
-                "single-design evaluation runs the scalar Builder, which "
-                "the port does not have yet (ROADMAP.md, queue 1, item "
-                "4: the scalar Builder); pass a list of one design")
         dev = self._device(dev)
+        if isinstance(designs, (str, AcceleratorSpec)):
+            self._bump("scalar_evals")
+            try:
+                m = _evaluate_design(
+                    designs, net, dev,
+                    inter_segment_pipelining=inter_segment_pipelining)
+            except Exception as e:  # noqa: BLE001 — taxonomy boundary
+                raise wrap(e) from e
+            if not np.isfinite([m.latency_s, m.throughput_ips,
+                                float(m.buffer_bytes)]).all():
+                raise EvalError(EvalError.NONFINITE_METRICS,
+                                "scalar evaluation produced non-finite "
+                                "metrics")
+            return m
         cfg = self.config
         if isinstance(designs, DesignBatch):
             try:
@@ -206,3 +225,44 @@ class Session:
             raise EvalError(EvalError.NONFINITE_METRICS,
                             f"non-finite metrics {bad}")
         return out
+
+    def build(self, design, net: Network, dev: DeviceSpec | None = None,
+              *, opts=None, inter_segment_pipelining: bool = True):
+        """Build the :class:`ConcreteAccelerator` for a design (the object
+        ``evaluate`` scores — same parse flags, so they always agree)."""
+        return build_design(design, net, self._device(dev), opts,
+                            inter_segment_pipelining=inter_segment_pipelining)
+
+    # ---- bottleneck attribution (paper use case 2) -----------------------
+    def explain(self, design, net: Network, dev: DeviceSpec | None = None,
+                *, inter_segment_pipelining: bool = True,
+                refine: str | None = None) -> dict:
+        """Rank where a single design's time and off-chip traffic go.
+
+        Evaluates ``design`` through the scalar path and returns the
+        :func:`repro_torch.telemetry.report.bottleneck_report` dict:
+        segments ranked by occupancy with compute/memory bound verdicts,
+        the busiest CE, Fig. 6's memory-bound layers and idle fraction, and
+        Fig. 7's weights-vs-FMs access split.
+
+        ``refine="schedule"`` (the JAX package's per-CE temporal-mapping
+        refinement) raises ``NotImplementedError``: the schedule layer is
+        a later slice of the port (``ROADMAP.md``, queue 1).
+        """
+        if not isinstance(design, (str, AcceleratorSpec)):
+            raise EvalError(
+                EvalError.INVALID_INPUT,
+                "explain() takes one design (notation string or "
+                "AcceleratorSpec); use evaluate() for batches")
+        if refine not in (None, "schedule"):
+            raise EvalError(EvalError.INVALID_INPUT,
+                            f"unknown refine mode {refine!r} "
+                            "(expected None or 'schedule')")
+        if refine == "schedule":
+            raise NotImplementedError(
+                "explain(refine='schedule') needs the schedule layer, which "
+                "the port does not have yet (ROADMAP.md, queue 1: the "
+                "schedule slice)")
+        return bottleneck_report(self.evaluate(
+            design, net, dev,
+            inter_segment_pipelining=inter_segment_pipelining))

@@ -38,7 +38,10 @@ class Built:
     ptxas: str          # nvcc's -Xptxas -v report (registers, smem, spills)
 
 
-_LOCK = threading.Lock()
+#: one lock per library path: two threads never build the same library,
+#: and different sources build in parallel
+_LOCKS: dict[Path, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -49,13 +52,16 @@ def nvcc_path() -> str:
 
 def load(source: Path) -> Built:
     """Compile ``source`` (unless a library of the same content and flags
-    is already built) and load it.  Callers keep the result."""
+    is already built) and load it.  Callers keep the result.  Threads
+    loading different sources compile them in parallel."""
     source = Path(source)
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-{digest}.so"
     report = out.with_suffix(".ptxas.txt")
-    with _LOCK:
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(out, threading.Lock())
+    with lock:
         seconds = 0.0
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,9 +1,11 @@
-"""Dispatch and shared static tables for the MCCM parallelism search.
+"""Dispatch and shared static tables for the MCCM evaluation kernels: the
+fused parallelism search and the Eq. 1 latency sweep.
 
 The tensor's device picks the route: a CPU tensor runs the plain PyTorch
-version (``ref.parallelism_search_ref``), a CUDA tensor launches the
-hand-written kernel (``csrc/parallelism_search.cu``) or raises.  There is
-no fallback from the card to the plain version.
+version (``ref.parallelism_search_ref``, ``ref.mccm_latency_ref``), a CUDA
+tensor launches the hand-written kernel (``csrc/parallelism_search.cu``,
+``csrc/mccm_latency.cu``) or raises.  There is no fallback from the card to
+the plain version.
 """
 from __future__ import annotations
 
@@ -15,11 +17,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .ref import parallelism_search_ref
+from .. import _LAUNCHES
+from .ref import mccm_latency_ref, parallelism_search_ref
 
 NC = 16      # CEs per design: the kernel's compile-time width
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "parallelism_search.cu"
+LATENCY_SOURCE = SOURCE.with_name("mccm_latency.cu")
+
+#: most layers the latency kernel takes: its (L, 4) dims table and one
+#: design's (L + 1)-word row of cycles fill its 48 KB of shared memory
+LATENCY_MAX_L = 2457
 
 
 class PairTables(NamedTuple):
@@ -73,39 +81,33 @@ def set_fault_hook(hook):
     return prev
 
 
-#: kernel launches since the last ``reset_launches()``, by kernel name.
-#: Only the kernel wrapper adds to it, once per launch.
-_LAUNCHES = {"parallelism_search": 0}
+#: each kernel's source, C entry point and argument types (ctypes.c_void_p
+#: for every pointer and the stream, ctypes.c_int for an int)
+_KERNELS = {
+    "parallelism_search": (SOURCE, "mccm_parallelism_search",
+                           [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p]),
+    "mccm_latency": (LATENCY_SOURCE, "mccm_latency",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                     + [ctypes.c_void_p]),
+}
+
+_BUILT: dict = {}
 
 
-def launches() -> dict[str, int]:
-    """Kernel launches counted since the last :func:`reset_launches`."""
-    return dict(_LAUNCHES)
-
-
-def reset_launches() -> None:
-    """Set every launch count to 0."""
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
-
-
-_BUILT = None
-
-
-def library():
-    """The kernel library, built at the first call (an ``_nvcc.Built``
-    record: the loaded library, its path, build seconds, ptxas report),
-    with its C signature declared."""
-    global _BUILT
-    if _BUILT is None:
+def library(name: str):
+    """The library of kernel ``name`` (a key of ``_KERNELS``), built at the
+    first call (an ``_nvcc.Built`` record: the loaded library, its path,
+    build seconds, ptxas report), with its C signature declared."""
+    if name not in _BUILT:
         from .._nvcc import load
-        built = load(SOURCE)
-        fn = built.lib.mccm_parallelism_search
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        source, symbol, argtypes = _KERNELS[name]
+        built = load(source)
+        fn = getattr(built.lib, symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _BUILT = built
-    return _BUILT
+        _BUILT[name] = built
+    return _BUILT[name]
 
 
 def parallelism_search_cuda(pes_ce, ce_idx, fc_pair, coh_pair, ow, cand,
@@ -145,7 +147,7 @@ def parallelism_search_cuda(pes_ce, ce_idx, fc_pair, coh_pair, ow, cand,
             for _ in range(4)]
     if B == 0:
         return tuple(outs)
-    built = library()
+    built = library("parallelism_search")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = built.lib.mccm_parallelism_search(
@@ -177,3 +179,63 @@ def parallelism_search(pes_ce, ce_idx, fc_pair, coh_pair, ow, cand,
         raise ValueError(f"no parallelism_search route for a tensor on "
                          f"{pes_ce.device}; use a CPU or CUDA tensor")
     return parallelism_search_ref(*args)
+
+
+def mccm_latency_cuda(dims, par):
+    """Launch the Eq. 1 latency kernel on the current stream.
+
+    dims (L, 4) f32 [F, C*KH*KW, OH, OW] and par (B, L, 3) f32 ⟨pf, ph,
+    pw⟩, both on one CUDA device.  Returns ((B,) totals, (B, L) cycles),
+    equal to ``mccm_latency_ref`` on the same inputs bit for bit.
+    """
+    for name, a in (("dims", dims), ("par", par)):
+        if a.device != dims.device or a.device.type != "cuda":
+            raise ValueError(f"{name} is on {a.device}; both arguments "
+                             f"must be on one CUDA device ({dims.device})")
+        if a.dtype != torch.float32:
+            raise TypeError(f"{name} must be torch.float32, got {a.dtype}")
+    if dims.dim() != 2 or dims.shape[1] != 4 or par.dim() != 3 \
+            or par.shape[1:] != (dims.shape[0], 3):
+        raise ValueError(f"dims {tuple(dims.shape)} / par "
+                         f"{tuple(par.shape)} must be (L, 4) / (B, L, 3)")
+    B, L = par.shape[0], dims.shape[0]
+    if not 1 <= L <= LATENCY_MAX_L:
+        raise ValueError(f"the latency kernel takes 1 to {LATENCY_MAX_L} "
+                         f"layers, got {L}")
+    dims, par = dims.contiguous(), par.contiguous()
+    tot = torch.empty(B, dtype=torch.float32, device=dims.device)
+    cyc = torch.empty(B, L, dtype=torch.float32, device=dims.device)
+    if B == 0:
+        return tot, cyc
+    built = library("mccm_latency")
+    with torch.cuda.device(dims.device):
+        stream = torch.cuda.current_stream(dims.device).cuda_stream
+        err = built.lib.mccm_latency(dims.data_ptr(), par.data_ptr(),
+                                     tot.data_ptr(), cyc.data_ptr(), B, L,
+                                     stream)
+    if err != 0:
+        raise RuntimeError(f"mccm_latency kernel launch failed: CUDA error "
+                           f"{err}")
+    _LAUNCHES["mccm_latency"] += 1
+    return tot, cyc
+
+
+def mccm_latency(dims, par):
+    """Eq. 1 over a design batch, routed by the tensors' device.
+
+    dims (L, 4) f32 [F, C*KH*KW, OH, OW]; par (B, L, 3) f32 ⟨pf, ph, pw⟩
+    of each design's layers.  Returns ((B,) total Eq. 1 cycles, (B, L)
+    per-layer cycles).  A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel, and an error there propagates.
+
+    The JAX package's ``mccm_latency`` also takes ``design_blk`` and
+    ``interpret``: the TPU kernel's design tile and its CPU interpreter.
+    Neither has a counterpart here (the CUDA kernel picks its own tile, and
+    the CPU runs the plain version), so the port drops both.
+    """
+    if dims.device.type == "cuda":
+        return mccm_latency_cuda(dims, par)
+    if dims.device.type != "cpu":
+        raise ValueError(f"no mccm_latency route for a tensor on "
+                         f"{dims.device}; use a CPU or CUDA tensor")
+    return mccm_latency_ref(dims, par)

@@ -1,7 +1,12 @@
-"""Plain PyTorch version of the fused ⟨pf, ph, pw⟩ parallelism search.
+"""Plain PyTorch versions of the MCCM evaluation kernels.
 
-The port of the JAX package's ``kernels/mccm_eval/ref.py::
-parallelism_search_ref``.  It is what a CPU tensor runs, and what the CUDA
+``mccm_latency_ref`` is the Eq. 1 sweep, the JAX package's
+``kernels/mccm_eval/ref.py::mccm_latency_ref`` with the per-design total
+added left to right over the layers, the order the CUDA kernel
+(``csrc/mccm_latency.cu``) keeps, so that the two agree bit for bit.
+
+``parallelism_search_ref`` is the port of the JAX package's
+``parallelism_search_ref``.  It is what a CPU tensor runs, and what the CUDA
 kernel (``csrc/parallelism_search.cu``) is held against on the card.  Both
 take the same arguments: one CE index per layer (where the JAX version
 takes the index and its one-hot) and the raw ``ow`` column (where it takes
@@ -19,6 +24,27 @@ in.  Equal order gives equal costs, and so equal argmins.
 from __future__ import annotations
 
 import torch
+
+
+def mccm_latency_ref(dims, par):
+    """Eq. 1 over a design batch.
+
+    dims: (L, 4) f32 — per-layer (F, CKK, OH, OW);
+    par : (B, L, 3) f32 — per-design per-layer ⟨pf, ph, pw⟩ (already
+          gathered from the layer's CE).
+    Returns (B,) total cycles and (B, L) per-layer cycles
+    ``ceil(F/pf)·CKK·ceil(OH/ph)·ceil(OW/pw)``, multiplied left to right as
+    ``batch_eval.layer_state`` computes its ``comp``.  The total adds the L
+    cycles in ascending layer order.
+    """
+    F, CKK, OH, OW = dims.unbind(1)
+    cyc = (torch.ceil(F[None] / par[..., 0]) * CKK[None]
+           * torch.ceil(OH[None] / par[..., 1])
+           * torch.ceil(OW[None] / par[..., 2]))
+    tot = cyc[:, 0]
+    for l in range(1, cyc.shape[1]):
+        tot = tot + cyc[:, l]
+    return tot, cyc
 
 
 def parallelism_search_ref(pes_ce, ce_idx, fc_pair, coh_pair, ow, cand,

@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA search kernel against its plain PyTorch
-version, and the Session's main path through the kernel.
+"""The port on the card: each CUDA kernel (the parallelism search, the Eq. 1
+latency sweep, the CE convolution) against its plain PyTorch version, and
+the Session's main path through the search kernel.
 
 Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
 no card is visible (the decision is made in the fixture, never at import).
@@ -21,7 +22,9 @@ from repro_torch.core.batch_eval import (_ce_maps, _pair_layer_tables,
 from repro_torch.core.dse import encode_specs, sample_mixed
 from repro_torch.fpga.archs import ARCH_NAMES, make_arch
 from repro_torch.fpga.boards import BOARD_NAMES
-from repro_torch.kernels.mccm_eval import (launches, pair_tables,
+from repro_torch.kernels.conv_ce import conv_ce, conv_ref, grid_size
+from repro_torch.kernels.mccm_eval import (launches, mccm_latency,
+                                           mccm_latency_ref, pair_tables,
                                            parallelism_search,
                                            parallelism_search_ref,
                                            reset_launches)
@@ -97,3 +100,70 @@ def test_session_on_card_goes_through_kernel(cuda):
         else:
             np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
                                        err_msg=k)
+
+
+def test_mccm_latency_kernel_equals_plain_on_card(cuda):
+    """Per-layer ⟨pf, ph, pw⟩ as the batch path chooses them for 3000
+    ResNet-50 designs: the kernel equals its plain version and the batch
+    path's own cycles bit for bit; plus a ragged batch of random ones."""
+    from repro_torch.core.batch_eval import _per_layer, layer_state
+    net, board = get_cnn("resnet50"), get_board("zcu102")
+    t = make_tables(net, device=cuda)
+    dt = make_device_tables(board, device=cuda)
+    db = sample_mixed(np.random.default_rng(3), len(net), 3000).to(cuda)
+    m = _ce_maps(db, t, dt)
+    pf, ph, pw, _ = parallelism_search(
+        m.pes_ce, _search_ce(m),
+        *_pair_layer_tables(t, pair_tables(t.candidates, pes_hint(
+            board.pes))))
+    par = torch.stack([torch.where(m.valid_b, _per_layer(x, m), 1.0)
+                       for x in (pf, ph, pw)], -1)
+    dims = torch.stack([t.F, t.CKK, t.OH, t.OW], 1)
+    reset_launches()
+    tot, cyc = mccm_latency(dims, par)
+    assert launches()["mccm_latency"] == 1
+    rtot, rcyc = mccm_latency_ref(dims, par)
+    assert torch.equal(tot, rtot) and torch.equal(cyc, rcyc)
+    assert torch.equal(cyc, layer_state(db, t, dt, m, (pf, ph, pw), 2).comp)
+    rng = np.random.default_rng(4)
+    dims = torch.from_numpy(rng.integers(0, 4096, (77, 4)).astype(
+        np.float32)).to(cuda)
+    par = torch.from_numpy(rng.choice([1, 3, 7, 24, 512], (131, 77, 3))
+                           .astype(np.float32)).to(cuda)
+    for k, r in zip(mccm_latency(dims, par), mccm_latency_ref(dims, par)):
+        assert torch.equal(k, r)
+
+
+@pytest.mark.parametrize("C,H,W,F,K,stride,par,dtype", [
+    (3, 16, 16, 8, 3, 1, (4, 4, 4), torch.float32),
+    (4, 15, 15, 6, 3, 2, (4, 3, 5), torch.float32),
+    (8, 10, 10, 16, 5, 1, (16, 2, 3), torch.float32),
+    (2, 9, 9, 3, 3, 1, (2, 2, 2), torch.float32),
+    (64, 30, 30, 96, 3, 1, (12, 8, 21), torch.float32),
+    (256, 16, 16, 100, 1, 2, (1, 1, 512), torch.float32),
+    (16, 15, 15, 6, 3, 2, (4, 3, 5), torch.bfloat16),
+])
+def test_conv_ce_kernel_equals_plain_on_card(cuda, C, H, W, F, K, stride,
+                                             par, dtype):
+    rng = np.random.default_rng(C * H + F)
+    x = torch.from_numpy(rng.standard_normal((C, H, W), dtype=np.float32)
+                         ).to(cuda, dtype)
+    w = torch.from_numpy(rng.standard_normal((F, C, K, K), dtype=np.float32)
+                         ).to(cuda, dtype)
+    reset_launches()
+    got = conv_ce(x, w, stride=stride, par_f=par[0], par_oh=par[1],
+                  par_ow=par[2])
+    assert launches()["conv_ce"] == 1
+    want = conv_ref(x, w, stride)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+    OH, OW = got.shape[1:]
+    assert grid_size(F, OH, OW, *par) == \
+        -(-F // par[0]) * -(-OH // par[1]) * -(-OW // par[2])
+
+
+def test_conv_ce_grid_limit_raises(cuda):
+    x = torch.zeros(1, 70000, 1, device=cuda)
+    w = torch.zeros(1, 1, 1, 1, device=cuda)
+    with pytest.raises(ValueError, match="65535"):
+        conv_ce(x, w, par_f=1, par_oh=1, par_ow=1)

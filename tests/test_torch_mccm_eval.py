@@ -1,15 +1,25 @@
-"""The port's parallelism search (``repro_torch.kernels.mccm_eval``) against
-the JAX package's, on the CPU.
+"""The port's MCCM evaluation kernels (``repro_torch.kernels.mccm_eval``)
+against the JAX package's, on the CPU.
 
-The same inputs, built by the JAX package from the baseline templates, go
-through the JAX plain reference and the port's plain version (the route a
-CPU tensor takes).  ⟨pf, ph, pw⟩ must be exactly equal; the cost within
-rtol 1e-6 (it is equal bit for bit today: both sum the layers in ascending
-order), with inf where the reference has inf.  The CUDA kernel itself runs
-only on the card: ``tests/test_torch_cuda.py``.
+The parallelism search: the same inputs, built by the JAX package from the
+baseline templates, go through the JAX plain reference and the port's
+plain version (the route a CPU tensor takes).  ⟨pf, ph, pw⟩ must be
+exactly equal; the cost within rtol 1e-6 (it is equal bit for bit today:
+both sum the layers in ascending order), with inf where the reference has
+inf.
+
+The Eq. 1 latency sweep: the port's plain version against the JAX Pallas
+kernel (interpret mode) and its reference at ``tests/test_kernels.py``'s
+shapes, rtol 1e-6 (the per-layer cycles are equal; the totals may differ
+in the last bits, the JAX sum having its own order), and against the
+batch path's own ``layer_state`` cycles bit for bit.
+
+The CUDA kernels themselves run only on the card:
+``tests/test_torch_cuda.py``.
 """
 from __future__ import annotations
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,8 +35,13 @@ from repro.fpga.archs import ARCH_NAMES, make_arch
 from repro.fpga.boards import get_board as jax_get_board
 from repro.kernels.mccm_eval import pair_tables as jax_pair_tables
 from repro.kernels.mccm_eval import parallelism_search as jax_search
+from repro.kernels.mccm_eval.ops import mccm_latency as jax_mccm_latency
+from repro.kernels.mccm_eval.ref import \
+    mccm_latency_ref as jax_mccm_latency_ref
 from repro_torch.kernels import _nvcc
-from repro_torch.kernels.mccm_eval import (launches, pair_tables,
+from repro_torch.kernels.mccm_eval import (launches, mccm_latency,
+                                           mccm_latency_cuda,
+                                           mccm_latency_ref, pair_tables,
                                            parallelism_search,
                                            parallelism_search_cuda,
                                            reset_launches, set_fault_hook)
@@ -103,7 +118,8 @@ def test_cpu_route_launches_no_kernel():
     args, _ = _jax_search_inputs("mobilenetv2")
     reset_launches()
     parallelism_search(*args)
-    assert launches() == {"parallelism_search": 0}
+    assert launches()["parallelism_search"] == 0
+    assert not any(launches().values())
 
 
 def test_tensor_on_another_device_raises():
@@ -119,7 +135,7 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     args, _ = _jax_search_inputs("mobilenetv2")
     with pytest.raises(ValueError, match="one CUDA device"):
         parallelism_search_cuda(*args)
-    assert launches() == {"parallelism_search": 0}
+    assert launches()["parallelism_search"] == 0
 
 
 def test_fault_hook_seam():
@@ -145,3 +161,68 @@ def test_kernel_build_flags():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "--fmad=false" in flags
     assert _nvcc.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+
+
+# ------------------------------------------------------------ mccm_latency
+@pytest.mark.parametrize("B,L,blk", [(7, 53, 8), (64, 155, 64),
+                                     (130, 74, 32)])
+def test_mccm_latency_matches_jax(B, L, blk):
+    """``tests/test_kernels.py:78``'s shapes and inputs: the port's plain
+    version against the JAX Pallas kernel (interpret) and its reference."""
+    rng = np.random.default_rng(0)
+    dims = rng.integers(1, 512, (L, 4)).astype(np.float32)
+    par = rng.choice([1, 2, 4, 8, 16, 32], (B, L, 3)).astype(np.float32)
+    tot, cyc = mccm_latency(torch.from_numpy(dims), torch.from_numpy(par))
+    assert tot.shape == (B,) and cyc.shape == (B, L)
+    for want_tot, want_cyc in (
+            jax_mccm_latency(jnp.asarray(dims), jnp.asarray(par),
+                             design_blk=blk),
+            jax_mccm_latency_ref(jnp.asarray(dims), jnp.asarray(par))):
+        np.testing.assert_allclose(cyc.numpy(), np.asarray(want_cyc),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(tot.numpy(), np.asarray(want_tot),
+                                   rtol=1e-6)
+    # the total adds the layers left to right
+    acc = cyc[:, 0].clone()
+    for l in range(1, L):
+        acc += cyc[:, l]
+    assert torch.equal(tot, acc)
+
+
+@pytest.mark.parametrize("cnn", ["resnet50", "mobilenetv2"])
+def test_mccm_latency_equals_layer_state(cnn):
+    """Per-layer ⟨pf, ph, pw⟩ from the batch path's own search, masked to
+    1 off the valid layers as ``layer_state`` does: the plain version's
+    cycles equal ``layer_state(...).comp`` bit for bit."""
+    from repro_torch.cnn.registry import get_cnn
+    from repro_torch.core import batch_eval as tbe
+    from repro_torch.core.dse import sample_mixed
+    from repro_torch.fpga.boards import get_board
+    net, board = get_cnn(cnn), get_board("zcu102")
+    t = tbe.make_tables(net, device="cpu")
+    dt = tbe.make_device_tables(board, device="cpu")
+    db = sample_mixed(np.random.default_rng(11), len(net), 48)
+    search = tbe._pair_layer_tables(
+        t, pair_tables(t.candidates, tbe.pes_hint(board.pes)))
+    m = tbe._ce_maps(db, t, dt)
+    pf, ph, pw, _ = parallelism_search(m.pes_ce, tbe._search_ce(m), *search)
+    par = torch.stack([torch.where(m.valid_b, tbe._per_layer(x, m), 1.0)
+                       for x in (pf, ph, pw)], -1)
+    dims = torch.stack([t.F, t.CKK, t.OH, t.OW], 1)
+    tot, cyc = mccm_latency(dims, par)
+    st = tbe.layer_state(db, t, dt, m, (pf, ph, pw), 2)
+    assert torch.equal(cyc, st.comp)
+    assert torch.equal(cyc[:, t.L:], torch.zeros_like(cyc[:, t.L:]))
+    assert torch.equal(tot, mccm_latency_ref(dims, par)[0])
+
+
+def test_mccm_latency_routes():
+    dims, par = torch.ones(5, 4), torch.ones(3, 5, 3)
+    reset_launches()
+    mccm_latency(dims, par)
+    assert not any(launches().values())
+    with pytest.raises(ValueError, match="no mccm_latency route"):
+        mccm_latency(dims.to("meta"), par.to("meta"))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        mccm_latency_cuda(dims, par)
+    assert launches()["mccm_latency"] == 0

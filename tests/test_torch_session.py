@@ -131,8 +131,13 @@ def test_session_without_card_raises(monkeypatch):
 def test_session_errors():
     net = get_cnn("resnet50")
     ses = Session(get_board("zcu102"), device="cpu")
-    with pytest.raises(NotImplementedError, match="scalar Builder"):
-        ses.evaluate("{L1-Last:CE1-CE4}", net)
+    # one design runs the scalar Builder: a Metrics, and its errors are
+    # EvalErrors too
+    m = ses.evaluate("{L1-Last:CE1-CE4}", net)
+    assert m.latency_s > 0 and len(m.per_segment) == 1
+    with pytest.raises(EvalError) as e:
+        ses.evaluate("{L1-L9:CE1}", net)
+    assert e.value.code == EvalError.INVALID_INPUT
     with pytest.raises(EvalError) as e:
         ses.evaluate(["{L1-L9:CE1}"], net)          # does not cover layers
     assert e.value.code == EvalError.INVALID_INPUT
