@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's MCCM paths on one NVIDIA card, and check them.
+"""Drive the PyTorch port's MCCM and LM serving paths on one NVIDIA card,
+and check them.
 
     python3 chip_smoke.py [--seed N] [--designs N]
 
@@ -6,7 +7,7 @@ Phases, each printing one JSON line:
 
 1. card and build: the card, torch/CUDA versions, both TF32 flags (set
    False here: no matmul or convolution may run in TF32), and the ``nvcc``
-   builds of the three kernels, started together, with their ptxas
+   builds of the four kernels, started together, with their ptxas
    reports;
 2. the search kernel against its plain PyTorch version on the card, on the
    baseline templates of every CNN x board, on 4096 ``sample_mixed`` rows
@@ -36,7 +37,23 @@ Phases, each printing one JSON line:
    ``--seed``), each on its CE's ⟨pf, ph, pw⟩ in the port's Builder for
    every baseline arch with 11 CEs on ZCU102: the grid identity of Eq. 1
    exactly, the kernel equal to its plain version bit for bit and near
-   ``conv2d``; ms per ResNet-50 pass beside ``conv2d``'s and the bound.
+   ``conv2d``; ms per ResNet-50 pass beside ``conv2d``'s and the bound;
+8. the flash-attention kernel at Llama-3.2-1B's attention shape (B 4, S
+   4096, 32 query heads, 8 KV heads, head dim 64, causal) in bf16 and f32,
+   plus a ragged (S 4000) and a sliding-window case: the kernel against
+   its plain version on the card within the stated tolerance; ms, plain
+   ms, ``scaled_dot_product_attention``'s ms (timed only) and the bound;
+9. the LM serving path at full width: Llama-3.2-1B in bf16 with random
+   weights from ``--seed``, ``ServeEngine.generate`` on 4 prompts of
+   2300-4000 tokens (so prefill's attention is the chunked path) and 16
+   greedy tokens: ``flash_fwd`` launched once per layer in prefill and
+   never in decode, finite logits and in-vocab tokens, and the kernel
+   against its plain version on layer 0's real q, k and v; prefill s,
+   decode tokens/s, peak memory;
+10. the reduced Llama config in f32 against the golden file the JAX
+   package wrote (``src/repro_torch/data/golden_lm.npz``): greedy tokens
+   equal, prefill's last logits within the stated tolerance, on a batch
+   longer than 2048 tokens (chunked, the kernel) and a short one (dense).
 
 Then the ``kernels`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
@@ -60,6 +77,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 KERNELS = {
     "parallelism_search": dict(
@@ -74,6 +92,10 @@ KERNELS = {
         name="conv_ce", route="cuda",
         source="src/repro_torch/kernels/conv_ce/csrc/conv_ce.cu",
         replaces="src/repro/kernels/conv_ce/kernel.py:66"),
+    "flash_fwd": dict(
+        name="flash_fwd", route="cuda",
+        source="src/repro_torch/kernels/flash_attn/csrc/flash_fwd.cu",
+        replaces="src/repro/kernels/flash_attn/kernel.py:78"),
 }
 
 #: device cycles of the sleep queued ahead of a timed run (~0.1 s)
@@ -97,6 +119,20 @@ RTOL_TOTAL_CYCLES = 1e-5
 #: f32 ulps of the largest partial sums
 RTOL_CONV = 1e-4
 CONV_ARCH_CES = 11
+#: flash_fwd against its plain version on the card: element by element,
+#: |got - want| <= rtol·|want| + atol at the dtype's
+#: ``repro_torch.kernels.flash_attn.ref.TOLERANCE`` (f32: atol 2e-5; bf16:
+#: one bf16 ulp, 2**-7·|want|, plus the same atol)
+#: the reduced Llama config in f32 against the JAX package's logits: the
+#: two packages sum d_model-long products in different orders; they part
+#: by under 1e-6 on the CPU
+LM_LOGITS_ATOL = 1e-5
+#: phase 8's shapes: Llama-3.2-1B's attention at batch 4 and 4096 tokens,
+#: a ragged length and a window that cuts KV tiles
+FLASH_B, FLASH_S, FLASH_RAGGED_S, FLASH_WINDOW = 4, 4096, 4000, 1000
+#: phase 9: 4 prompts of 2300-4000 tokens (the longest 4000), so ``auto``
+#: attention resolves to the chunked path; greedy new tokens
+SERVE_PROMPTS, SERVE_LENS, SERVE_NEW_TOKENS = 4, (2300, 4000), 16
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -161,10 +197,12 @@ def phase_build(card: str) -> dict:
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.conv_ce import ops as conv_ops
     from repro_torch.kernels.mccm_eval import ops as mccm_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
     loaders = {"parallelism_search": lambda: mccm_ops.library(
                    "parallelism_search"),
                "mccm_latency": lambda: mccm_ops.library("mccm_latency"),
-               "conv_ce": conv_ops.library}
+               "conv_ce": conv_ops.library,
+               "flash_fwd": flash_ops.library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as ex:
         futs = {k: ex.submit(f) for k, f in loaders.items()}
@@ -798,6 +836,302 @@ def phase_conv(card: str, device, seed: int) -> dict:
     return kernel
 
 
+# --------------------------------------------------------------------------
+# phase 8
+# --------------------------------------------------------------------------
+def _attn_cost(B: int, Sq: int, Sk: int, H: int, Hkv: int, D: int,
+               causal: bool, window, dtype, q_offset: int = 0) -> dict:
+    """The least the card needs for one attention call: 4·D operations for
+    each (query, key) pair the masks let through (2·D for q·k, 2·D for
+    p·v), at the tensor-core rate in bf16 and the f32 rate in f32; q, k, v
+    read once and the output written once."""
+    import torch
+    from repro_torch.kernels.flash_attn.ref import attention_mask
+    mask = attention_mask(torch.arange(Sq) + q_offset, torch.arange(Sk), Sk,
+                          causal, window)
+    pairs = int(mask.sum()) * B * H
+    elt = 2 if dtype == torch.bfloat16 else 4
+    nbytes = elt * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D)
+    ops = 4 * D * pairs
+    ops_ms = ops / (BF16_OPS_PER_S if dtype == torch.bfloat16
+                    else F32_OPS_PER_S) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(pairs=pairs, ops=ops, bytes=nbytes,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _flash_tolerance(dtype) -> dict:
+    from repro_torch.kernels.flash_attn.ref import TOLERANCE
+    rtol, atol = TOLERANCE[dtype]
+    return {"rtol_of_plain": rtol, "atol": atol}
+
+
+def _flash_vs_plain(q, k, v, label: str, *, causal: bool = True,
+                    window=None) -> float:
+    """max |kernel - plain| on the card; fails where an element lies
+    outside the dtype's element-wise tolerance, or on a non-finite or
+    misshapen output."""
+    import torch
+    from repro_torch.kernels.flash_attn import flash_attention, flash_fwd_ref
+    from repro_torch.kernels.flash_attn.ref import excess
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_fwd_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if got.shape != q.shape or got.dtype != q.dtype:
+        raise PhaseFailed(f"{label}: output {tuple(got.shape)} {got.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        raise PhaseFailed(f"{label}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    over = excess(got, want)
+    if over > 0:
+        raise PhaseFailed(f"{label}: flash_fwd is up to {err} from its plain "
+                          f"version, {over} past the tolerance "
+                          f"{_flash_tolerance(q.dtype)}")
+    return err
+
+
+def phase_flash(card: str, device, seed: int) -> dict:
+    import torch
+    import torch.nn.functional as nnf
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.flash_attn import flash_attention, flash_fwd_ref
+
+    cfg = get_config("llama3.2-1b")
+    B, S, H, Hkv, D = (FLASH_B, FLASH_S, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cases = [("llama_bf16", torch.bfloat16, S, None),
+             ("llama_f32", torch.float32, S, None),
+             ("ragged_bf16", torch.bfloat16, FLASH_RAGGED_S, None),
+             ("window_bf16", torch.bfloat16, S, FLASH_WINDOW)]
+    out = {}
+    for label, dtype, s_len, window in cases:
+        q, k, v = (torch.randn(B, s_len, h, D, generator=gen, device=device
+                               ).to(dtype) for h in (H, Hkv, Hkv))
+        reset_launches()
+        err = _flash_vs_plain(q, k, v, label, window=window)
+        if launches()["flash_fwd"] != 1:
+            raise PhaseFailed(f"{label}: {launches()['flash_fwd']} launches")
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
+                                             window=window), 10)
+        plain_ms = cuda_ms(lambda: flash_fwd_ref(q, k, v, causal=True,
+                                                 window=window), 2)
+        # one PyTorch call computing the same function, timed only; the
+        # port never calls it
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None:
+            def lib():
+                return nnf.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(s_len, device=device)
+            mask = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - window)
+
+            def lib():
+                return nnf.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        library_ms = cuda_ms(lib, 10)
+        lib_err = float((lib().transpose(1, 2).float() - flash_attention(
+            q, k, v, causal=True, window=window).float()).abs().max())
+        out[label] = dict(
+            B=B, S=s_len, H=H, Hkv=Hkv, D=D, dtype=str(dtype), window=window,
+            max_abs_err=err, tolerance=_flash_tolerance(dtype), ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            max_abs_diff_vs_library=lib_err,
+            **_attn_cost(B, s_len, s_len, H, Hkv, D, True, window, dtype))
+        del q, k, v, qt, kt, vt
+    emit("flash", card=card, seed=seed, cases=out)
+    main = out["llama_bf16"]
+    return dict(**KERNELS["flash_fwd"], ms=main["ms"],
+                plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                max_abs_err=max(c["max_abs_err"] for c in out.values()
+                                if c["dtype"] == "torch.bfloat16"))
+
+
+# --------------------------------------------------------------------------
+# phase 9
+# --------------------------------------------------------------------------
+def _device_profile(fn, name: str, top: int = 8) -> dict:
+    """One call of ``fn`` under torch.profiler: the device's busy time (the
+    sum of its kernels' device times, one stream), the kernels that took
+    the most of it, and the full table in chiprun_out/profile_<name>.txt."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
+        f.write(rows.table(sort_by="self_device_time_total", row_limit=40))
+    if busy_s == 0:
+        return {"device_time": "not measured", "wall_s_profiled": wall}
+    flash_s = sum(e.self_device_time_total for e in kernels
+                  if "flash_fwd" in e.key) / 1e6
+    return {"wall_s_profiled": wall, "device_busy_s": busy_s,
+            "flash_fwd_share_of_busy": flash_s / busy_s,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [
+                {"kernel": e.key[:80], "device_ms":
+                 e.self_device_time_total / 1e3, "calls": e.count}
+                for e in sorted(kernels,
+                                key=lambda e: -e.self_device_time_total)[
+                                    :top]]}
+
+
+def phase_serve(card: str, device, seed: int) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import layers as L
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("llama3.2-1b")
+    engine = ServeEngine(cfg, seed=seed, device=str(device))
+    model = engine.api.init(torch.Generator(device=device).manual_seed(seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed)
+    lo, hi = SERVE_LENS
+    lens = [hi] + rng.integers(lo, hi, SERVE_PROMPTS - 1).tolist()
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+    engine.generate(model, prompts, max_new_tokens=2)           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    res = engine.generate(model, prompts, max_new_tokens=SERVE_NEW_TOKENS)
+    n_main = launches()["flash_fwd"]
+    peak = torch.cuda.max_memory_allocated(device)
+    if n_main != cfg.n_layers:
+        raise PhaseFailed(f"generate launched flash_fwd {n_main} times, not "
+                          f"once per layer ({cfg.n_layers})")
+    for i, toks in enumerate(res.tokens):
+        if len(toks) != SERVE_NEW_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            raise PhaseFailed(f"request {i}: tokens {toks}")
+
+    # launches per stage: prefill alone, then one decode step alone
+    toks = torch.zeros(len(prompts), max(lens), dtype=torch.long,
+                       device=device)
+    for i, p in enumerate(prompts):
+        toks[i, max(lens) - len(p):] = torch.tensor(p, device=device)
+    reset_launches()
+    logits, cache = engine.api.prefill(model, toks, engine.rt,
+                                       max_len=max(lens) + 2)
+    torch.cuda.synchronize()
+    n_prefill = launches()["flash_fwd"]
+    reset_launches()
+    step_logits, _ = engine.api.decode_step(
+        model, cache, logits[:, -1].argmax(-1)[:, None], engine.rt)
+    torch.cuda.synchronize()
+    n_decode = launches()["flash_fwd"]
+    if n_prefill != cfg.n_layers or n_decode != 0:
+        raise PhaseFailed(f"flash_fwd launches: {n_prefill} in prefill "
+                          f"(want {cfg.n_layers}), {n_decode} in a decode "
+                          f"step (want 0)")
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(step_logits).all())):
+        raise PhaseFailed("non-finite logits")
+    if logits.shape != (len(prompts), 1, cfg.padded_vocab):
+        raise PhaseFailed(f"prefill logits {tuple(logits.shape)}")
+    # where the device time goes: one prefill, one decode step over the
+    # prompts' full cache
+    profile = {
+        "prefill": _device_profile(lambda: engine.api.prefill(
+            model, toks, engine.rt, max_len=max(lens) + 2), "serve_prefill"),
+        "decode_step": _device_profile(lambda: engine.api.decode_step(
+            model, cache, toks[:, -1:], engine.rt), "serve_decode")}
+    del cache
+
+    # the kernel on layer 0's real q, k and v
+    with torch.no_grad():
+        p0 = model["layers"][0]
+        h = L.rms_norm(L.embed(model["embed"], toks, cfg), p0["ln1"],
+                       cfg.norm_eps)
+        q, k, v = L._qkv(p0["attn"], h, cfg)
+        cos, sin = L.rope_angles(torch.arange(toks.shape[1], device=device),
+                                 cfg.head_dim, cfg.rope_theta)
+        q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+    err = _flash_vs_plain(q, k, v, "layer 0 q, k, v")
+    info = dict(card=card, arch=cfg.name, dtype=cfg.dtype, params=n_params,
+                seed=seed, prompt_lens=lens, new_tokens=SERVE_NEW_TOKENS,
+                prefill_s=res.prefill_s, decode_s=res.decode_s,
+                decode_steps=res.n_steps,
+                decode_tokens_per_s=res.tokens_per_s,
+                max_memory_allocated=peak,
+                launches=dict(generate=n_main, prefill=n_prefill,
+                              decode_step=n_decode),
+                layer0_max_abs_err=err,
+                layer0_tolerance=_flash_tolerance(cfg.torch_dtype),
+                profile=profile,
+                tokens_head=[t[:8] for t in res.tokens])
+    emit("serve", **info)
+    return info
+
+
+# --------------------------------------------------------------------------
+# phase 10
+# --------------------------------------------------------------------------
+def phase_golden_lm(card: str, device) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.convert import from_jax, unflatten
+    from repro_torch.serve.engine import ServeEngine
+
+    golden = np.load(os.path.join(ROOT, "src", "repro_torch", "data",
+                                  "golden_lm.npz"))
+    cfg = get_config(str(golden["arch"])).reduced().replace(
+        dtype=str(golden["dtype"]))
+    model = from_jax(unflatten(golden, "params/"), cfg, device=device)
+    engine = ServeEngine(cfg, device=str(device))
+    new = int(golden["new_tokens"])
+    out = {}
+    for batch in ("long", "short"):
+        n = int(golden[f"{batch}/n_prompts"])
+        prompts = [golden[f"{batch}/prompt/{i}"].tolist() for i in range(n)]
+        reset_launches()
+        res = engine.generate(model, prompts, max_new_tokens=new)
+        n_flash = launches()["flash_fwd"]
+        want = golden[f"{batch}/tokens"].tolist()
+        if res.tokens != want:
+            raise PhaseFailed(f"golden {batch}: tokens {res.tokens} != the "
+                              f"JAX package's {want}")
+        Lp = max(len(p) for p in prompts)
+        toks = torch.zeros(n, Lp, dtype=torch.long, device=device)
+        for i, p in enumerate(prompts):
+            toks[i, Lp - len(p):] = torch.tensor(p, device=device)
+        logits, _ = engine.api.prefill(model, toks, engine.rt)
+        err = float(np.abs(logits[:, -1].cpu().numpy()
+                           - golden[f"{batch}/last_logits"]).max())
+        if err > LM_LOGITS_ATOL:
+            raise PhaseFailed(f"golden {batch}: prefill logits {err} from "
+                              f"the JAX package's (> {LM_LOGITS_ATOL})")
+        want_flash = cfg.n_layers if Lp > 2048 else 0
+        if n_flash != want_flash:
+            raise PhaseFailed(f"golden {batch}: {n_flash} flash_fwd launches"
+                              f", want {want_flash}")
+        out[batch] = dict(prompt_lens=[len(p) for p in prompts],
+                          tokens_equal=True, logits_max_abs_err=err,
+                          flash_launches=n_flash)
+    info = dict(card=card, arch=cfg.name, dtype=cfg.dtype,
+                logits_atol=LM_LOGITS_ATOL, batches=out)
+    emit("golden_lm", **info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -822,6 +1156,12 @@ def main(argv=None) -> int:
     phase_scalar(card, device)
     latency = phase_latency(card, device, args.seed, args.designs)
     conv = phase_conv(card, device, args.seed)
+    flash = phase_flash(card, device, args.seed)
+    serve = phase_serve(card, device, args.seed)
+    flash["launches"] = serve["launches"]["generate"]
+    flash["max_abs_err"] = max(flash["max_abs_err"],
+                               serve["layer0_max_abs_err"])
+    phase_golden_lm(card, device)
     lost = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             or m == "repro" or m.startswith("repro.")]
     if lost:
@@ -829,7 +1169,8 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kernel[k] for k in keys}
-                                  for kernel in (search, latency, conv)]}),
+                                  for kernel in (search, latency, conv,
+                                                 flash)]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

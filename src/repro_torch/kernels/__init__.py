@@ -2,7 +2,8 @@
 
 ``mccm_eval`` holds the fused ⟨pf, ph, pw⟩ parallelism search of the batch
 path and the Eq. 1 latency sweep; ``conv_ce`` runs one layer as a compute
-engine, a tiled direct convolution whose launch grid is Eq. 1.  A kernel is
+engine, a tiled direct convolution whose launch grid is Eq. 1;
+``flash_attn`` is the attention of the LM serving path's prefill.  A kernel is
 built with ``nvcc`` at its first launch (``_nvcc.load``), never at import.
 
 Every kernel wrapper adds one to its entry of the launch count below where
@@ -12,7 +13,8 @@ counts nothing.
 from __future__ import annotations
 
 #: kernel launches since the last ``reset_launches()``, by kernel name
-_LAUNCHES = {"parallelism_search": 0, "mccm_latency": 0, "conv_ce": 0}
+_LAUNCHES = {"parallelism_search": 0, "mccm_latency": 0, "conv_ce": 0,
+             "flash_fwd": 0}
 
 
 def launches() -> dict[str, int]:

@@ -1,0 +1,44 @@
+"""Runtime: how a model executes (orthogonal to ModelConfig).
+
+The PyTorch port of the JAX package's ``models/runtime.py``, trimmed to
+one device: ``ModelConfig`` says *what* the network is; ``Runtime`` says
+which attention path prefill takes.  The mesh, the tensor- and
+expert-parallel axes and the other sharding fields are not ported yet
+(``ROADMAP.md`` queue 1, item 11): a ``Runtime`` given a mesh raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+ATTN_MODES = ("dense", "chunked", "auto")
+
+
+@dataclass(frozen=True)
+class Runtime:
+    attn_mode: str = "auto"             # dense | chunked | auto
+    mesh: Any = None                    # sharding: not ported yet
+
+    def __post_init__(self):
+        if self.attn_mode not in ATTN_MODES:
+            raise ValueError(f"attn_mode must be one of {ATTN_MODES}, got "
+                             f"{self.attn_mode!r}")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "Runtime(mesh=...): sharded execution is not ported yet "
+                "(ROADMAP.md queue 1, item 11)")
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` as a ``torch.device``.  The LM path's entry points take
+    ``"cuda"`` unless the caller passes another device, and ``cuda``
+    without a visible card raises rather than run on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}(device={str(dev)!r}) needs a visible CUDA card and none "
+            f"is available; pass device='cpu' to run the plain PyTorch path "
+            f"on the CPU")
+    return dev

@@ -1,0 +1,172 @@
+"""Decoder-only transformer LM, dense family, for inference.
+
+The PyTorch port of the JAX package's ``models/transformer.py``.  There the
+layers are scanned over params stacked on a leading ``n_layers`` axis; here
+the model is an ``nn.ModuleDict`` holding an ``nn.ModuleList`` of
+:class:`Block`\\ s, walked by a Python loop (``models/convert.py`` unstacks
+the JAX package's params into it).
+
+API (used by ``models/registry.py``):
+    init(gen, cfg)                          -> model
+    forward(model, tokens, cfg, rt)         -> (logits, aux)
+    prefill(model, tokens, cfg, rt)         -> (last_logits, cache)
+    init_cache(cfg, batch, max_len, rt)     -> cache
+    decode_step(model, cache, tokens, cfg, rt) -> (logits, cache)
+
+Not ported yet: the MoE family (``ROADMAP.md`` queue 1, item 13), ``loss``
+and ``chunked_xent`` (training), remat and the sharding constraints.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import layers as L
+from .runtime import resolve_device
+
+def _dense_only(cfg) -> None:
+    if cfg.n_experts or cfg.family != "dense":
+        kind = "MoE" if cfg.n_experts else cfg.family
+        raise NotImplementedError(
+            f"{cfg.name}: the {kind} family is not ported yet (ROADMAP.md "
+            f"queue 1, item 13: the LM stack)")
+
+
+# --------------------------------------------------------------------------
+# one decoder block
+# --------------------------------------------------------------------------
+class Block(nn.ModuleDict):
+    """ln1, attn, ln2, mlp: one decoder block's params."""
+
+
+def init_block(gen: torch.Generator, cfg) -> Block:
+    _dense_only(cfg)
+    return Block({"ln1": L.init_rmsnorm(gen, cfg.d_model, cfg.torch_dtype),
+                  "attn": L.init_attention(gen, cfg),
+                  "ln2": L.init_rmsnorm(gen, cfg.d_model, cfg.torch_dtype),
+                  "mlp": L.init_mlp(gen, cfg)})
+
+
+def block_fwd(p: Block, x, cfg, rt, *, return_kv: bool = False):
+    """Full-sequence block. x: (B,S,D) -> (x', aux[, (k,v)])."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    out = L.attention_fwd(p["attn"], h, cfg, mode=rt.attn_mode,
+                          return_kv=return_kv)
+    attn_out, kv = (out[0], out[1:]) if return_kv else (out, None)
+    x = x + attn_out
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    y = L.mlp_fwd(p["mlp"], h, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = x + y
+    return (x, aux, kv) if return_kv else (x, aux)
+
+
+def block_decode(p: Block, x, cfg, rt, cache_k, cache_v, cache_len: int):
+    """One-token block step; writes the new KV position into the cache."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    attn_out, nk, nv = L.attention_decode(p["attn"], h, cfg,
+                                          cache_k, cache_v, cache_len)
+    x = x + attn_out
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp_fwd(p["mlp"], h, cfg), nk, nv
+
+
+# --------------------------------------------------------------------------
+# full model
+# --------------------------------------------------------------------------
+class TransformerLM(nn.ModuleDict):
+    """embed, layers (one :class:`Block` each), final_norm[, head]."""
+
+    def lm_head(self) -> L.Params | None:
+        return self["head"] if "head" in self else None
+
+
+@torch.no_grad()
+def init(gen: torch.Generator, cfg) -> TransformerLM:
+    """Random weights from ``gen``, on ``gen``'s device, in ``cfg.dtype``.
+    The JAX package's ``jax.random`` draws differ: to compute what it
+    computes, carry its params across with ``models/convert.py``."""
+    _dense_only(cfg)
+    mods = {"embed": L.init_embedding(gen, cfg),
+            "layers": nn.ModuleList(init_block(gen, cfg)
+                                    for _ in range(cfg.n_layers)),
+            "final_norm": L.init_rmsnorm(gen, cfg.d_model, cfg.torch_dtype)}
+    head = L.init_lm_head(gen, cfg)
+    if head is not None:
+        mods["head"] = head
+    return TransformerLM(mods)
+
+
+def _blocks(model, x, cfg, rt, *, return_kv: bool = False):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kvs = []
+    for p in model["layers"]:
+        if return_kv:
+            x, a, kv = block_fwd(p, x, cfg, rt, return_kv=True)
+            kvs.append(kv)
+        else:
+            x, a = block_fwd(p, x, cfg, rt)
+        aux = aux + a
+    return x, aux, kvs
+
+
+@torch.no_grad()
+def forward(model, tokens, cfg, rt):
+    """tokens (B,S) int -> (logits (B,S,V) fp32, aux)."""
+    x = L.embed(model["embed"], tokens, cfg)
+    x, aux, _ = _blocks(model, x, cfg, rt)
+    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+    return L.unembed(model["embed"], model.lm_head(), x, cfg), aux
+
+
+# --------------------------------------------------------------------------
+# serving: prefill + decode
+# --------------------------------------------------------------------------
+def init_cache(cfg, batch: int, max_len: int, rt, dtype=None,
+               device="cuda"):
+    """An empty KV cache on ``device`` (``cuda`` unless the caller asks
+    for another): k and v (n_layers, batch, max_len, n_kv_heads,
+    head_dim), len 0."""
+    device = resolve_device(device, "init_cache")
+    dtype = dtype or cfg.torch_dtype
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": 0}
+
+
+@torch.no_grad()
+def prefill(model, tokens, cfg, rt, *, max_len: int | None = None):
+    """Run the prompt, return (last-position logits, filled cache).
+
+    ``max_len`` pads the KV cache's sequence axis so ``decode_step`` can
+    append up to ``max_len - prompt_len`` generated tokens."""
+    x = L.embed(model["embed"], tokens, cfg)
+    x, _, kvs = _blocks(model, x, cfg, rt, return_kv=True)
+    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+    logits = L.unembed(model["embed"], model.lm_head(), x[:, -1:, :], cfg)
+    S = x.shape[1]
+    n = max(S, max_len or 0)
+    cache = init_cache(cfg, x.shape[0], n, rt, dtype=kvs[0][0].dtype,
+                       device=x.device)       # (L, B, n, Hkv, hd)
+    for i, (k, v) in enumerate(kvs):
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    cache["len"] = S
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_step(model, cache, tokens, cfg, rt):
+    """tokens (B,1) -> (logits (B,1,V), cache).  The cache's tensors are
+    updated in place; the returned dict holds them with ``len`` + 1."""
+    pos = cache["len"]
+    x = model["embed"]["table"][tokens]
+    if cfg.pos_emb == "abs":
+        x = x + model["embed"]["pos"][pos:pos + 1]
+    for i, p in enumerate(model["layers"]):
+        x, _, _ = block_decode(p, x, cfg, rt, cache["k"][i], cache["v"][i],
+                               pos)
+    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+    logits = L.unembed(model["embed"], model.lm_head(), x, cfg)
+    return logits, {"k": cache["k"], "v": cache["v"], "len": pos + 1}

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel (the parallelism search, the Eq. 1
-latency sweep, the CE convolution) against its plain PyTorch version, and
-the Session's main path through the search kernel.
+latency sweep, the CE convolution, flash attention) against its plain
+PyTorch version, the Session's main path through the search kernel, and
+the LM serving path through the flash kernel.
 
 Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
 no card is visible (the decision is made in the fixture, never at import).
@@ -22,7 +23,10 @@ from repro_torch.core.batch_eval import (_ce_maps, _pair_layer_tables,
 from repro_torch.core.dse import encode_specs, sample_mixed
 from repro_torch.fpga.archs import ARCH_NAMES, make_arch
 from repro_torch.fpga.boards import BOARD_NAMES
+from repro_torch.configs import get_config
 from repro_torch.kernels.conv_ce import conv_ce, conv_ref, grid_size
+from repro_torch.kernels.flash_attn import flash_attention, flash_fwd_ref
+from repro_torch.kernels.flash_attn.ref import excess
 from repro_torch.kernels.mccm_eval import (launches, mccm_latency,
                                            mccm_latency_ref, pair_tables,
                                            parallelism_search,
@@ -167,3 +171,64 @@ def test_conv_ce_grid_limit_raises(cuda):
     w = torch.zeros(1, 1, 1, 1, device=cuda)
     with pytest.raises(ValueError, match="65535"):
         conv_ce(x, w, par_f=1, par_oh=1, par_ow=1)
+
+
+# the cases of tests/test_kernels.py:18-24, a q_offset case and one whose
+# inputs are read through non-contiguous strides
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,q_offset,dtype", [
+    (2, 128, 128, 4, 2, 64, True, None, 0, torch.float32),
+    (1, 200, 200, 2, 2, 32, True, 64, 0, torch.float32),
+    (2, 64, 256, 4, 4, 64, False, None, 0, torch.float32),
+    (1, 1, 300, 4, 2, 64, False, None, 0, torch.float32),
+    (2, 96, 96, 2, 1, 128, True, None, 0, torch.bfloat16),
+    (1, 70, 200, 4, 2, 80, True, 50, 130, torch.bfloat16),
+    (3, 100, 100, 8, 8, 16, True, None, -20, torch.float32),
+])
+def test_flash_kernel_equals_plain_on_card(cuda, B, Sq, Sk, H, Hkv, D,
+                                           causal, window, q_offset, dtype):
+    rng = np.random.default_rng(Sq + Sk + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (B, s, h, D), dtype=np.float32)).to(cuda, dtype)
+        for s, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    reset_launches()
+    got = flash_attention(q, k, v, **kw)
+    assert launches()["flash_fwd"] == 1
+    want = flash_fwd_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    # element by element: one bf16 ulp (2**-7·|want|) plus 2e-5 in bf16,
+    # 2e-5 in f32 (ref.TOLERANCE)
+    assert excess(got, want) <= 0, (got - want).abs().max()
+    # the same read through strides: each a view of every other head-dim
+    # block of a wider tensor
+    qs, ks, vs = (torch.cat([t, t], -1)[..., :D] for t in (q, k, v))
+    assert not qs.is_contiguous() and qs.stride(-1) == 1
+    assert torch.equal(flash_attention(qs, ks, vs, **kw), got)
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 8, 2, 24, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 2, 32, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q, q.half(), q)
+
+
+def test_serve_engine_on_card_equals_cpu(cuda):
+    """The reduced Llama config in f32: greedy tokens on the card (flash
+    kernel in prefill past 2048 tokens) equal the CPU route's."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("llama3.2-1b").reduced().replace(dtype="float32")
+    cpu = ServeEngine(cfg, device="cpu")
+    model = cpu.api.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (2100, 40)]
+    want = cpu.generate(model, prompts, max_new_tokens=8).tokens
+    reset_launches()
+    got = ServeEngine(cfg, device=str(cuda)).generate(
+        model.to(cuda), prompts, max_new_tokens=8).tokens
+    assert launches()["flash_fwd"] == cfg.n_layers
+    assert got == want

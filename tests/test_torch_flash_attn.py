@@ -1,0 +1,213 @@
+"""The port's flash attention on the CPU against the JAX package.
+
+The port's ``flash_attention`` on a CPU tensor runs its plain recurrence
+(``flash_fwd_ref``), the twin of the CUDA kernel; ``attention_ref`` is the
+port's copy of the JAX oracle.  Both are held against the JAX package's
+``attention_ref`` and its model code's ``chunked_attention`` and
+``dense_attention``, on the same inputs drawn by numpy from a seed.  The
+JAX Pallas kernel itself fails on the installed jax (its ``pl.load`` is
+gone), so it is not the reference here.
+
+Tolerances against the JAX package are ``tests/test_kernels.py:37``'s:
+2e-5 in f32 (sums in other orders), 5e-2 in bf16 (an output may round to
+the neighbouring bf16 value, and JAX's chunked path rounds q·scale and p
+to bf16 where the port, as the Pallas kernel, keeps both in f32).  Two
+bf16 tests hold the port tighter: against JAX's oracle computed in f32 on
+the same bf16 inputs, and on a case where rounding p to bf16 changes the
+answer.
+"""
+from __future__ import annotations
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attn.ref import attention_ref as jax_attention_ref
+from repro.models import layers as JL
+from repro_torch.kernels import launches, reset_launches
+from repro_torch.kernels.flash_attn import (attention_ref, flash_attention,
+                                            flash_attention_cuda,
+                                            flash_fwd_ref)
+from repro_torch.kernels.flash_attn.ref import excess, kv_range
+
+TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+
+
+def _inputs(B, Sq, Sk, H, Hkv, D, dtype, seed=0):
+    """q (B, Sq, H, D), k/v (B, Sk, Hkv, D) as numpy f32 (already rounded
+    to ``dtype``), and the same as JAX and torch arrays of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape, dtype=np.float32)
+            for shape in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
+    jx = [jnp.asarray(a, dtype) for a in arrs]
+    th = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jx, th
+
+
+def _close(got, want, dtype, what=""):
+    tol = TOL[dtype]
+    np.testing.assert_allclose(
+        got.float().numpy() if isinstance(got, torch.Tensor)
+        else np.asarray(got, np.float32),
+        np.asarray(want, np.float32), rtol=tol, atol=tol, err_msg=what)
+
+
+# the five cases of tests/test_kernels.py:18-24
+KERNEL_CASES = [
+    (2, 128, 128, 4, 2, 64, True, None, "float32"),
+    (1, 200, 200, 2, 2, 32, True, 64, "float32"),
+    (2, 64, 256, 4, 4, 64, False, None, "float32"),
+    (1, 1, 300, 4, 2, 64, False, None, "float32"),      # decode-like
+    (2, 96, 96, 2, 1, 128, True, None, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,dtype",
+                         KERNEL_CASES)
+def test_flash_attention_vs_jax_attention_ref(B, Sq, Sk, H, Hkv, D, causal,
+                                              window, dtype):
+    (jq, jk, jv), (q, k, v) = _inputs(B, Sq, Sk, H, Hkv, D, dtype)
+    rep = H // Hkv
+    want = jax_attention_ref(
+        jq.transpose(0, 2, 1, 3), jnp.repeat(jk, rep, 2).transpose(0, 2, 1, 3),
+        jnp.repeat(jv, rep, 2).transpose(0, 2, 1, 3), causal=causal,
+        window=window).transpose(0, 2, 1, 3)
+    reset_launches()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert launches()["flash_fwd"] == 0       # the CPU runs the plain twin
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, want, dtype, "flash_attention")
+    # the port's own oracle, on the repeated heads
+    kk, vv = (t.repeat_interleave(rep, 2) for t in (k, v))
+    mine = attention_ref(q.transpose(1, 2), kk.transpose(1, 2),
+                         vv.transpose(1, 2), causal=causal,
+                         window=window).transpose(1, 2)
+    _close(mine, want, dtype, "attention_ref")
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,dtype", [
+    (2, 150, 4, 2, 32, None, "float32"),
+    (1, 300, 4, 1, 16, 40, "float32"),
+    (2, 130, 8, 2, 64, 64, "float32"),
+    (2, 96, 4, 2, 16, 16, "bfloat16"),
+])
+def test_flash_attention_vs_jax_chunked_and_dense(B, S, H, Hkv, D, window,
+                                                  dtype):
+    """Causal self-attention as the model calls it, with and without a
+    sliding window (chunked_attention's blocks of 512/1024 and the
+    triangular path against the port's 64-key tiles)."""
+    (jq, jk, jv), (q, k, v) = _inputs(B, S, S, H, Hkv, D, dtype, seed=S)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    _close(got, JL.chunked_attention(jq, jk, jv, causal=True, window=window),
+           dtype, "chunked")
+    _close(got, JL.dense_attention(jq, jk, jv, causal=True, window=window),
+           dtype, "dense")
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset,window", [
+    (32, 96, 64, None),         # the last 32 queries of a 96-token context
+    (40, 200, 130, 50),         # windowed, offset past a tile edge
+    (16, 16, -8, None),         # rows 0..7 see no key
+])
+def test_flash_attention_q_offset(Sq, Sk, q_offset, window):
+    (jq, jk, jv), (q, k, v) = _inputs(2, Sq, Sk, 4, 2, 32, "float32",
+                                      seed=Sq)
+    got = flash_attention(q, k, v, causal=True, window=window,
+                          q_offset=q_offset)
+    want = JL.chunked_attention(jq, jk, jv, causal=True, window=window,
+                                q_offset=q_offset)
+    _close(got, want, "float32", "chunked")
+    if q_offset >= 0:
+        _close(got, JL.dense_attention(jq, jk, jv, causal=True, window=window,
+                                       q_offset=q_offset), "float32", "dense")
+
+
+def test_bf16_keeps_p_in_f32():
+    """The Pallas kernel widens v to f32 before ``p.astype(v.dtype)``, so p
+    is never rounded, and neither is it here.  Two keys with p = 1 and
+    p = exp(-177/256) = 0.50087, which bf16 would round to 0.5, and v of
+    -0.5 and 1: f32 p gives (0.50087 - 0.5) / 1.50087 = 5.8e-4, while p
+    rounded to bf16, as the JAX model code's jnp twin rounds it, gives 0."""
+    D = 16
+    q = torch.zeros(1, 1, 1, D)
+    q[..., 0] = 1.0
+    k = torch.zeros(1, 2, 1, D)
+    k[0, 1, 0, 0] = -177 / 256
+    v = torch.stack([torch.full((D,), -0.5), torch.ones(D)])[None, :, None]
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    got = flash_attention(q, k, v, causal=False, scale=1.0)
+    x = math.exp(-177 / 256)
+    want = torch.full(got.shape, (x - 0.5) / (1 + x)).bfloat16()
+    assert excess(got, want) <= 0, got
+    twin = JL.chunked_attention(*(jnp.asarray(t.float().numpy(),
+                                              jnp.bfloat16)
+                                  for t in (q, k, v)),
+                                causal=False, window=None, scale=1.0)
+    assert not np.asarray(twin, np.float32).any()
+
+
+def test_bf16_tolerance_separates_faults():
+    """The element-wise bound that holds the CUDA kernel to this plain
+    version (``ref.TOLERANCE``), at Llama-3.2-1B's head dim and 4096
+    tokens: met by the same function summed in another order (JAX's oracle
+    in f32 on the same bf16 inputs, rounded to bf16 at the end), failed by
+    an output that skips the last KV tile or mis-scales the late rows by
+    2**-6."""
+    B, S, H, Hkv, D = 1, 4096, 2, 1, 64
+    (jq, jk, jv), (q, k, v) = _inputs(B, S, S, H, Hkv, D, "bfloat16", seed=4)
+    want = flash_fwd_ref(q, k, v, causal=True)
+    jq, jk, jv = (jnp.repeat(a.astype(jnp.float32), H // h, 2).transpose(
+        0, 2, 1, 3) for a, h in ((jq, H), (jk, Hkv), (jv, Hkv)))
+    other = np.asarray(jax_attention_ref(jq, jk, jv, causal=True))
+    other = torch.from_numpy(other.transpose(0, 2, 1, 3).copy()).bfloat16()
+    assert excess(other, want) <= 0
+    skipped = want.clone()
+    skipped[:, S - 64:] = flash_fwd_ref(q[:, S - 64:], k[:, :S - 64],
+                                        v[:, :S - 64], causal=True,
+                                        q_offset=S - 64)
+    scaled = want.float()
+    scaled[:, S // 2:] *= 1 + 2.0 ** -6
+    for bad in (skipped, scaled.bfloat16()):
+        assert excess(bad, want) > 0
+        # an absolute 5e-2, about a typical output here, lets it through
+        assert float((bad.float() - want.float()).abs().max()) < 5e-2
+
+
+def test_fully_masked_rows_give_zero():
+    _, (q, k, v) = _inputs(1, 16, 16, 2, 1, 16, "float32")
+    out = flash_attention(q, k, v, causal=True, q_offset=-8)
+    assert torch.equal(out[:, :8], torch.zeros_like(out[:, :8]))
+    assert bool(out[:, 8:].abs().sum(-1).gt(0).all())
+    # no key at all
+    out = flash_attention(q, k[:, :0], v[:, :0], causal=False)
+    assert out.shape == q.shape and not bool(out.any())
+
+
+def test_kv_range_skips_only_masked_tiles():
+    """Tiles outside kv_range are masked for every query: the recurrence
+    over all of them gives the same result bit for bit."""
+    assert kv_range(100, 300, causal=True, window=None) == (0, 100)
+    assert kv_range(40, 200, causal=True, window=50, q_offset=130) == (81, 170)
+    assert kv_range(10, 50, causal=False, window=None) == (0, 50)
+    assert kv_range(8, 8, causal=True, window=None, q_offset=-9) == (0, 0)
+    _, (q, k, v) = _inputs(1, 40, 200, 2, 2, 16, "float32")
+    got = flash_fwd_ref(q, k, v, causal=True, window=50, q_offset=130)
+    # the same keys with 64 masked ones in front: two more tiles to skip
+    pad = torch.zeros(1, 64, 2, 16)
+    got2 = flash_fwd_ref(q, torch.cat([pad, k], 1), torch.cat([pad, v], 1),
+                         causal=True, window=50, q_offset=194)
+    assert torch.equal(got, got2)
+
+
+def test_flash_attention_refuses_bad_input():
+    _, (q, k, v) = _inputs(1, 8, 8, 3, 2, 16, "float32")
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, k, v)
+    _, (q, k, v) = _inputs(1, 8, 8, 4, 2, 16, "float32")
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, k, v)       # no plain route on this path

@@ -1,14 +1,15 @@
-"""The golden metrics that ``chip_smoke.py`` holds the PyTorch port's main
-path against on the card, computed by the JAX package on the CPU.
+"""The golden values that ``chip_smoke.py`` holds the PyTorch port's paths
+against on the card, computed by the JAX package on the CPU.
 
-The machine with the card has no JAX, so the file is committed:
-``src/repro_torch/data/golden_mccm.npz``.  Regenerate it after a change to
-the JAX package's model with::
+The machine with the card has no JAX, so the files are committed:
+``src/repro_torch/data/golden_mccm.npz`` (the MCCM paths) and
+``src/repro_torch/data/golden_lm.npz`` (the LM serving path).  Regenerate
+them after a change to the JAX package's model with::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py
 
-``tests/test_torch_session.py`` checks that the committed file still equals
-what this computes.
+``tests/test_torch_session.py`` and ``tests/test_torch_lm.py`` check that
+the committed files still equal what this computes.
 
 Contents: for every CNN x board, the 12 baseline templates (3 archs x
 n in {2, 5, 9, 11}) under ``tmpl/<cnn>/<board>/<metric>``, and 256
@@ -18,6 +19,16 @@ scalar Builder's ``Metrics`` of the same templates under
 ``scalar/<cnn>/<board>/<field>``, float64: the seven scalar fields of
 ``SCALAR_FIELDS``, and ``ce_busy_s`` as a (12, 16) array indexed by CE id,
 NaN where a design has no such CE.
+
+``golden_lm.npz``: the reduced Llama-3.2-1B config in f32 (``arch``,
+``dtype``), its params from ``init(jax.random.key(0))`` flattened under
+``params/<path>`` (per-layer leaves stacked on the leading layer axis), and
+two request batches generated greedily by the JAX package's
+``ServeEngine`` (default runtime, so ``auto`` attention): ``long`` (one
+prompt past 2048 tokens, so prefill takes the chunked path) and ``short``
+(the dense path).  Per batch: ``n_prompts``, ``prompt/<i>``, the
+``new_tokens`` greedy ``tokens`` (n_prompts, new_tokens), and prefill's
+``last_logits`` (n_prompts, padded vocab).
 """
 from __future__ import annotations
 
@@ -25,8 +36,10 @@ import os
 
 import numpy as np
 
-GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "src", "repro_torch", "data", "golden_mccm.npz")
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src", "repro_torch", "data")
+GOLDEN = os.path.join(DATA, "golden_mccm.npz")
+GOLDEN_LM = os.path.join(DATA, "golden_lm.npz")
 
 TEMPLATE_NS = (2, 5, 9, 11)
 MIXED = ("resnet50", "zcu102", 256, 0)     # cnn, board, rows, seed
@@ -88,7 +101,50 @@ def compute_golden() -> dict[str, np.ndarray]:
     return out
 
 
+#: the LM golden run: config, dtype, new tokens, and per batch the prompt
+#: lengths (random tokens from seed 0)
+LM_ARCH, LM_DTYPE, LM_NEW_TOKENS = "llama3.2-1b", "float32", 8
+LM_BATCHES = {"long": (2100, 300), "short": (9, 23, 16)}
+
+
+def compute_golden_lm() -> dict[str, np.ndarray]:
+    """The JAX package's params and greedy generations of the reduced
+    Llama config (see the module docstring)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.serve.engine import ServeEngine
+    from repro_torch.models.convert import flatten
+
+    cfg = get_config(LM_ARCH).reduced().replace(dtype=LM_DTYPE)
+    engine = ServeEngine(cfg)
+    params = engine.api.init(jax.random.key(0))
+    out = {"arch": np.array(LM_ARCH), "dtype": np.array(LM_DTYPE),
+           "new_tokens": np.array(LM_NEW_TOKENS),
+           **flatten(params, "params/")}
+    rng = np.random.default_rng(0)
+    for batch, lens in LM_BATCHES.items():
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                   for n in lens]
+        res = engine.generate(params, [p.tolist() for p in prompts],
+                              max_new_tokens=LM_NEW_TOKENS)
+        Lp = max(lens)
+        toks = np.zeros((len(lens), Lp), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, Lp - len(p):] = p
+        logits, _ = engine.api.prefill(params, {"tokens": jnp.asarray(toks)},
+                                       engine.rt)
+        out[f"{batch}/n_prompts"] = np.array(len(lens))
+        for i, p in enumerate(prompts):
+            out[f"{batch}/prompt/{i}"] = p
+        out[f"{batch}/tokens"] = np.array(res.tokens, np.int32)
+        out[f"{batch}/last_logits"] = np.asarray(logits[:, -1], np.float32)
+    return out
+
+
 if __name__ == "__main__":
-    os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
+    os.makedirs(DATA, exist_ok=True)
     np.savez_compressed(GOLDEN, **compute_golden())
     print(f"wrote {GOLDEN} ({os.path.getsize(GOLDEN)} bytes)")
+    np.savez_compressed(GOLDEN_LM, **compute_golden_lm())
+    print(f"wrote {GOLDEN_LM} ({os.path.getsize(GOLDEN_LM)} bytes)")
