@@ -7,8 +7,8 @@ Phases, each printing one JSON line:
 
 1. card and build: the card, torch/CUDA versions, both TF32 flags (set
    False here: no matmul or convolution may run in TF32), and the ``nvcc``
-   builds of the four kernels, started together, with their ptxas
-   reports;
+   builds of the five kernel sources (``flash_fwd`` has a bf16 and an f32
+   source), started together, with their ptxas reports;
 2. the search kernel against its plain PyTorch version on the card, on the
    baseline templates of every CNN x board, on 4096 ``sample_mixed`` rows
    of every CNN and on an all-infeasible batch: ⟨pf, ph, pw⟩ exactly equal,
@@ -38,16 +38,20 @@ Phases, each printing one JSON line:
    every baseline arch with 11 CEs on ZCU102: the grid identity of Eq. 1
    exactly, the kernel equal to its plain version bit for bit and near
    ``conv2d``; ms per ResNet-50 pass beside ``conv2d``'s and the bound;
-8. the flash-attention kernel at Llama-3.2-1B's attention shape (B 4, S
-   4096, 32 query heads, 8 KV heads, head dim 64, causal) in bf16 and f32,
-   plus a ragged (S 4000) and a sliding-window case: the kernel against
-   its plain version on the card within the stated tolerance; ms, plain
-   ms, ``scaled_dot_product_attention``'s ms (timed only) and the bound;
+8. the flash-attention kernels at Llama-3.2-1B's attention shape (B 4, S
+   4096, 32 query heads, 8 KV heads, head dim 64, causal) in bf16 (tensor
+   cores) and f32 (FMA), plus a ragged (S 4000), a sliding-window and a
+   head-dim-128 bf16 case: the kernel against its plain version on the
+   card within the stated tolerance, no input copied; ms, plain ms,
+   ``scaled_dot_product_attention``'s ms (timed only), the bound, the bf16
+   kernel's launch configuration and each instantiation's registers and
+   spills;
 9. the LM serving path at full width: Llama-3.2-1B in bf16 with random
    weights from ``--seed``, ``ServeEngine.generate`` on 4 prompts of
    2300-4000 tokens (so prefill's attention is the chunked path) and 16
    greedy tokens: ``flash_fwd`` launched once per layer in prefill and
-   never in decode, finite logits and in-vocab tokens, and the kernel
+   never in decode, no input copied, finite logits and in-vocab tokens,
+   and the kernel
    against its plain version on layer 0's real q, k and v; prefill s,
    decode tokens/s, peak memory;
 10. the reduced Llama config in f32 against the golden file the JAX
@@ -55,7 +59,9 @@ Phases, each printing one JSON line:
    equal, prefill's last logits within the stated tolerance, on a batch
    longer than 2048 tokens (chunked, the kernel) and a short one (dense).
 
-Then the ``kernels`` line, the card's name and power limit as
+Then the ``kernels`` line (one entry per kernel source: ``flash_fwd``'s
+bf16 source with its launches in phase 9, its f32 source with its launches
+in phase 10's long batch), the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before
 the last line.  Without a visible card it exits 2 and prints no result.
@@ -94,6 +100,10 @@ KERNELS = {
         replaces="src/repro/kernels/conv_ce/kernel.py:66"),
     "flash_fwd": dict(
         name="flash_fwd", route="cuda",
+        source="src/repro_torch/kernels/flash_attn/csrc/flash_fwd_bf16.cu",
+        replaces="src/repro/kernels/flash_attn/kernel.py:78"),
+    "flash_fwd_f32": dict(
+        name="flash_fwd_f32", route="cuda",
         source="src/repro_torch/kernels/flash_attn/csrc/flash_fwd.cu",
         replaces="src/repro/kernels/flash_attn/kernel.py:78"),
 }
@@ -128,8 +138,9 @@ CONV_ARCH_CES = 11
 #: by under 1e-6 on the CPU
 LM_LOGITS_ATOL = 1e-5
 #: phase 8's shapes: Llama-3.2-1B's attention at batch 4 and 4096 tokens,
-#: a ragged length and a window that cuts KV tiles
+#: a ragged length, a window that cuts KV tiles, and the widest head dim
 FLASH_B, FLASH_S, FLASH_RAGGED_S, FLASH_WINDOW = 4, 4096, 4000, 1000
+FLASH_WIDE_D = 128
 #: phase 9: 4 prompts of 2300-4000 tokens (the longest 4000), so ``auto``
 #: attention resolves to the chunked path; greedy new tokens
 SERVE_PROMPTS, SERVE_LENS, SERVE_NEW_TOKENS = 4, (2300, 4000), 16
@@ -149,6 +160,25 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+
+
+def ptxas_entries(built) -> list[dict]:
+    """Each kernel instantiation of a build, from nvcc's ``-Xptxas -v``
+    report: its (mangled) name, registers and spill-store bytes."""
+    out, name, spill = [], None, 0
+    for ln in built.ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(dict(entry=name, registers=int(m.group(1)),
+                            spill_store_bytes=spill))
+            name = None
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -202,7 +232,8 @@ def phase_build(card: str) -> dict:
                    "parallelism_search"),
                "mccm_latency": lambda: mccm_ops.library("mccm_latency"),
                "conv_ce": conv_ops.library,
-               "flash_fwd": flash_ops.library}
+               "flash_fwd": lambda: flash_ops.library(torch.bfloat16),
+               "flash_fwd_f32": lambda: flash_ops.library(torch.float32)}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as ex:
         futs = {k: ex.submit(f) for k, f in loaders.items()}
@@ -891,29 +922,34 @@ def _flash_vs_plain(q, k, v, label: str, *, causal: bool = True,
     return err
 
 
-def phase_flash(card: str, device, seed: int) -> dict:
+def phase_flash(card: str, device, seed: int) -> tuple[dict, dict]:
+    """Phase 8; returns the ``kernels`` entries of the bf16 and the f32
+    source (their launches are filled in from phases 9 and 10)."""
     import torch
     import torch.nn.functional as nnf
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels import copies, launches, reset_launches
     from repro_torch.kernels.flash_attn import flash_attention, flash_fwd_ref
+    from repro_torch.kernels.flash_attn.ops import launch_plan, library
 
     cfg = get_config("llama3.2-1b")
-    B, S, H, Hkv, D = (FLASH_B, FLASH_S, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim)
+    B, S, H, Hkv = FLASH_B, FLASH_S, cfg.n_heads, cfg.n_kv_heads
     gen = torch.Generator(device=device).manual_seed(seed)
-    cases = [("llama_bf16", torch.bfloat16, S, None),
-             ("llama_f32", torch.float32, S, None),
-             ("ragged_bf16", torch.bfloat16, FLASH_RAGGED_S, None),
-             ("window_bf16", torch.bfloat16, S, FLASH_WINDOW)]
+    cases = [("llama_bf16", torch.bfloat16, S, None, cfg.head_dim),
+             ("llama_f32", torch.float32, S, None, cfg.head_dim),
+             ("ragged_bf16", torch.bfloat16, FLASH_RAGGED_S, None,
+              cfg.head_dim),
+             ("window_bf16", torch.bfloat16, S, FLASH_WINDOW, cfg.head_dim),
+             ("d128_bf16", torch.bfloat16, S, None, FLASH_WIDE_D)]
     out = {}
-    for label, dtype, s_len, window in cases:
+    for label, dtype, s_len, window, D in cases:
         q, k, v = (torch.randn(B, s_len, h, D, generator=gen, device=device
                                ).to(dtype) for h in (H, Hkv, Hkv))
         reset_launches()
         err = _flash_vs_plain(q, k, v, label, window=window)
-        if launches()["flash_fwd"] != 1:
-            raise PhaseFailed(f"{label}: {launches()['flash_fwd']} launches")
+        if launches()["flash_fwd"] != 1 or copies()["flash_fwd"] != 0:
+            raise PhaseFailed(f"{label}: {launches()['flash_fwd']} launches,"
+                              f" {copies()['flash_fwd']} input copies")
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
                                              window=window), 10)
         plain_ms = cuda_ms(lambda: flash_fwd_ref(q, k, v, causal=True,
@@ -941,15 +977,22 @@ def phase_flash(card: str, device, seed: int) -> dict:
             max_abs_err=err, tolerance=_flash_tolerance(dtype), ms=ms,
             plain_ms=plain_ms, library_ms=library_ms,
             max_abs_diff_vs_library=lib_err,
+            plan=launch_plan(D) if dtype == torch.bfloat16 else None,
             **_attn_cost(B, s_len, s_len, H, Hkv, D, True, window, dtype))
         del q, k, v, qt, kt, vt
-    emit("flash", card=card, seed=seed, cases=out)
-    main = out["llama_bf16"]
-    return dict(**KERNELS["flash_fwd"], ms=main["ms"],
-                plain_ms=main["plain_ms"], library_ms=main["library_ms"],
-                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                max_abs_err=max(c["max_abs_err"] for c in out.values()
-                                if c["dtype"] == "torch.bfloat16"))
+    emit("flash", card=card, seed=seed, cases=out,
+         ptxas={str(t): ptxas_entries(library(t))
+                for t in (torch.bfloat16, torch.float32)})
+
+    def entry(name, label, dtype):
+        c = out[label]
+        return dict(**KERNELS[name], ms=c["ms"], plain_ms=c["plain_ms"],
+                    library_ms=c["library_ms"], bound_ms=c["bound_ms"],
+                    bound_by=c["bound_by"],
+                    max_abs_err=max(x["max_abs_err"] for x in out.values()
+                                    if x["dtype"] == str(dtype)))
+    return (entry("flash_fwd", "llama_bf16", torch.bfloat16),
+            entry("flash_fwd_f32", "llama_f32", torch.float32))
 
 
 # --------------------------------------------------------------------------
@@ -994,7 +1037,7 @@ def phase_serve(card: str, device, seed: int) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels import copies, launches, reset_launches
     from repro_torch.models import layers as L
     from repro_torch.serve.engine import ServeEngine
 
@@ -1011,11 +1054,12 @@ def phase_serve(card: str, device, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
     res = engine.generate(model, prompts, max_new_tokens=SERVE_NEW_TOKENS)
-    n_main = launches()["flash_fwd"]
+    n_main, c_main = launches()["flash_fwd"], copies()["flash_fwd"]
     peak = torch.cuda.max_memory_allocated(device)
-    if n_main != cfg.n_layers:
+    if n_main != cfg.n_layers or c_main != 0:
         raise PhaseFailed(f"generate launched flash_fwd {n_main} times, not "
-                          f"once per layer ({cfg.n_layers})")
+                          f"once per layer ({cfg.n_layers}), and copied "
+                          f"{c_main} inputs (want 0)")
     for i, toks in enumerate(res.tokens):
         if len(toks) != SERVE_NEW_TOKENS or not all(
                 0 <= t < cfg.vocab_size for t in toks):
@@ -1030,16 +1074,17 @@ def phase_serve(card: str, device, seed: int) -> dict:
     logits, cache = engine.api.prefill(model, toks, engine.rt,
                                        max_len=max(lens) + 2)
     torch.cuda.synchronize()
-    n_prefill = launches()["flash_fwd"]
+    n_prefill, c_prefill = launches()["flash_fwd"], copies()["flash_fwd"]
     reset_launches()
     step_logits, _ = engine.api.decode_step(
         model, cache, logits[:, -1].argmax(-1)[:, None], engine.rt)
     torch.cuda.synchronize()
     n_decode = launches()["flash_fwd"]
-    if n_prefill != cfg.n_layers or n_decode != 0:
+    if n_prefill != cfg.n_layers or n_decode != 0 or c_prefill != 0:
         raise PhaseFailed(f"flash_fwd launches: {n_prefill} in prefill "
                           f"(want {cfg.n_layers}), {n_decode} in a decode "
-                          f"step (want 0)")
+                          f"step (want 0); {c_prefill} input copies in "
+                          f"prefill (want 0)")
     if not (bool(torch.isfinite(logits).all())
             and bool(torch.isfinite(step_logits).all())):
         raise PhaseFailed("non-finite logits")
@@ -1072,6 +1117,7 @@ def phase_serve(card: str, device, seed: int) -> dict:
                 max_memory_allocated=peak,
                 launches=dict(generate=n_main, prefill=n_prefill,
                               decode_step=n_decode),
+                flash_fwd_copies=dict(generate=c_main, prefill=c_prefill),
                 layer0_max_abs_err=err,
                 layer0_tolerance=_flash_tolerance(cfg.torch_dtype),
                 profile=profile,
@@ -1156,12 +1202,13 @@ def main(argv=None) -> int:
     phase_scalar(card, device)
     latency = phase_latency(card, device, args.seed, args.designs)
     conv = phase_conv(card, device, args.seed)
-    flash = phase_flash(card, device, args.seed)
+    flash, flash_f32 = phase_flash(card, device, args.seed)
     serve = phase_serve(card, device, args.seed)
     flash["launches"] = serve["launches"]["generate"]
     flash["max_abs_err"] = max(flash["max_abs_err"],
                                serve["layer0_max_abs_err"])
-    phase_golden_lm(card, device)
+    golden_lm = phase_golden_lm(card, device)
+    flash_f32["launches"] = golden_lm["batches"]["long"]["flash_launches"]
     lost = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             or m == "repro" or m.startswith("repro.")]
     if lost:
@@ -1170,7 +1217,7 @@ def main(argv=None) -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kernel[k] for k in keys}
                                   for kernel in (search, latency, conv,
-                                                 flash)]}),
+                                                 flash, flash_f32)]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

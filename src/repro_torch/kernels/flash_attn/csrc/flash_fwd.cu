@@ -1,8 +1,9 @@
-// FlashAttention forward, hand-written for Hopper (sm_90a).
+// FlashAttention forward in f32, hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel repro/kernels/flash_attn/kernel.py::flash_fwd
-// (body _flash_fwd_kernel) and its GQA wrapper ops.py::flash_attention,
-// and computes its function; so does the plain PyTorch version
+// (body _flash_fwd_kernel) and its GQA wrapper ops.py::flash_attention for
+// f32 inputs (csrc/flash_fwd_bf16.cu is the bf16 route, on the tensor
+// cores), and computes its function; so does the plain PyTorch version
 // repro_torch/kernels/flash_attn/ref.py::flash_fwd_ref.  For every
 // (batch, query head, query row), the online-softmax recurrence over tiles
 // of keys, with
@@ -14,10 +15,10 @@
 //   the JAX model code's jnp twin, layers.py::chunked_attention, does
 //   round p to v's type in bf16 and so differs from both),
 //   l == 0 -> 1, so a row that no key may see gives 0,
-//   the result written in q's type.
+//   the result written in f32.
 // Masks: keys at or past the real Sk, causal (key <= q_offset + row) and a
-// sliding window (key > q_offset + row - window).  Inputs f32 or bf16, in
-// the JAX package's layout q (B, Sq, H, D), k/v (B, Sk, Hkv, D), read
+// sliding window (key > q_offset + row - window).  Inputs f32, in the JAX
+// package's layout q (B, Sq, H, D), k/v (B, Sk, Hkv, D), read
 // through their strides; GQA by reading KV head h / (H / Hkv), never a
 // repeated copy.  Output (B, Sq, H, D), contiguous.
 //
@@ -25,8 +26,8 @@
 // rows).  The block stages q·scale for its rows in shared memory once, then
 // walks the key tiles its rows may see (tiles that the causal or window
 // mask hides from all 64 rows are skipped: they leave the recurrence's
-// state unchanged).  Each key tile (64 keys of K and V, widened to f32) is
-// staged in shared memory; the 16 x 16 threads compute the 64 x 64 score
+// state unchanged).  Each key tile (64 keys of K and V) is staged in
+// shared memory; the 16 x 16 threads compute the 64 x 64 score
 // tile as 4 x 4 register tiles (rows ty + 16 r, keys tx + 16 c, float4
 // loads along D), reduce row max and row sum across the 16 threads of a
 // row with warp shuffles, keep m and l in registers, write p to shared
@@ -37,12 +38,8 @@
 //
 // Bound on an H100 SXM at Llama-3.2-1B's prefill shape (B = 4, S = 4096,
 // 32 query heads, 8 KV heads, D = 64, causal): 2·2·B·H·D·S²/2 ≈ 275 GFLOP,
-// 0.28 ms at the 989 TFLOP/s of bf16 tensor cores, against 168 MB of q,
-// k, v and output, 0.05 ms: operations bound it.  This kernel runs its
-// products on the f32 FMA units (67 TFLOP/s at most) from shared memory,
-// so it sits far from that bound; wgmma on bf16 tiles staged by TMA is the
-// work of a later change.
-#include <cuda_bf16.h>
+// 4.1 ms at the 67 TFLOP/s of the f32 FMA units, against 336 MB of q, k,
+// v and output, 0.1 ms: operations bound it.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -56,15 +53,6 @@ constexpr int KPT = BK / 16;    // keys per thread
 constexpr int PS = BK + 16;     // row stride of the p tile: the two rows a
                                 // warp touches fall 16 banks apart
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
 template <int NC>
 constexpr size_t smem_bytes() {
   constexpr int D = 16 * NC;
@@ -72,10 +60,10 @@ constexpr size_t smem_bytes() {
                           + size_t(BK) * D + size_t(BQ) * PS);
 }
 
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Sq,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int Sq,
                  int Sk, int H, int rep, long long qsb, long long qss,
                  long long qsh, long long ksb, long long kss, long long ksh,
                  long long vsb, long long vss, long long vsh, int causal,
@@ -95,15 +83,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / rep;
   // the heaviest causal tiles (the last rows) start first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + hk * ksh;
-  const T* vb = v + b * vsb + hk * vsh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + hk * ksh;
+  const float* vb = v + b * vsb + hk * vsh;
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int i = e / D, d = e % D;
     const int qi = q0 + i;
     Qs[i * DP + d] =
-        qi < Sq ? __fmul_rn(to_f32(qb[qi * qss + d]), scale) : 0.f;
+        qi < Sq ? __fmul_rn(qb[qi * qss + d], scale) : 0.f;
   }
 
   float acc[RPT][NC];
@@ -128,8 +116,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = e / D, d = e % D;
       const int kj = k0 + j;
       const bool in = kj < Sk;
-      Ks[j * DP + d] = in ? to_f32(kb[kj * kss + d]) : 0.f;
-      Vs[j * D + d] = in ? to_f32(vb[kj * vss + d]) : 0.f;
+      Ks[j * DP + d] = in ? kb[kj * kss + d] : 0.f;
+      Vs[j * D + d] = in ? vb[kj * vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -224,20 +212,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty + 16 * r;
     if (qi >= Sq) continue;
     const float denom = l[r] == 0.f ? 1.f : l[r];
-    T* o = out + b * osb + qi * oss + h * osh;
+    float* o = out + b * osb + qi * oss + h * osh;
 #pragma unroll
-    for (int n = 0; n < NC; ++n) store(o + tx + 16 * n, acc[r][n] / denom);
+    for (int n = 0; n < NC; ++n) o[tx + 16 * n] = acc[r][n] / denom;
   }
 }
 
-template <typename T, int NC>
+template <int NC>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int Hkv, long long qsb, long long qss,
            long long qsh, long long ksb, long long kss, long long ksh,
            long long vsb, long long vss, long long vsh, int causal,
            int has_window, int window, int q_offset, float scale,
            cudaStream_t s) {
-  auto kern = flash_fwd_kernel<T, NC>;
+  auto kern = flash_fwd_kernel<NC>;
   constexpr size_t smem = smem_bytes<NC>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -245,25 +233,34 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, H / Hkv,
-      qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal, has_window,
-      window, q_offset, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H,
+      H / Hkv, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal,
+      has_window, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int D, const void* q, const void* k, const void* v, void* out,
-             int B, int Sq, int Sk, int H, int Hkv, long long qsb,
-             long long qss, long long qsh, long long ksb, long long kss,
-             long long ksh, long long vsb, long long vss, long long vsh,
-             int causal, int has_window, int window, int q_offset,
-             float scale, cudaStream_t s) {
+}  // namespace
+
+extern "C" {
+
+// Launch on `stream`; returns the CUDA error of the launch (0 on success).
+// q, k, v: float32 device memory, element strides (batch, sequence, head)
+// given, the head dimension contiguous; out: contiguous (B, Sq, H, D)
+// float32.  The caller checks the shapes: B, Sq >= 1, Sk >= 0, H a
+// multiple of Hkv, B * H <= 65535, D a multiple of 16 in [16, 128].
+int flash_fwd(const void* q, const void* k, const void* v, void* out, int B,
+              int Sq, int Sk, int H, int Hkv, int D, long long qsb,
+              long long qss, long long qsh, long long ksb, long long kss,
+              long long ksh, long long vsb, long long vss, long long vsh,
+              int causal, int has_window, int window, int q_offset,
+              float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(NC)                                                      \
   case 16 * NC:                                                             \
-    return launch<T, NC>(q, k, v, out, B, Sq, Sk, H, Hkv, qsb, qss, qsh,   \
-                         ksb, kss, ksh, vsb, vss, vsh, causal, has_window, \
-                         window, q_offset, scale, s);
+    return launch<NC>(q, k, v, out, B, Sq, Sk, H, Hkv, qsb, qss, qsh, ksb, \
+                      kss, ksh, vsb, vss, vsh, causal, has_window, window, \
+                      q_offset, scale, s);
   switch (D) {
     FLASH_CASE(1)
     FLASH_CASE(2)
@@ -277,33 +274,6 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* out,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FLASH_CASE
-}
-
-}  // namespace
-
-extern "C" {
-
-// Launch on `stream`; returns the CUDA error of the launch (0 on success).
-// q, k, v: device memory of one type, float32 (bf16 == 0) or bfloat16
-// (bf16 == 1), element strides (batch, sequence, head) given, the head
-// dimension contiguous; out: contiguous (B, Sq, H, D) of the same type.
-// The caller checks the shapes: B, Sq >= 1, Sk >= 0, H a multiple of Hkv,
-// B * H <= 65535, D a multiple of 16 in [16, 128].
-int flash_fwd(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Sk, int H, int Hkv, int D, long long qsb,
-              long long qss, long long qsh, long long ksb, long long kss,
-              long long ksh, long long vsb, long long vss, long long vsh,
-              int causal, int has_window, int window, int q_offset,
-              float scale, int bf16, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return dispatch<__nv_bfloat16>(D, q, k, v, out, B, Sq, Sk, H, Hkv, qsb,
-                                   qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-                                   causal, has_window, window, q_offset,
-                                   scale, s);
-  return dispatch<float>(D, q, k, v, out, B, Sq, Sk, H, Hkv, qsb, qss, qsh,
-                         ksb, kss, ksh, vsb, vss, vsh, causal, has_window,
-                         window, q_offset, scale, s);
 }
 
 }  // extern "C"

@@ -1,9 +1,11 @@
-"""Dispatch for the flash-attention kernel.
+"""Dispatch for the flash-attention kernels.
 
 The tensor's device picks the route: a CPU tensor runs the plain PyTorch
-version (``ref.flash_fwd_ref``), a CUDA tensor launches the hand-written
-kernel (``csrc/flash_fwd.cu``) or raises.  There is no fallback from the
-card to the plain version.
+version (``ref.flash_fwd_ref``), a CUDA tensor launches a hand-written
+kernel or raises.  There is no fallback from the card to the plain version.
+The dtype picks the kernel: bf16 runs on the tensor cores
+(``csrc/flash_fwd_bf16.cu``: wgmma fed by TMA), f32 on the FMA units
+(``csrc/flash_fwd.cu``).  Both count as ``flash_fwd`` launches.
 """
 from __future__ import annotations
 
@@ -13,35 +15,57 @@ from pathlib import Path
 
 import torch
 
-from .. import _LAUNCHES
+from .. import _COPIES, _LAUNCHES
 from .ref import flash_fwd_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+#: the kernel source of each dtype, and its C entry point
+SOURCES = {torch.float32: _CSRC / "flash_fwd.cu",
+           torch.bfloat16: _CSRC / "flash_fwd_bf16.cu"}
+_ENTRY = {torch.float32: "flash_fwd", torch.bfloat16: "flash_fwd_bf16"}
 
-#: CUDA's limit on gridDim.y, which counts batch x query heads
+#: CUDA's limit on gridDim.y, which counts batch x query heads in the f32
+#: kernel and tiles of query rows in the bf16 kernel
 MAX_GRID_Y = 65535
-#: head dims the kernel is instantiated for
+#: query rows a CTA of the bf16 kernel takes (flash_fwd_bf16.cu: BQ)
+BF16_ROWS = 128
+#: head dims the kernels are instantiated for
 HEAD_DIMS = tuple(range(16, 129, 16))
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-_BUILT = None
+_BUILT: dict = {}
 
 
-def library():
-    """The kernel library, built at the first call (an ``_nvcc.Built``
-    record), with its C signature declared."""
-    global _BUILT
-    if _BUILT is None:
+def library(dtype):
+    """The kernel library of ``dtype`` (float32 or bfloat16), built at its
+    first call (an ``_nvcc.Built`` record), with its C signatures
+    declared."""
+    built = _BUILT.get(dtype)
+    if built is None:
         from .._nvcc import load
-        built = load(SOURCE)
-        built.lib.flash_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        built.lib.flash_fwd.restype = ctypes.c_int
-        _BUILT = built
-    return _BUILT
+        built = load(SOURCES[dtype])
+        fn = getattr(built.lib, _ENTRY[dtype])
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        if dtype == torch.bfloat16:
+            built.lib.flash_fwd_bf16_plan.argtypes = [
+                ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            built.lib.flash_fwd_bf16_plan.restype = ctypes.c_int
+        _BUILT[dtype] = built
+    return built
+
+
+def launch_plan(D: int) -> dict:
+    """The CTA a bf16 launch at head dim ``D`` takes, as the kernel
+    reports it: threads, query rows, keys a tile, stages of the K/V ring,
+    dynamic shared-memory bytes, and the CTAs an SM its launch bound
+    allows for."""
+    keys = ("threads", "rows", "keys", "stages", "smem_bytes", "ctas_per_sm")
+    plan = (ctypes.c_int * len(keys))()
+    if library(torch.bfloat16).lib.flash_fwd_bf16_plan(D, plan) != 0:
+        raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
+    return dict(zip(keys, plan))
 
 
 def _check(q, k, v, window):
@@ -59,45 +83,87 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be >= 1 or None, got {window}")
 
 
+def readable(t) -> bool:
+    """Whether the kernel of ``t``'s dtype reads ``t`` (B, S, heads, D) as
+    it is.  Both need the head dim contiguous; the bf16 kernel's TMA loads
+    also need a 16-byte aligned base and, for each other dim longer than
+    1, a stride that is a positive multiple of 8 elements (16 bytes).  A
+    contiguous tensor, and a head-dim slice of a fused projection, meet
+    both."""
+    if t.stride(-1) != 1:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    return t.data_ptr() % 16 == 0 and all(
+        st > 0 and st % 8 == 0
+        for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
+def _strides(t) -> list[int]:
+    """(batch, sequence, head) element strides; a dim of length 1 is never
+    stepped along and takes the contiguous stride, which TMA accepts."""
+    B, S, Hs, D = t.shape
+    packed = (S * Hs * D, Hs * D, D)
+    return [st if n > 1 else p
+            for n, st, p in zip(t.shape[:3], t.stride()[:3], packed)]
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: int | None = None,
                          scale: float | None = None, q_offset: int = 0):
-    """Launch the kernel on the current stream.
+    """Launch the kernel of q's dtype on the current stream.
 
     q (B, Sq, H, D), k/v (B, Sk, Hkv, D), all float32 or all bfloat16 on
-    one CUDA device, each with its last dim contiguous (other strides are
-    read as they are); D a multiple of 16 up to 128.  Returns a contiguous
-    (B, Sq, H, D) in q's dtype, equal to ``flash_fwd_ref`` within the
-    rounding of f32 sums taken in another order.
+    one CUDA device, read through their strides; D a multiple of 16 up to
+    128.  Returns a contiguous (B, Sq, H, D) in q's dtype, equal to
+    ``flash_fwd_ref`` within ``ref.TOLERANCE``.
+
+    A view that the kernel cannot read as it is (see :func:`readable`) is
+    copied to a contiguous tensor first, inside this call, and each such
+    copy adds one to ``copies()["flash_fwd"]``.  Contiguous tensors and
+    head-dim slices of a fused qkv projection are read without a copy.
     """
     _check(q, k, v, window)
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on "
                          f"{v.device}: all must be on one CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in SOURCES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must all be float32 or all bfloat16, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
-    if B * H > MAX_GRID_Y:
-        raise ValueError(f"B x H = {B * H} passes CUDA's grid limit of "
-                         f"{MAX_GRID_Y}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    grid_y = -(-Sq // BF16_ROWS) if q.dtype == torch.bfloat16 else B * H
+    if grid_y > MAX_GRID_Y:
+        raise ValueError(f"the launch needs a grid of {grid_y} along y, "
+                         f"past CUDA's limit of {MAX_GRID_Y}")
     out = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    ts = []
+    for t in (q, k, v):
+        if not readable(t):
+            t = t.contiguous()
+            _COPIES["flash_fwd"] += 1
+        ts.append(t)
+    q, k, v = ts
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    built = library()
+    if window is not None:
+        # a window past every (query, key) distance masks nothing: capped,
+        # the kernels' int arithmetic on it cannot overflow
+        window = min(window, Sq + Sk + abs(q_offset) + 1)
+    fn = getattr(library(q.dtype).lib, _ENTRY[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = built.lib.flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, H, Hkv, D, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], int(causal), int(window is not None),
-            window or 0, q_offset, scale, _DTYPES[q.dtype], stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, Sq, Sk, H, Hkv, D, *_strides(q), *_strides(k),
+                 *_strides(v), int(causal), int(window is not None),
+                 window or 0, q_offset, scale, stream)
+    if err < 0:
+        raise RuntimeError(f"flash_fwd: the driver refused a TMA tensor map "
+                           f"(CUresult {-err})")
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -112,10 +178,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
     q (B, Sq, H, D); k/v (B, Sk, Hkv, D), GQA heads read in place -> (B, Sq,
     H, D) in q's dtype.  A CPU tensor runs the plain recurrence
-    (``flash_fwd_ref``); a CUDA tensor launches the kernel, and an error
-    there propagates.  The JAX package's block sizes and ``interpret`` flag
-    have no counterpart: the kernel's tiles are fixed, and the CPU runs the
-    plain version.
+    (``flash_fwd_ref``); a CUDA tensor launches the kernel of its dtype,
+    and an error there propagates.  The JAX package's block sizes and
+    ``interpret`` flag have no counterpart: the kernels' tiles are fixed,
+    and the CPU runs the plain version.
     """
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal, window=window,

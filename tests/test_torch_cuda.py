@@ -11,6 +11,8 @@ On a machine with an H100, ``nvcc`` and no JAX:
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +27,9 @@ from repro_torch.fpga.archs import ARCH_NAMES, make_arch
 from repro_torch.fpga.boards import BOARD_NAMES
 from repro_torch.configs import get_config
 from repro_torch.kernels.conv_ce import conv_ce, conv_ref, grid_size
+from repro_torch.kernels import copies
 from repro_torch.kernels.flash_attn import flash_attention, flash_fwd_ref
+from repro_torch.kernels.flash_attn.ops import HEAD_DIMS
 from repro_torch.kernels.flash_attn.ref import excess
 from repro_torch.kernels.mccm_eval import (launches, mccm_latency,
                                            mccm_latency_ref, pair_tables,
@@ -205,6 +209,94 @@ def test_flash_kernel_equals_plain_on_card(cuda, B, Sq, Sk, H, Hkv, D,
     qs, ks, vs = (torch.cat([t, t], -1)[..., :D] for t in (q, k, v))
     assert not qs.is_contiguous() and qs.stride(-1) == 1
     assert torch.equal(flash_attention(qs, ks, vs, **kw), got)
+
+
+# the bf16 kernel (tensor cores): every head dim, GQA ratios 1, 4 and 8,
+# Sq != Sk with q_offset (negative too), a ragged 4000-token case, windows
+# and non-causal attention
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,q_offset", [
+    *[(2, 150, 150, 4, 4, D, True, None, 0) for D in HEAD_DIMS],
+    (1, 130, 300, 8, 2, 64, True, None, 170),
+    (2, 100, 260, 8, 1, 80, True, 70, 160),
+    (1, 70, 70, 8, 8, 128, True, None, -30),
+    (1, 4000, 4000, 4, 1, 64, True, None, 0),
+    (1, 1000, 1000, 4, 1, 64, True, 300, 0),
+    (2, 200, 333, 4, 4, 96, False, None, 0),
+    (1, 257, 129, 8, 2, 48, False, 64, 100),
+])
+def test_flash_bf16_kernel_equals_plain_on_card(cuda, B, Sq, Sk, H, Hkv, D,
+                                                causal, window, q_offset):
+    rng = np.random.default_rng(Sq + Sk + D + H)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (B, s, h, D), dtype=np.float32)).to(cuda, torch.bfloat16)
+        for s, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    reset_launches()
+    got = flash_attention(q, k, v, **kw)
+    assert launches()["flash_fwd"] == 1 and copies()["flash_fwd"] == 0
+    want = flash_fwd_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert excess(got, want) <= 0, (got.float() - want.float()).abs().max()
+
+
+def test_flash_bf16_fully_masked_rows_give_zero_on_card(cuda):
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, 200, h, 64), dtype=np.float32)).to(cuda, torch.bfloat16)
+        for h in (4, 2, 2))
+    out = flash_attention(q, k, v, causal=True, q_offset=-150)
+    torch.cuda.synchronize()
+    assert not bool(out[:, :150].any())
+    assert bool(out[:, 150:].abs().sum(-1).gt(0).all())
+    assert excess(out, flash_fwd_ref(q, k, v, causal=True,
+                                     q_offset=-150)) <= 0
+    out = flash_attention(q, k[:, :0], v[:, :0], causal=False)
+    assert out.shape == q.shape and not bool(out.any())
+
+
+def test_flash_bf16_keeps_p_in_f32_on_card(cuda):
+    """tests/test_torch_flash_attn.py::test_bf16_keeps_p_in_f32 on the
+    card: p = exp(-177/256), which bf16 rounds to 0.5, must give 5.8e-4,
+    not 0."""
+    D = 16
+    q = torch.zeros(1, 1, 1, D)
+    q[..., 0] = 1.0
+    k = torch.zeros(1, 2, 1, D)
+    k[0, 1, 0, 0] = -177 / 256
+    v = torch.stack([torch.full((D,), -0.5), torch.ones(D)])[None, :, None]
+    q, k, v = (t.to(cuda, torch.bfloat16) for t in (q, k, v))
+    got = flash_attention(q, k, v, causal=False, scale=1.0)
+    x = math.exp(-177 / 256)
+    want = torch.full(got.shape, (x - 0.5) / (1 + x)).bfloat16().to(cuda)
+    assert excess(got, want) <= 0, got
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_bf16_reads_fused_qkv_views_without_a_copy(cuda, D):
+    """q, k and v as head-dim slices of one fused projection (B, S,
+    (H + 2 Hkv)·D): read through their strides, no copy, and equal to the
+    contiguous tensors' result bit for bit."""
+    B, S, H, Hkv = 2, 300, 8, 2
+    rng = np.random.default_rng(D)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, S, (H + 2 * Hkv) * D), dtype=np.float32)).to(cuda,
+                                                          torch.bfloat16)
+    q = qkv[..., :H * D].view(B, S, H, D)
+    k = qkv[..., H * D:(H + Hkv) * D].view(B, S, Hkv, D)
+    v = qkv[..., (H + Hkv) * D:].view(B, S, Hkv, D)
+    reset_launches()
+    got = flash_attention(q, k, v, causal=True)
+    assert launches()["flash_fwd"] == 1 and copies()["flash_fwd"] == 0
+    want = flash_attention(*(t.contiguous() for t in (q, k, v)), causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # a view TMA cannot read is copied once, and counted
+    reset_launches()
+    off = qkv[..., 1:1 + H * D].view(B, S, H, D)
+    assert torch.equal(flash_attention(off, k, v, causal=True),
+                       flash_attention(off.contiguous(), k, v, causal=True))
+    assert copies()["flash_fwd"] == 1
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):

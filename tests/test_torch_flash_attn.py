@@ -31,7 +31,9 @@ from repro_torch.kernels import launches, reset_launches
 from repro_torch.kernels.flash_attn import (attention_ref, flash_attention,
                                             flash_attention_cuda,
                                             flash_fwd_ref)
-from repro_torch.kernels.flash_attn.ref import excess, kv_range
+from repro_torch.kernels.flash_attn import ops
+from repro_torch.kernels.flash_attn.ref import (KV_TILE, attention_mask,
+                                                excess, kv_range)
 
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 
@@ -211,3 +213,124 @@ def test_flash_attention_refuses_bad_input():
         flash_attention(q, k, v, window=0)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k, v)       # no plain route on this path
+
+
+# --------------------------------------------------------------------------
+# the bf16 kernel's roundings (csrc/flash_fwd_bf16.cu), as a plain twin
+# --------------------------------------------------------------------------
+def _bf16_kernel_twin(q, k, v, *, causal=True, window=None, scale=None,
+                      q_offset=0, split=True):
+    """The bf16 kernel's arithmetic in plain PyTorch: f32 scores q·k from
+    the bf16 operands, then ·(scale·log2 e) in f32 (the kernel's wgmma has
+    no place for q·scale, and its exp is exp2 of scores in log2 units);
+    the ``flash_fwd_ref`` recurrence over 64-key tiles; p split into p_hi =
+    bf16(p) and p_lo = bf16(p - p_hi), both multiplied by v into one f32
+    accumulator, l summed in f32 in tile order.  With ``split=False``, p
+    is rounded to bf16 once, as a single bf16 wgmma would take it."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    scale2 = torch.tensor(scale) * torch.tensor(math.log2(math.e))   # f32
+    qf = q.float().permute(0, 2, 1, 3).reshape(B, Hkv, rep, Sq, D)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    q_abs = torch.arange(Sq) + q_offset
+    acc = torch.zeros(B, Hkv, rep, Sq, D)
+    m = torch.full((B, Hkv, rep, Sq), -torch.inf)
+    l = torch.zeros(B, Hkv, rep, Sq)
+    lo, hi = kv_range(Sq, Sk, causal=causal, window=window, q_offset=q_offset)
+    for k0 in range(lo // KV_TILE * KV_TILE, hi, KV_TILE):
+        k1 = min(k0 + KV_TILE, Sk)
+        s = (qf @ kf[..., k0:k1, :].transpose(-1, -2)) * scale2
+        msk = attention_mask(q_abs, torch.arange(k0, k1), Sk, causal, window)
+        s = torch.where(msk, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        p = torch.where(msk, torch.exp2(s - m_safe[..., None]), 0.0)
+        alpha = torch.where(torch.isneginf(m), 0.0, torch.exp2(m - m_safe))
+        l = l * alpha + p.sum(-1)
+        p_hi = p.bfloat16().float()
+        acc = acc * alpha[..., None] + p_hi @ vf[..., k0:k1, :]
+        if split:
+            p_lo = (p - p_hi).bfloat16().float()
+            acc = acc + p_lo @ vf[..., k0:k1, :]
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    out = (acc / l[..., None]).bfloat16()
+    return out.reshape(B, H, Sq, D).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,q_offset", [
+    (2, 150, 150, 4, 1, 16, True, None, 0),
+    (1, 200, 200, 8, 2, 64, True, None, 0),
+    (1, 130, 130, 4, 4, 64, False, None, 0),
+    (1, 70, 200, 4, 2, 80, True, 50, 130),       # h2o-danube's head dim
+    (2, 100, 100, 2, 2, 80, True, 33, 0),
+    (1, 96, 96, 2, 1, 128, True, None, 0),
+    (1, 40, 170, 8, 1, 128, True, None, -20),    # rows that see no key
+])
+def test_bf16_kernel_roundings_meet_the_plain_version(B, Sq, Sk, H, Hkv, D,
+                                                      causal, window,
+                                                      q_offset):
+    """The kernel's own roundings (scale·log2 e after the f32 scores, exp2,
+    p as p_hi + p_lo, sums in tile order) stay within ``ref.TOLERANCE`` of
+    ``flash_fwd_ref`` element by element, also where the scale is not a
+    power of 2 (D 80), and near JAX's oracle."""
+    (jq, jk, jv), (q, k, v) = _inputs(B, Sq, Sk, H, Hkv, D, "bfloat16",
+                                      seed=Sq * D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    twin = _bf16_kernel_twin(q, k, v, **kw)
+    assert twin.dtype == torch.bfloat16 and twin.shape == q.shape
+    assert excess(twin, flash_fwd_ref(q, k, v, **kw)) <= 0
+    if q_offset == 0:
+        _close(twin, JL.chunked_attention(jq, jk, jv, **kw), "bfloat16",
+               "chunked")
+
+
+def test_bf16_kernel_split_keeps_p_in_f32():
+    """On test_bf16_keeps_p_in_f32's inputs the twin gives (x - 0.5) /
+    (1 + x) = 5.8e-4 within the bound; the same twin with p rounded to
+    bf16 once gives 0 and fails it: the kernel needs the split."""
+    D = 16
+    q = torch.zeros(1, 1, 1, D)
+    q[..., 0] = 1.0
+    k = torch.zeros(1, 2, 1, D)
+    k[0, 1, 0, 0] = -177 / 256
+    v = torch.stack([torch.full((D,), -0.5), torch.ones(D)])[None, :, None]
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    x = math.exp(-177 / 256)
+    want = torch.full((1, 1, 1, D), (x - 0.5) / (1 + x)).bfloat16()
+    kw = dict(causal=False, scale=1.0)
+    got = _bf16_kernel_twin(q, k, v, **kw)
+    assert excess(got, want) <= 0 and excess(got, flash_fwd_ref(q, k, v,
+                                                                 **kw)) <= 0
+    assert float(got[0, 0, 0, 0]) == pytest.approx(5.8e-4, rel=0.01)
+    single = _bf16_kernel_twin(q, k, v, split=False, **kw)
+    assert not single.any()
+    assert excess(single, want) > 0
+
+
+@pytest.mark.parametrize("D", [16, 64, 80, 128])
+def test_views_the_bf16_kernel_reads_without_a_copy(D):
+    """The wrapper's rule for what the bf16 kernel (TMA) reads as it is:
+    contiguous tensors and head-dim slices of a fused qkv projection; not a
+    view whose rows start off a 16-byte boundary or whose head dim is
+    strided.  Dims of length 1 get the contiguous stride."""
+    B, S, H, Hkv = 2, 50, 8, 2
+    qkv = torch.zeros(B, S, (H + 2 * Hkv) * D, dtype=torch.bfloat16)
+    q = qkv[..., :H * D].view(B, S, H, D)
+    k = qkv[..., H * D:(H + Hkv) * D].view(B, S, Hkv, D)
+    v = qkv[..., (H + Hkv) * D:].view(B, S, Hkv, D)
+    assert all(ops.readable(t) for t in (q, k, v))
+    assert not q.is_contiguous()
+    assert ops._strides(q) == [S * (H + 2 * Hkv) * D, (H + 2 * Hkv) * D, D]
+    shifted = qkv[..., 8:8 + H * D].view(B, S, H, D)    # 16 bytes in: fine
+    assert ops.readable(shifted)
+    off = qkv[..., 1:1 + H * D].view(B, S, H, D)        # 2 bytes in
+    assert not ops.readable(off)
+    assert not ops.readable(q.transpose(2, 3))
+    # f32 rows of any alignment are read as they are
+    assert ops.readable(off.float()[..., 1:])
+    one = torch.zeros(1, 1, 1, D, dtype=torch.bfloat16)
+    assert ops._strides(one) == [D, D, D] and ops.readable(one)
