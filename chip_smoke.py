@@ -36,8 +36,11 @@ Phases, each printing one JSON line:
    ResNet-50 at their published widths (batch 1, unit-normal data from
    ``--seed``), each on its CE's ⟨pf, ph, pw⟩ in the port's Builder for
    every baseline arch with 11 CEs on ZCU102: the grid identity of Eq. 1
-   exactly, the kernel equal to its plain version bit for bit and near
-   ``conv2d``; ms per ResNet-50 pass beside ``conv2d``'s and the bound;
+   exactly, for the grid the library reports it launched, the kernel
+   equal to its plain version bit for bit and near ``conv2d``; ms per
+   ResNet-50 pass beside ``conv2d``'s, the bound at the card's f32 rate,
+   the bound at the contract's no-FMA rate and each design's grid floor;
+   the slowest layers with their launch plans;
 8. the flash-attention kernels at Llama-3.2-1B's attention shape (B 4, S
    4096, 32 query heads, 8 KV heads, head dim 64, causal) in bf16 (tensor
    cores) and f32 (FMA), plus a ragged (S 4000), a sliding-window and a
@@ -84,6 +87,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+#: its SMs, and one SM's FP32 lanes at the 1.98 GHz boost clock
+SMS = 132
+SM_F32_ISSUES_PER_S = 128 * 1.98e9
+#: f32 operations a second where a multiply and an add are issued apart,
+#: one operation an issue: half the FMA rate.  conv_ce's own contract (no
+#: FMA, to equal its plain version bit for bit) holds it to this rate; its
+#: bound_ms is at F32_OPS_PER_S, the card's rate for the function
+F32_NO_FMA_OPS_PER_S = SMS * SM_F32_ISSUES_PER_S
 
 KERNELS = {
     "parallelism_search": dict(
@@ -759,6 +770,7 @@ def phase_conv(card: str, device, seed: int) -> dict:
     from repro_torch.fpga.archs import ARCH_NAMES, make_arch
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.kernels.conv_ce import conv_ce, conv_ref, grid_size
+    from repro_torch.kernels.conv_ce import ops as conv_ops
 
     net = get_cnn("resnet50")
     if any(l.kind == "dw" for l in net):
@@ -767,13 +779,23 @@ def phase_conv(card: str, device, seed: int) -> dict:
     data = _conv_layers(net, seed, device)
     designs = {a: _ce_tiles(ses, make_arch(a, net, CONV_ARCH_CES), net)
                for a in ARCH_NAMES}
+    # Eq. 1's grid of every layer run; a block runs on one SM, so a design
+    # takes at least, layer by layer, its waves of 132 blocks, each the
+    # time one SM takes for a whole tile's MACs at two issues a MAC
+    eq1, grid_floor_ms = {}, {}
     for a, tiles in designs.items():
+        floor = 0.0
         for l, (ce, par) in zip(net, tiles):
             ckk = l.in_ch * l.kh * l.kw
-            if grid_size(l.out_ch, l.oh, l.ow, *par) * ckk != \
-                    layer_cycles(l, ce):
+            eq1[a, l.name] = (-(-l.out_ch // par[0]), -(-l.oh // par[1]),
+                              -(-l.ow // par[2]))
+            blocks = grid_size(l.out_ch, l.oh, l.ow, *par)
+            if blocks * ckk != layer_cycles(l, ce):
                 raise PhaseFailed(f"{a}/{l.name}: grid x C*KH*KW is not "
                                   f"Eq. 1")
+            floor += -(-blocks // SMS) * par[0] * par[1] * par[2] * ckk \
+                * 2 / SM_F32_ISSUES_PER_S * 1e3
+        grid_floor_ms[a] = floor
 
     def run(tiles):
         return [conv_ce(x, w, stride=l.stride, par_f=par[0],
@@ -782,7 +804,18 @@ def phase_conv(card: str, device, seed: int) -> dict:
 
     torch.cuda.synchronize()
     reset_launches()
-    outs = {a: run(tiles) for a, tiles in designs.items()}
+    outs, plans = {}, {}
+    for a, tiles in designs.items():
+        outs[a] = []
+        for l, (x, w), (_, par) in zip(net, data, tiles):
+            outs[a].append(conv_ce(x, w, stride=l.stride, par_f=par[0],
+                                   par_oh=par[1], par_ow=par[2]))
+            launch = conv_ops.last_launch()
+            if launch.grid != eq1[a, l.name]:
+                raise PhaseFailed(f"{a}/{l.name}: the library launched grid "
+                                  f"{launch.grid}, Eq. 1's is "
+                                  f"{eq1[a, l.name]}")
+            plans[a, l.name] = launch.plan
     torch.cuda.synchronize()
     n = launches()
     if n["conv_ce"] != len(designs) * len(net):
@@ -833,19 +866,23 @@ def phase_conv(card: str, device, seed: int) -> dict:
             layer=net[i].name, ms=each[i], tile=tiles[i][1],
             blocks=grid_size(net[i].out_ch, net[i].oh, net[i].ow,
                              *tiles[i][1]),
-            ckk=net[i].in_ch * net[i].kh * net[i].kw) for i in top]
+            ckk=net[i].in_ch * net[i].kh * net[i].kw,
+            plan=plans[a, net[i].name].as_dict()) for i in top]
     library_ms = cuda_ms(lambda: [nnf.conv2d(x[None], w, stride=l.stride)
                                   for l, (x, w) in zip(net, data)], 5)
     big = max(range(len(net)), key=lambda i: net[i].in_ch * net[i].kh
               * net[i].kw)
     x, w = data[big]
     plain_big_ms = cuda_ms(lambda: conv_ref(x, w, net[big].stride), 1)
-    # bound: 2 operations a MAC; each padded input, weight and output once
+    # bound: 2 operations a MAC at the card's f32 rate; each padded input,
+    # weight and output once.  The contract's bound: the same operations
+    # at the no-FMA rate the kernel is held to
     flops = 2 * sum(l.macs for l in net)
     nbytes = 4 * sum(x.numel() + w.numel() + l.out_ch * l.oh * l.ow
                      for l, (x, w) in zip(net, data))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_OPS_PER_S * 1e3
+    contract_bound_ms = max(bytes_ms, flops / F32_NO_FMA_OPS_PER_S * 1e3)
     kernel = dict(
         **KERNELS["conv_ce"], layers=len(net), designs=list(designs),
         flops=flops, bytes=nbytes,
@@ -859,7 +896,9 @@ def phase_conv(card: str, device, seed: int) -> dict:
          launches=n, grid_is_eq1=True, equal_plain=True,
          vs_conv2d=dict(rtol=RTOL_CONV, atol_of_max=RTOL_CONV,
                         worst_excess_of_max=worst_lib),
-         pass_ms=pass_ms, slowest_layers=slowest,
+         pass_ms=pass_ms, grid_floor_ms=grid_floor_ms,
+         bound_ms=kernel["bound_ms"], contract_bound_ms=contract_bound_ms,
+         slowest_layers=slowest,
          conv2d_pass_ms=library_ms,
          plain_pass_ms=plain_pass_ms,
          plain_one_layer=dict(layer=net[big].name, ms=plain_big_ms),

@@ -2,7 +2,7 @@
 
 :class:`EvalError` is how every Session-level failure is expressed, and
 :func:`classify`/:func:`wrap` map an arbitrary exception onto it (the
-error boundary of ``Session.evaluate`` on one design);
+error boundary of every ``Session.evaluate`` path);
 :func:`nonfinite_keys` backs the NaN/Inf check of the batch path.
 Retries, the circuit breaker and checkpoints are still to be ported.
 """

@@ -12,6 +12,7 @@ on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass, replace
 
@@ -29,6 +30,18 @@ from .evaluator import _evaluate_design, build_design
 from .notation import AcceleratorSpec, parse
 from .resilience import EvalError, nonfinite_keys, wrap
 from .workload import Network
+
+
+@contextlib.contextmanager
+def _taxonomy():
+    """The error boundary of an evaluation path: an :class:`EvalError`
+    passes as it is, anything else leaves as ``wrap(e)`` caused by ``e``."""
+    try:
+        yield
+    except EvalError:
+        raise
+    except Exception as e:  # noqa: BLE001 — taxonomy boundary
+        raise wrap(e) from e
 
 
 @dataclass(frozen=True)
@@ -171,16 +184,18 @@ class Session:
           ``{metric: torch.Tensor}`` on the session's device.
 
         ``inter_segment_pipelining`` applies to notation strings only.
+        Every path raises :class:`EvalError`: an input error as
+        ``INVALID_INPUT``, anything else (a failed kernel launch on the
+        card included) as ``BACKEND_FAULT``.  Nothing is retried, and
+        nothing falls back to the plain version.
         """
         dev = self._device(dev)
         if isinstance(designs, (str, AcceleratorSpec)):
             self._bump("scalar_evals")
-            try:
+            with _taxonomy():
                 m = _evaluate_design(
                     designs, net, dev,
                     inter_segment_pipelining=inter_segment_pipelining)
-            except Exception as e:  # noqa: BLE001 — taxonomy boundary
-                raise wrap(e) from e
             if not np.isfinite([m.latency_s, m.throughput_ips,
                                 float(m.buffer_bytes)]).all():
                 raise EvalError(EvalError.NONFINITE_METRICS,
@@ -202,10 +217,11 @@ class Session:
                     f"index {int(bad[0])} (non-canonical segments or CE "
                     f"count outside [1, {NC}])")
             self._bump("batch_designs", designs.batch)
-            return evaluate_batch(
-                designs.to(self.device), self.tables(net),
-                self.device_tables(dev), cfg.fm_tile_rows, tile=cfg.tile,
-                chunk=cfg.chunk)
+            with _taxonomy():
+                return evaluate_batch(
+                    designs.to(self.device), self.tables(net),
+                    self.device_tables(dev), cfg.fm_tile_rows, tile=cfg.tile,
+                    chunk=cfg.chunk)
         try:
             specs = [parse(d, len(net), inter_segment_pipelining=
                            inter_segment_pipelining)
@@ -217,9 +233,11 @@ class Session:
             raise EvalError(EvalError.INVALID_INPUT,
                             "no designs to evaluate (empty list)")
         self._bump("batch_designs", len(specs))
-        out = _evaluate_specs(specs, net, self.device_tables(dev), cfg.chunk,
-                              tables=self.tables(net), tile=cfg.tile,
-                              fm_tile_rows=cfg.fm_tile_rows)
+        with _taxonomy():
+            out = _evaluate_specs(specs, net, self.device_tables(dev),
+                                  cfg.chunk, tables=self.tables(net),
+                                  tile=cfg.tile,
+                                  fm_tile_rows=cfg.fm_tile_rows)
         bad = nonfinite_keys(out)
         if bad:
             raise EvalError(EvalError.NONFINITE_METRICS,

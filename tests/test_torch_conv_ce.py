@@ -6,9 +6,13 @@ package's ``conv_ref`` (an XLA convolution) at ``tests/test_kernels.py``'s
 cases, rtol = atol = 1e-4: the port adds each output's terms in (c, kh,
 kw) order, XLA in its own.  The launch grid is held to Eq. 1 on every
 ResNet-50 layer under the CE the port's Builder gives it.  The CUDA kernel
-itself runs only on the card: ``tests/test_torch_cuda.py``.
+itself runs only on the card: ``tests/test_torch_cuda.py``; its launch
+plan is held here, on every layer of ResNet-50, VGG-16 and MobileNetV2
+(but its depthwise layers) under the CE the Builder gives it.
 """
 from __future__ import annotations
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +28,7 @@ from repro_torch.fpga.archs import ARCH_NAMES, make_arch
 from repro_torch.kernels import launches, reset_launches
 from repro_torch.kernels.conv_ce import (conv_ce, conv_ce_cuda, conv_ref,
                                          grid_size, predicted_cycles)
+from repro_torch.kernels.conv_ce import ops as conv_ops
 
 TOL = 1e-4
 
@@ -117,3 +122,125 @@ def test_routes():
     with pytest.raises(ValueError, match="stride and tile"):
         conv_ce(x, w, par_f=0)
     assert not any(launches().values())
+
+
+def _stored(plan, nf, nh, nw):
+    """The tile-local outputs a block stores under ``plan``, with nf x nh x
+    nw of its tile inside the layer: thread t is (gf, gh, gw) = (t // (tw
+    * th), t // tw % th, t % tw) and owns (gf*rf + i, gh + j*th, gw +
+    k*tw), stored where inside that part (``csrc/conv_ce.cu``)."""
+    t = np.arange(plan.tf * plan.th * plan.tw)
+    gf, gh, gw = t // (plan.tw * plan.th), t // plan.tw % plan.th, \
+        t % plan.tw
+    i, j, k = np.meshgrid(np.arange(plan.rf), np.arange(plan.rh),
+                          np.arange(plan.rw), indexing="ij")
+    f = (gf * plan.rf)[:, None] + i.ravel()
+    h = gh[:, None] + j.ravel() * plan.th
+    w = gw[:, None] + k.ravel() * plan.tw
+    keep = (f < nf) & (h < nh) & (w < nw)
+    return np.stack([f[keep], h[keep], w[keep]], 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _builder_layers(cnn, board):
+    """(layer, its CE) of every non-depthwise layer of ``cnn`` in the
+    Builder's design of each baseline arch with 2, 5, 9 and 11 CEs."""
+    net = get_cnn(cnn)
+    ses = Session(get_board(board), device="cpu")
+    out = []
+    for arch in ARCH_NAMES:
+        for n in (2, 5, 9, 11):
+            acc = ses.build(make_arch(arch, net, n), net)
+            for seg in acc.segments:
+                for k, li in enumerate(range(seg.spec.layer_lo,
+                                             seg.spec.layer_hi + 1)):
+                    if net[li].kind != "dw":
+                        out.append((net[li], seg.ces[k % len(seg.ces)]))
+    return out
+
+
+@pytest.mark.parametrize("cnn", ["resnet50", "mobilenetv2", "vgg16"])
+@pytest.mark.parametrize("board", ["zcu102", "zc706"])
+def test_launch_plan_on_builder_tiles(cnn, board):
+    """Every plan the kernel would get from the Builder's CEs: whole warps,
+    at most 1024 threads, at most 227 KB of shared memory, pitches the
+    kernel accepts, each output of the tile stored exactly once (an
+    interior and the ragged last block), and the grid Eq. 1's."""
+    seen = set()
+    for l, ce in _builder_layers(cnn, board):
+        par = (ce.par_of("f"), ce.par_of("oh"), ce.par_of("ow"))
+        H = l.ih + max((l.oh - 1) * l.stride + l.kh - l.ih, 0)
+        W = l.iw + max((l.ow - 1) * l.stride + l.kw - l.iw, 0)
+        key = (l.in_ch, H, W, l.out_ch, l.kh, l.kw, l.stride, *par)
+        p = conv_ops.launch_plan(*key)
+        assert p.grid == (-(-l.out_ch // par[0]), -(-l.oh // par[1]),
+                          -(-l.ow // par[2]))
+        assert np.prod(p.grid) * l.in_ch * l.kh * l.kw \
+            == layer_cycles(l, ce) == predicted_cycles(
+                l.out_ch, l.in_ch, l.kh, l.kw, l.oh, l.ow, *par)
+        if key in seen:
+            continue
+        seen.add(key)
+        assert (p.rf, p.rh, p.rw) in conv_ops.REGISTER_TILES
+        assert p.threads % 32 == 0 and p.threads <= 1024
+        assert p.threads <= conv_ops.max_threads((p.rf, p.rh, p.rw))
+        assert p.tf * p.th * p.tw <= p.threads
+        assert p.smem_bytes <= 227 * 1024
+        assert 1 <= p.cc <= l.in_ch
+        assert p.row_pitch >= l.stride * p.wq >= p.ww
+        assert p.f_pitch >= p.tf * p.rf and p.f_pitch % 4 == 0
+        assert p.w_copy == (conv_ops.COPY_16 if l.out_ch % 4 == 0 and (
+            par[0] % 4 == 0 or p.grid[0] == 1) else conv_ops.COPY_ELEMENT)
+        assert conv_ops.launch_plan(*key, bf16=True).w_copy \
+            == conv_ops.COPY_ELEMENT
+        last = [min(t, d - (g - 1) * t) for t, d, g in
+                zip(par, (l.out_ch, l.oh, l.ow), p.grid)]
+        for part in ([min(t, d) for t, d in zip(par, (l.out_ch, l.oh,
+                                                       l.ow))], last):
+            got = _stored(p, *part)
+            want = np.stack(np.meshgrid(*map(np.arange, part),
+                                        indexing="ij"), -1).reshape(-1, 3)
+            assert len(got) == len(want)
+            np.testing.assert_array_equal(np.unique(got, axis=0), want)
+    assert seen
+
+
+def test_every_register_tile_is_chosen():
+    """Each register tile the kernel is built for is the plan's choice for
+    some layer of test_launch_plan_on_builder_tiles, in f32 or bf16: the
+    source instantiates no tile that those plans never launch."""
+    chosen = set()
+    for cnn in ("resnet50", "mobilenetv2", "vgg16"):
+        for board in ("zcu102", "zc706"):
+            for l, ce in _builder_layers(cnn, board):
+                par = (ce.par_of("f"), ce.par_of("oh"), ce.par_of("ow"))
+                H = l.ih + max((l.oh - 1) * l.stride + l.kh - l.ih, 0)
+                W = l.iw + max((l.ow - 1) * l.stride + l.kw - l.iw, 0)
+                for bf16 in (False, True):
+                    p = conv_ops.launch_plan(l.in_ch, H, W, l.out_ch, l.kh,
+                                             l.kw, l.stride, *par, bf16)
+                    chosen.add((p.rf, p.rh, p.rw))
+    assert chosen == set(conv_ops.REGISTER_TILES)
+
+
+def test_launch_plan_refuses_what_no_block_holds():
+    """A tile larger than any register tile's block holds, or a window
+    and weight block whose two stages of one channel pass 227 KB, has no
+    plan; a grid past CUDA's limit neither."""
+    with pytest.raises(ValueError, match="no block"):
+        conv_ops.launch_plan(1, 1, 40000, 1, 1, 1, 1, 1, 1, 40000)
+    with pytest.raises(ValueError, match="shared memory"):
+        conv_ops.launch_plan(1, 25, 25, 2520, 25, 25, 1, 2520, 1, 1)
+    with pytest.raises(ValueError, match="65535"):
+        conv_ops.launch_plan(1, 70000, 1, 1, 1, 1, 1, 1, 1, 1)
+
+
+def test_register_tiles_match_the_kernel_source():
+    """``ops.REGISTER_TILES`` lists the instantiations of the kernel's
+    ``CONV_CE_TILES``, in order."""
+    import re
+    src = conv_ops.SOURCE.read_text()
+    body = src.split("#define CONV_CE_TILES(X)")[1].split("\n\n")[0]
+    tiles = tuple(tuple(map(int, m)) for m in
+                  re.findall(r"X\((\d+), (\d+), (\d+)\)", body))
+    assert tiles == conv_ops.REGISTER_TILES

@@ -142,17 +142,38 @@ def test_mccm_latency_kernel_equals_plain_on_card(cuda):
         assert torch.equal(k, r)
 
 
-@pytest.mark.parametrize("C,H,W,F,K,stride,par,dtype", [
-    (3, 16, 16, 8, 3, 1, (4, 4, 4), torch.float32),
-    (4, 15, 15, 6, 3, 2, (4, 3, 5), torch.float32),
-    (8, 10, 10, 16, 5, 1, (16, 2, 3), torch.float32),
-    (2, 9, 9, 3, 3, 1, (2, 2, 2), torch.float32),
-    (64, 30, 30, 96, 3, 1, (12, 8, 21), torch.float32),
-    (256, 16, 16, 100, 1, 2, (1, 1, 512), torch.float32),
-    (16, 15, 15, 6, 3, 2, (4, 3, 5), torch.bfloat16),
+@pytest.mark.parametrize("C,H,W,F,K,stride,par,dtype,shows", [
+    (3, 16, 16, 8, 3, 1, (4, 4, 4), torch.float32, ""),
+    (4, 15, 15, 6, 3, 2, (4, 3, 5), torch.float32, ""),
+    (8, 10, 10, 16, 5, 1, (16, 2, 3), torch.float32, ""),
+    (2, 9, 9, 3, 3, 1, (2, 2, 2), torch.float32, ""),
+    (64, 30, 30, 96, 3, 1, (12, 8, 21), torch.float32, ""),
+    (256, 16, 16, 100, 1, 2, (1, 1, 512), torch.float32, ""),
+    (16, 15, 15, 6, 3, 2, (4, 3, 5), torch.bfloat16, ""),
+    # the Builder's tiles at ResNet-50 widths (segmented, segmented_rr,
+    # hybrid on ZCU102)
+    (256, 16, 16, 256, 3, 1, (24, 3, 3), torch.float32, ""),
+    (1024, 14, 14, 256, 1, 1, (64, 1, 3), torch.float32, ""),
+    (512, 9, 9, 512, 3, 1, (128, 2, 8), torch.float32, ""),
+    # a CE's whole PE count on ZCU102 in one tile, along F and spatially
+    (16, 12, 12, 2600, 3, 1, (2520, 1, 1), torch.float32, "ragged_f"),
+    (64, 20, 20, 70, 3, 1, (35, 8, 9), torch.float32, ""),
+    # ResNet-50's first layer: C 3, 7x7, stride 2, padded input
+    (3, 229, 229, 64, 7, 2, (6, 3, 12), torch.float32, ""),
+    # 1x1 at stride 2
+    (256, 56, 56, 512, 1, 2, (12, 4, 4), torch.float32, ""),
+    (100, 12, 12, 40, 3, 1, (8, 4, 4), torch.float32, "ragged_chunk"),
+    (20, 17, 19, 37, 3, 2, (8, 3, 4), torch.float32, "ragged"),
+    (64, 16, 16, 96, 3, 1, (24, 3, 3), torch.bfloat16, ""),
+    (20, 17, 19, 37, 3, 2, (8, 3, 4), torch.bfloat16, "ragged"),
 ])
 def test_conv_ce_kernel_equals_plain_on_card(cuda, C, H, W, F, K, stride,
-                                             par, dtype):
+                                             par, dtype, shows):
+    """Bit for bit equal to the plain version, with the grid the library
+    reports equal to Eq. 1's; ``shows`` names what a case exercises: a
+    ragged tail in F, OH and OW at once, in F alone, or a last channel
+    chunk shorter than the plan's."""
+    from repro_torch.kernels.conv_ce import ops as conv_ops
     rng = np.random.default_rng(C * H + F)
     x = torch.from_numpy(rng.standard_normal((C, H, W), dtype=np.float32)
                          ).to(cuda, dtype)
@@ -162,12 +183,20 @@ def test_conv_ce_kernel_equals_plain_on_card(cuda, C, H, W, F, K, stride,
     got = conv_ce(x, w, stride=stride, par_f=par[0], par_oh=par[1],
                   par_ow=par[2])
     assert launches()["conv_ce"] == 1
+    launch = conv_ops.last_launch()
     want = conv_ref(x, w, stride)
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, want)
     OH, OW = got.shape[1:]
-    assert grid_size(F, OH, OW, *par) == \
-        -(-F // par[0]) * -(-OH // par[1]) * -(-OW // par[2])
+    eq1 = (-(-F // par[0]), -(-OH // par[1]), -(-OW // par[2]))
+    assert launch.grid == launch.plan.grid == eq1
+    assert grid_size(F, OH, OW, *par) == math.prod(eq1)
+    if shows == "ragged":
+        assert F % par[0] and OH % par[1] and OW % par[2]
+    if shows == "ragged_f":
+        assert F % par[0]
+    if shows == "ragged_chunk":
+        assert C % launch.plan.cc
 
 
 def test_conv_ce_grid_limit_raises(cuda):

@@ -154,6 +154,65 @@ def test_session_errors():
         Session(device="cpu", chunk=0)
 
 
+#: VGG-16 has 13 conv layers, one more segment than NS = 12 allows
+_SEGMENTS_13 = "{" + ", ".join(f"L{i}:CE{i}" for i in range(1, 13)) \
+    + ", L13-Last:CE13}"
+
+
+def _fault(*args, **kwargs):
+    raise RuntimeError("conv_ce kernel launch failed: CUDA error 700")
+
+
+def _eval_error(*args, **kwargs):
+    raise EvalError(EvalError.NONFINITE_METRICS, "already classified")
+
+
+@pytest.mark.parametrize("case", ["13_segments", "list_fault",
+                                  "batch_fault", "list_eval_error"])
+def test_session_list_and_batch_errors_use_the_taxonomy(case, monkeypatch):
+    """The list and DesignBatch paths raise EvalError too: an input error
+    as INVALID_INPUT, the code the JAX package's Session gives on the same
+    input; a failure inside the evaluation (a kernel launch on the card)
+    as BACKEND_FAULT, with no retry and no fallback."""
+    from repro.api import EvalError as JaxEvalError
+    from repro.api import Session as JaxSession
+    from repro_torch.core import session as port_session
+    if case == "13_segments":
+        net = get_cnn("vgg16")
+        with pytest.raises(JaxEvalError) as want:
+            JaxSession(jax_get_board("zc706")).evaluate(
+                [_SEGMENTS_13], jax_get_cnn("vgg16"))
+        with pytest.raises(EvalError) as got:
+            Session(get_board("zc706"), device="cpu").evaluate(
+                [_SEGMENTS_13], net)
+        assert want.value.code == EvalError.INVALID_INPUT
+        assert got.value.code == want.value.code
+        assert "more than 12 segments" in str(got.value)
+        return
+    net = get_cnn("resnet50")
+    ses = Session(get_board("zcu102"), device="cpu")
+    if case == "list_eval_error":
+        # an EvalError from inside passes unchanged, not caused by itself
+        monkeypatch.setattr(port_session, "_evaluate_specs", _eval_error)
+        with pytest.raises(EvalError) as got:
+            ses.evaluate(["{L1-Last:CE1-CE4}"], net)
+        assert got.value.code == EvalError.NONFINITE_METRICS
+        assert got.value.__cause__ is None
+        return
+    if case == "list_fault":
+        monkeypatch.setattr(port_session, "_evaluate_specs", _fault)
+        designs = ["{L1-Last:CE1-CE4}"]
+    else:
+        monkeypatch.setattr(port_session, "evaluate_batch", _fault)
+        designs = tsamplers.sample_mixed(np.random.default_rng(0), len(net),
+                                         4)
+    with pytest.raises(EvalError) as got:
+        ses.evaluate(designs, net)
+    assert got.value.code == EvalError.BACKEND_FAULT
+    assert isinstance(got.value.__cause__, RuntimeError)
+    assert "CUDA error 700" in str(got.value)
+
+
 def test_port_imports_neither_jax_nor_repro():
     """Importing the port and every one of its modules leaves jax and the
     JAX package out of sys.modules."""
