@@ -6,10 +6,19 @@ version (``ref.parallelism_search_ref``, ``ref.mccm_latency_ref``), a CUDA
 tensor launches the hand-written kernel (``csrc/parallelism_search.cu``,
 ``csrc/mccm_latency.cu``) or raises.  There is no fallback from the card to
 the plain version.
+
+The search kernel runs one design a warp, a block striding over the batch
+after it has staged the tables every design shares: fc·coh and
+ceil(OW/cand) of the layers its designs map, in shared memory.
+:func:`search_plan` chooses the warps a block, the blocks, the pairs a
+lane holds and how many leading layers are staged; the kernel checks the
+plan and refuses one it cannot run.  :func:`last_launch` is the plan of the
+last launch.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import asdict, dataclass
 from functools import lru_cache
 from pathlib import Path
 from typing import NamedTuple
@@ -28,6 +37,27 @@ LATENCY_SOURCE = SOURCE.with_name("mccm_latency.cu")
 #: most layers the latency kernel takes: its (L, 4) dims table and one
 #: design's (L + 1)-word row of cycles fill its 48 KB of shared memory
 LATENCY_MAX_L = 2457
+
+#: the search kernel's limits (``csrc/parallelism_search.cu``): designs a
+#: block has in flight (a warp each), the most pairs a lane holds in
+#: registers, the floats of shared memory past the staged fc·coh rows that
+#: lanes past the last pair read (and discard), and the bytes of its pw
+#: table
+MAX_WARPS, NPL_MAX, SLACK, LUT_N = 16, 11, 32 * 11, 2048
+#: the pairs a lane holds in each of the kernel's instantiations: the
+#: batch path's pair lists (219, 264, 312 and 324 pairs) need 7, 9, 10 and
+#: 11, a shorter list takes 7 and a longer one walks groups of 11 a lane
+NPLS = (7, 9, 10, 11)
+#: dynamic shared memory a block may have, and an SM's (H100: 227 KB and
+#: 228 KB, of which 1 KB a resident block keeps for itself)
+MAX_SMEM, SM_SMEM, SMEM_PER_BLOCK = 232_448, 233_472, 1024
+#: an H100 SXM's SMs, and the warps and blocks an SM holds
+SMS, SM_WARPS, SM_BLOCKS = 132, 64, 32
+
+#: the search entry point's refusals (negative returns)
+_REFUSALS = {-1: "bad shape", -2: "bad pairs a lane", -3: "bad warps",
+             -4: "bad staged rows", -5: "bad shared-memory size",
+             -6: "bad block count"}
 
 
 class PairTables(NamedTuple):
@@ -85,7 +115,7 @@ def set_fault_hook(hook):
 #: for every pointer and the stream, ctypes.c_int for an int)
 _KERNELS = {
     "parallelism_search": (SOURCE, "mccm_parallelism_search",
-                           [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+                           [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
                            + [ctypes.c_void_p]),
     "mccm_latency": (LATENCY_SOURCE, "mccm_latency",
                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
@@ -93,6 +123,74 @@ _KERNELS = {
 }
 
 _BUILT: dict = {}
+_LAST = None
+
+
+@dataclass(frozen=True)
+class SearchPlan:
+    """How the search kernel covers a batch (see
+    ``csrc/parallelism_search.cu``)."""
+
+    warps: int              # designs a block has in flight, a warp each
+    blocks: int             # the grid; a block strides over the designs
+    designs_per_block: int  # most designs one block evaluates
+    npl: int                # pairs a lane holds in registers
+    pair_groups: int        # passes over the pair list for each CE
+    staged_rows: int        # leading layers whose tables are staged
+    smem_bytes: int         # staged rows, slack, row count, pw table
+
+    def as_dict(self) -> dict:
+        return asdict(self)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def search_smem(rows: int, P: int, K: int) -> int:
+    """Shared-memory bytes of a block that stages ``rows`` layers: an
+    fc·coh row of P floats and a ceil(OW/cand) row of K floats each, the
+    slack after the fc·coh rows, the count of rows it stages and the pw
+    table (a byte for each floor of pes/(pf·ph) below ``LUT_N``)."""
+    return 4 * (rows * (P + K) + SLACK + 1) + LUT_N
+
+
+@lru_cache(maxsize=4096)
+def search_plan(B: int, L: int, P: int, K: int) -> SearchPlan:
+    """The search kernel's launch plan for B designs, L (padded) layers, P
+    pairs and K candidates.
+
+    Every layer is staged that fits in a block's shared memory: all L
+    whenever L·(P + K) floats do (every net the batch path pads to 160
+    layers, at every pair list up to the full 18 × 18), else the leading
+    rows, the rest read from L2 at a higher cost a term.  A block has one
+    warp a design in flight, up to ``MAX_WARPS``, as many as spread the
+    batch over the card's SMs; the grid holds as many blocks as the SMs
+    keep resident, and each strides over the designs.  A lane holds the
+    least of ``NPLS`` pairs that covers the list in one group, else
+    ``NPL_MAX`` and the list is walked in groups.  Raises ``ValueError``
+    for an empty batch, layer list, pair list or candidate list; every
+    other shape has a plan.
+    """
+    if min(B, L, P, K) < 1:
+        raise ValueError(f"the search needs B, L, P, K >= 1, got {B}, {L}, "
+                         f"{P}, {K}")
+    npl = next((n for n in NPLS if 32 * n >= P), NPL_MAX)
+    rows = min(L, (MAX_SMEM - search_smem(0, P, K)) // (4 * (P + K)))
+    smem = search_smem(rows, P, K)
+    warps = max(1, min(MAX_WARPS, _cdiv(B, SMS)))
+    resident = max(1, min(SM_BLOCKS, SM_WARPS // warps,
+                          SM_SMEM // (smem + SMEM_PER_BLOCK)))
+    slots = _cdiv(B, warps)
+    blocks = min(slots, SMS * resident)
+    return SearchPlan(warps, blocks, _cdiv(slots, blocks) * warps, npl,
+                      _cdiv(P, 32 * npl), rows, smem)
+
+
+def last_launch() -> SearchPlan | None:
+    """The plan of the most recent search launch of this process (None
+    before the first)."""
+    return _LAST
 
 
 def library(name: str):
@@ -118,8 +216,14 @@ def parallelism_search_cuda(pes_ce, ce_idx, fc_pair, coh_pair, ow, cand,
     ce_idx (B, L) int32, -1 for a layer with no CE; fc_pair / coh_pair
     (L, P) f32; ow (L,) f32; cand (K,) f32 ascending; pair_* (P,) f32, all
     on one CUDA device.  Returns (pf, ph, pw, cost) each (B, NC) f32, equal
-    to ``parallelism_search_ref`` on the same inputs.
+    to ``parallelism_search_ref`` on the same inputs bit for bit wherever
+    every term (fc·coh)·ceil(OW/pw) is finite, as on every table the batch
+    path builds (a non-finite term reaches other CEs' costs in the plain
+    version only, through its one-hot product); a NaN cost wins the
+    argmin, the first one, as in ``torch.argmin``.  The launch runs
+    :func:`search_plan`'s plan, which :func:`last_launch` then returns.
     """
+    global _LAST
     args = dict(pes_ce=pes_ce, ce_idx=ce_idx, fc_pair=fc_pair,
                 coh_pair=coh_pair, ow=ow, cand=cand, pair_prod=pair_prod,
                 pair_pf=pair_pf, pair_ph=pair_ph)
@@ -147,16 +251,22 @@ def parallelism_search_cuda(pes_ce, ce_idx, fc_pair, coh_pair, ow, cand,
             for _ in range(4)]
     if B == 0:
         return tuple(outs)
+    plan = search_plan(B, L, P, K)
     built = library("parallelism_search")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = built.lib.mccm_parallelism_search(
             *(a.data_ptr() for a in c), *(o.data_ptr() for o in outs),
-            B, L, P, K, stream)
+            B, L, P, K, plan.warps, plan.blocks, plan.staged_rows, plan.npl,
+            plan.smem_bytes, stream)
+    if err < 0:
+        raise RuntimeError(f"parallelism_search refused its launch plan "
+                           f"({_REFUSALS.get(err, err)}): {plan}")
     if err != 0:
         raise RuntimeError(f"parallelism_search kernel launch failed: "
                            f"CUDA error {err}")
     _LAUNCHES["parallelism_search"] += 1
+    _LAST = plan
     return tuple(outs)
 
 

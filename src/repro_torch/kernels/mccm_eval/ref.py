@@ -7,19 +7,28 @@ added left to right over the layers, the order the CUDA kernel
 
 ``parallelism_search_ref`` is the port of the JAX package's
 ``parallelism_search_ref``.  It is what a CPU tensor runs, and what the CUDA
-kernel (``csrc/parallelism_search.cu``) is held against on the card.  Both
-take the same arguments: one CE index per layer (where the JAX version
-takes the index and its one-hot) and the raw ``ow`` column (where it takes
-the ``ceil(OW/cand)`` table; the f32 quotient of two integers below 2**24
-rounds to the same ceil).
+kernel (``csrc/parallelism_search.cu``) is held against on the card, bit for
+bit.  Both take the same arguments: one CE index per layer (where the JAX
+version takes the index and its one-hot) and the raw ``ow`` column (where it
+takes the ``ceil(OW/cand)`` table; the f32 quotient of two integers below
+2**24 rounds to the same ceil).
 
 For every design and CE it picks the candidate pair minimising the CE's
 total Eq. 1 cycles under its PE budget, with ``pw`` greedily maximised per
 pair.  The per-CE cost is a sum of per-layer f32 costs that can exceed
-2**24, so its rounding depends on the order of the sum: it is taken layer
-by layer in ascending order, the order the JAX reference's compiled
-contraction uses on a CPU and the order the CUDA kernel walks the layers
-in.  Equal order gives equal costs, and so equal argmins.
+2**24, so its rounding depends on the order of the sum: it starts at 0 and
+adds the layers one at a time in ascending order (a layer of another CE
+adds +0 and changes nothing), each term ``(fc·coh)·ceil(OW/pw)`` multiplied
+in that order.  That is the order the JAX reference's compiled contraction
+uses on a CPU, and the CUDA kernel's: it keeps one register sum per
+(design, CE, pair) and adds only the CE's own layers, ascending.  Equal
+order gives equal costs, and so equal argmins, wherever every term is
+finite, as on every table the batch path builds: a NaN or infinite term
+reaches the other CEs' costs here (x·0 is NaN) and not in the kernel.
+Both take the first NaN cost as the argmin, as ``torch.argmin`` does.  Two cases the kernel
+settles without a sum follow from this: a CE with 0 PEs is infeasible for
+every pair and takes pair 0 at inf, and a CE that owns no layer costs 0 on
+every feasible pair and takes the first.
 """
 from __future__ import annotations
 

@@ -57,15 +57,20 @@ def _inputs(net, board, db, device):
 
 
 def _assert_kernel_equals_plain(args, label):
+    """⟨pf, ph, pw⟩ and the cost equal bit for bit, inf and NaN where the
+    plain version has them: both add each CE's layers in ascending
+    order."""
     ker = parallelism_search(*args)
     ref = parallelism_search_ref(*args)
     torch.cuda.synchronize()
     for name, k, r in zip(("pf", "ph", "pw"), ker[:3], ref[:3]):
         assert torch.equal(k, r), f"{label} {name}"
-    k, r = ker[3].cpu().numpy(), ref[3].cpu().numpy()
-    np.testing.assert_array_equal(np.isinf(k), np.isinf(r))
-    fin = np.isfinite(r)
-    np.testing.assert_allclose(k[fin], r[fin], rtol=1e-6, err_msg=label)
+    k, r = ker[3], ref[3]
+    assert torch.equal(torch.isinf(k), torch.isinf(r)), f"{label} cost inf"
+    assert torch.equal(torch.isnan(k), torch.isnan(r)), f"{label} cost NaN"
+    fin = torch.isfinite(r)
+    assert torch.equal(k[fin], r[fin]), f"{label} cost"
+    return ker
 
 
 @pytest.mark.parametrize("cnn", CNN_NAMES)
@@ -91,6 +96,147 @@ def test_kernel_infeasible_ces_on_card(cuda):
     pf, ph, pw, cost = parallelism_search(*args)
     assert bool((pf == 1).all() & (ph == 1).all() & (pw == 1).all())
     assert bool(torch.isinf(cost).all())
+
+
+@pytest.mark.parametrize("net_layers,pes,L,shows", [
+    (53, 100_000, 160, "P=324"),
+    (180, 2520, 192, "L=192"),
+    (180, 100_000, 192, "L=192, rows past the staged ones"),
+    (240, 100_000, 256, "L=256, rows past the staged ones"),
+])
+def test_kernel_equals_plain_past_the_ladder(cuda, net_layers, pes, L,
+                                             shows):
+    """A board beyond the PES_HINTS ladder (no pruning: P = 324) and
+    synthetic nets padded to 192 and 256 layers; where L·(P + K) floats
+    pass the shared memory, layers past the staged rows come from L2."""
+    from repro_torch.kernels.mccm_eval import last_launch, search_plan
+    from torch_search_cases import port_inputs, synthetic_net
+    net = get_cnn("resnet50") if net_layers == 53 else \
+        synthetic_net(net_layers)
+    args = port_inputs(net, pes, 300, net_layers, device=cuda)
+    P = args[2].shape[1]
+    assert args[1].shape[1] == L and P == (324 if pes > 65536 else 219)
+    _assert_kernel_equals_plain(args, shows)
+    plan = last_launch()
+    assert plan == search_plan(300, L, P, args[5].numel())
+    if "past" in shows:
+        assert plan.staged_rows < net_layers     # mapped rows unstaged
+    else:
+        assert plan.staged_rows == L
+
+
+@pytest.mark.parametrize("B", [1, 17, 2047, 5000])
+def test_kernel_batch_sizes(cuda, B):
+    """One design; a batch that is not a multiple of a block's warps; one
+    that makes each block stride over several slots."""
+    from repro_torch.kernels.mccm_eval import last_launch, search_plan
+    from torch_search_cases import port_inputs
+    args = port_inputs(get_cnn("resnet50"), 2520, B, B, device=cuda)
+    _assert_kernel_equals_plain(args, f"B={B}")
+    assert last_launch() == search_plan(B, *args[2].shape, args[5].numel())
+
+
+@pytest.mark.parametrize("P", [1, 40, 225, 353])
+def test_kernel_pair_lists_off_the_batch_path(cuda, P):
+    """Pair lists no board gives: one pair and 40 (7 a lane, most lanes
+    empty), 225 (9 a lane), 353 (two groups of 352)."""
+    from repro_torch.kernels.mccm_eval import NPLS, last_launch
+    from torch_search_cases import tie_inputs
+    args = tie_inputs(B=50, P=P, device=cuda)
+    _assert_kernel_equals_plain(args, f"P={P}")
+    plan = last_launch()
+    assert plan.npl == next((n for n in NPLS if 32 * n >= P), NPLS[-1])
+    assert plan.pair_groups == (2 if P == 353 else 1)
+
+
+def test_kernel_ces_with_pes_and_no_layer(cuda):
+    """A CE that owns no layer but has PEs takes its first feasible pair
+    at cost 0; with too few PEs for any pair, pair 0 at inf."""
+    from torch_search_cases import give_absent_ces_pes, port_inputs
+    args = port_inputs(get_cnn("resnet50"), 2520, 500, 9, device=cuda)
+    absent = give_absent_ces_pes(args, 10)
+    _, _, _, cost = _assert_kernel_equals_plain(args, "absent CEs")
+    c = cost[absent]
+    assert bool(((c == 0) | torch.isinf(c)).all())
+    assert bool((c == 0).any()) and bool(torch.isinf(c).any())
+
+
+def test_kernel_ties_go_to_the_first_pair(cuda):
+    """Pairs whose costs tie, in different lanes and in the two pair
+    groups of a 400-pair list: the kernel picks what the plain version
+    picks, the first."""
+    from torch_search_cases import tie_inputs
+    args = tie_inputs(device=cuda)
+    pf, ph, pw, cost = _assert_kernel_equals_plain(args, "ties")
+    fin = torch.isfinite(cost)
+    assert bool(fin.any()) and bool((~fin).any())
+
+
+@pytest.mark.parametrize("K,cand_scale,shows", [
+    (20, 1.0, "the pw table"),
+    (40, 1.0, "more than 32 candidates: binary search"),
+    (20, 300.0, "candidates past the table: binary search"),
+])
+def test_kernel_pw_index_routes(cuda, K, cand_scale, shows):
+    """Each way the kernel finds pw's index: its table, and the binary
+    search where the table cannot hold the candidates; PE counts from
+    1e-20 to 3e25."""
+    from torch_search_cases import tie_inputs
+    args = tie_inputs(B=40, K=K, device=cuda)
+    args[5] = args[5] * cand_scale
+    rng = np.random.default_rng(K)
+    args[0] = torch.from_numpy(rng.choice(
+        [0.0, 1e-20, 0.7, 5.0, 40.0, 1e4, 3e25], (40, 16))
+        .astype(np.float32)).to(cuda)
+    _assert_kernel_equals_plain(args, shows)
+
+
+def test_kernel_orders_negative_costs(cuda):
+    """The argmin orders costs as floats, below zero too (no Eq. 1 cost
+    is negative, but the plain version takes any fc)."""
+    from torch_search_cases import tie_inputs
+    args = tie_inputs(device=cuda)
+    sign = torch.where(torch.arange(args[2].shape[1], device=cuda) % 3 == 1,
+                       -1.0, 1.0)
+    args[2] = args[2] * sign
+    _, _, _, cost = _assert_kernel_equals_plain(args, "negative")
+    assert bool((cost < 0).any())
+
+
+@pytest.mark.parametrize("where", ["every pair of a row", "some pairs"])
+def test_kernel_takes_the_first_nan_cost(cuda, where):
+    """A NaN in fc_pair makes the costs of the pairs it reaches NaN, and
+    the argmin takes the first NaN, as torch.argmin does.  One CE has
+    PEs and owns every mapped layer, so the plain version's one-hot
+    product carries the NaN to no other cost."""
+    from torch_search_cases import tie_inputs
+    args = tie_inputs(B=12, device=cuda)
+    args[1] = torch.where(args[1] > 0, 0, args[1])
+    args[0] = torch.zeros_like(args[0])
+    args[0][:, 0] = torch.tensor([1.0, 5.0, 12.0, 40.0] * 3, device=cuda)
+    fc = args[2].clone()
+    if where == "every pair of a row":
+        fc[3] = torch.nan
+    else:
+        fc[5, 2::9] = torch.nan
+    args[2] = fc
+    pf, ph, pw, cost = _assert_kernel_equals_plain(args, where)
+    assert bool(torch.isnan(cost[:, 0]).all())
+    assert bool(torch.isinf(cost[:, 1:]).all())
+
+
+def test_kernel_reads_unaligned_tables(cuda):
+    """fc_pair and coh_pair off a 16-byte boundary (views one float into
+    a buffer) are staged a float a load, with the same result."""
+    from torch_search_cases import port_inputs
+    args = port_inputs(get_cnn("resnet50"), 2520, 64, 12, device=cuda)
+    for i in (2, 3):
+        buf = torch.empty(args[i].numel() + 1, device=cuda)
+        view = buf[1:].view(args[i].shape)
+        view.copy_(args[i])
+        assert view.data_ptr() % 16 and view.is_contiguous()
+        args[i] = view
+    _assert_kernel_equals_plain(args, "unaligned")
 
 
 def test_session_on_card_goes_through_kernel(cuda):

@@ -14,10 +14,18 @@ shapes, rtol 1e-6 (the per-layer cycles are equal; the totals may differ
 in the last bits, the JAX sum having its own order), and against the
 batch path's own ``layer_state`` cycles bit for bit.
 
+The search kernel's launch plan (``ops.search_plan``) is plain Python and
+is held here to the card's limits at every (B, L, P) the batch path can
+produce, and the plain version to the facts the kernel's design rests on:
+a CE that owns no layer takes its first feasible pair at cost 0, a CE with
+0 PEs takes pair 0 at inf, ties go to the first pair.
+
 The CUDA kernels themselves run only on the card:
 ``tests/test_torch_cuda.py``.
 """
 from __future__ import annotations
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,13 +46,21 @@ from repro.kernels.mccm_eval import parallelism_search as jax_search
 from repro.kernels.mccm_eval.ops import mccm_latency as jax_mccm_latency
 from repro.kernels.mccm_eval.ref import \
     mccm_latency_ref as jax_mccm_latency_ref
+from repro.kernels.mccm_eval.kernel import \
+    parallelism_search_call as jax_search_call
+from repro.kernels.mccm_eval.ref import \
+    parallelism_search_ref as jax_search_ref
 from repro_torch.kernels import _nvcc
 from repro_torch.kernels.mccm_eval import (launches, mccm_latency,
                                            mccm_latency_cuda,
                                            mccm_latency_ref, pair_tables,
                                            parallelism_search,
                                            parallelism_search_cuda,
-                                           reset_launches, set_fault_hook)
+                                           reset_launches, search_plan,
+                                           set_fault_hook)
+from repro_torch.kernels.mccm_eval import ops as mccm_ops
+from torch_search_cases import (give_absent_ces_pes, port_inputs,
+                                synthetic_net, tie_inputs)
 
 RTOL_COST = 1e-6
 
@@ -161,6 +177,194 @@ def test_kernel_build_flags():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "--fmad=false" in flags
     assert _nvcc.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+
+
+# ------------------------------------------------- the search kernel's plan
+def _plan_shapes():
+    """(P, K) of every pair list the batch path builds: each board's own
+    pruning bucket, every bucket of the ladder, and no pruning."""
+    from repro_torch.core.batch_eval import PES_HINTS
+    from repro_torch.core.batch_eval import pes_hint as torch_pes_hint
+    from repro_torch.fpga.boards import BOARD_NAMES, get_board
+    hints = {torch_pes_hint(get_board(b).pes) for b in BOARD_NAMES}
+    hints |= set(PES_HINTS) | {None}
+    return sorted({(len(pair_tables(CANDIDATES_DEFAULT, h).pair_prod),
+                    len(CANDIDATES_DEFAULT)) for h in hints})
+
+
+def _assert_plan_runs(plan, B, L, P, K):
+    """The limits the entry point checks, and a grid that covers the batch
+    with no block left idle."""
+    assert plan.smem_bytes == mccm_ops.search_smem(plan.staged_rows, P, K)
+    assert plan.smem_bytes <= mccm_ops.MAX_SMEM
+    assert 0 <= plan.staged_rows <= L
+    # as many rows staged as fit
+    if plan.staged_rows < L:
+        assert mccm_ops.search_smem(plan.staged_rows + 1, P, K) \
+            > mccm_ops.MAX_SMEM
+    assert 1 <= plan.warps <= mccm_ops.MAX_WARPS
+    assert plan.npl in mccm_ops.NPLS
+    assert plan.npl == next((n for n in mccm_ops.NPLS if 32 * n >= P),
+                            mccm_ops.NPL_MAX)
+    assert plan.pair_groups * 32 * plan.npl >= P \
+        > (plan.pair_groups - 1) * 32 * plan.npl
+    assert plan.designs_per_block % plan.warps == 0
+    assert plan.blocks * plan.designs_per_block >= B
+    # a block strides over slots of ``warps`` designs: none is left idle
+    assert 1 <= plan.blocks <= -(-B // plan.warps)
+    resident = mccm_ops.SM_SMEM // (plan.smem_bytes
+                                    + mccm_ops.SMEM_PER_BLOCK)
+    assert resident >= 1
+    assert plan.blocks <= mccm_ops.SMS * min(
+        resident, mccm_ops.SM_WARPS // plan.warps)
+
+
+@pytest.mark.parametrize("cnn", ["resnet50", "resnet152", "vgg16",
+                                 "mobilenetv2", "xception", "densenet121",
+                                 "resnet101"])
+def test_search_plan_fits_the_card(cnn):
+    """For every CNN, at its padded L and at every L up to 256 the bucket
+    ladder gives, and every pair list of a board, a bucket or none: the
+    plan fits the card, and every net padded to 160 layers is staged
+    whole."""
+    from repro_torch.cnn.registry import get_cnn
+    from repro_torch.core.batch_eval import bucket_max_L
+    L0 = bucket_max_L(len(get_cnn(cnn)))
+    for P, K in _plan_shapes():
+        for L in (L0, 192, 224, 256):
+            for B in (1, 17, 1024, 2047, 2048, 100_000):
+                plan = search_plan(B, L, P, K)
+                _assert_plan_runs(plan, B, L, P, K)
+                if L == 160:
+                    assert plan.staged_rows == L, (P, plan)
+    # the main path's chunk: one design a warp, one wave of blocks
+    plan = search_plan(2048, L0, 219, 18)
+    assert (plan.warps, plan.blocks, plan.designs_per_block) == (16, 128, 16)
+    assert plan.staged_rows == L0 and plan.pair_groups == 1
+
+
+@pytest.mark.parametrize("P", [1, 31, 33, 384, 385, 1000])
+def test_search_plan_takes_every_shape(P):
+    """No shape the plain version takes is refused: long pair lists walk
+    in groups, and layers past the shared memory are read from L2."""
+    for L in (1, 53, 4096):
+        for K in (1, 18, 40):
+            for B in (1, 5000):
+                _assert_plan_runs(search_plan(B, L, P, K), B, L, P, K)
+    with pytest.raises(ValueError, match="B, L, P, K >= 1"):
+        search_plan(0, 160, P, 18)
+
+
+def test_search_constants_match_the_kernel_source():
+    src = mccm_ops.SOURCE.read_text()
+    for name, value in (("NPL_MAX", mccm_ops.NPL_MAX),
+                        ("MAX_WARPS", mccm_ops.MAX_WARPS),
+                        ("MAX_SMEM", mccm_ops.MAX_SMEM),
+                        ("LUT_N", mccm_ops.LUT_N),
+                        ("NC", mccm_ops.NC)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert re.search(r"constexpr int SLACK = 32 \* NPL_MAX;", src)
+    assert mccm_ops.SLACK == 32 * mccm_ops.NPL_MAX
+    npls = tuple(int(n) for n in re.search(
+        r"constexpr int NPLS\[\] = \{([\d, ]+)\};", src)[1].split(","))
+    assert npls == mccm_ops.NPLS and npls[-1] == mccm_ops.NPL_MAX
+    kernels = src.split("const Kernel KERNELS[] =")[1].split(";")[0]
+    assert tuple(int(n) for n in re.findall(
+        r"parallelism_search_kernel<(\d+)>", kernels)) == npls
+
+
+def test_search_instantiations_are_the_batch_paths():
+    """Each pair list the batch path builds runs in one group at exactly
+    ceil(P/32) pairs a lane, and each instantiation serves one of them."""
+    shapes = _plan_shapes()
+    assert [P for P, _ in shapes] == [219, 264, 312, 324]
+    used = {search_plan(2048, 160, P, K).npl for P, K in shapes}
+    assert used == set(mccm_ops.NPLS)
+    for P, K in shapes:
+        plan = search_plan(2048, 160, P, K)
+        assert plan.npl == -(-P // 32) and plan.pair_groups == 1
+
+
+def _jax_on(args):
+    """The JAX plain reference and Pallas kernel (interpret mode) on the
+    port's search arguments; both results as numpy arrays."""
+    pes, ce, fc, coh, ow, cand, prod, pf, ph = (np.asarray(a) for a in args)
+    ce_oh = (ce[..., None] == np.arange(16)).astype(np.float32)
+    ceil_ow = np.ceil(ow[:, None] / cand[None, :]).astype(np.float32)
+    ref = jax_search_ref(pes, np.clip(ce, 0, 15), ce_oh, fc, coh, ceil_ow,
+                         cand, prod, pf, ph)
+    ker = jax_search_call(pes, ce_oh, fc, coh, ow[:, None], cand, prod, pf,
+                          ph, design_tile=8, interpret=True)
+    return [np.asarray(r) for r in ref], [np.asarray(k) for k in ker]
+
+
+def _assert_equal_to_jax(args, label):
+    got = [g.numpy() for g in parallelism_search(*args)]
+    for want in _jax_on(args):
+        for name, g, w in zip(("pf", "ph", "pw", "cost"), got, want):
+            np.testing.assert_array_equal(g, w, err_msg=f"{label} {name}")
+    return got
+
+
+@pytest.mark.parametrize("n_layers,pes", [(53, 100_000), (180, 2520),
+                                          (180, 100_000)])
+def test_plain_search_matches_jax_past_the_ladder(n_layers, pes):
+    """A board beyond the PES_HINTS ladder (no pruning: P = 324) and a net
+    padded to L = 192: the port's plain version equals the JAX reference
+    and the Pallas kernel bit for bit."""
+    from repro_torch.cnn.registry import get_cnn
+    net = get_cnn("resnet50") if n_layers == 53 else \
+        synthetic_net(n_layers)
+    args = port_inputs(net, pes, 24, n_layers)
+    assert args[2].shape[1] == (324 if pes > 65536 else 219)
+    assert args[1].shape[1] == (192 if n_layers == 180 else 160)
+    _assert_equal_to_jax(args, f"{n_layers}/{pes}")
+
+
+def test_plain_search_ce_without_layers_takes_first_feasible_pair():
+    """What lets the kernel skip the walk for a CE that owns no layer:
+    every feasible pair costs 0, so the first feasible pair wins, at cost
+    0, with that pair's pw; with none feasible, pair 0 at inf."""
+    from repro_torch.cnn.registry import get_cnn
+    args = port_inputs(get_cnn("resnet50"), 2520, 32, 5)
+    absent = give_absent_ces_pes(args, 6)
+    pes = args[0]
+    pf, ph, pw, cost = _assert_equal_to_jax(args, "absent CEs")
+    cand, prod = args[5].numpy(), args[6].numpy()
+    for b, c in zip(*np.nonzero(absent.numpy())):
+        q = np.float32(pes[b, c]) / prod
+        feas = np.nonzero(q >= 1)[0]
+        p = feas[0] if feas.size else 0
+        assert (pf[b, c], ph[b, c]) == (args[7][p], args[8][p])
+        assert cost[b, c] == (0.0 if feas.size else np.inf)
+        k = max(np.searchsorted(cand, np.floor(q[p]), side="right") - 1, 0)
+        assert pw[b, c] == cand[k]
+
+
+def test_plain_search_zero_pe_ce_is_infeasible_everywhere():
+    """A CE with 0 PEs, with layers or without, takes pair 0 at inf: 0/x
+    is never >= 1, whatever the pair list."""
+    from repro_torch.cnn.registry import get_cnn
+    args = port_inputs(get_cnn("mobilenetv2"), 2520, 16, 7)
+    args[0] = args[0].clone()
+    args[0][:, ::3] = 0.0            # CEs 0, 3, 6, ...: most own layers
+    pf, ph, pw, cost = _assert_equal_to_jax(args, "zero PEs")
+    assert np.isinf(cost[:, ::3]).all()
+    assert (pf[:, ::3] == args[7][0].item()).all()
+    assert (ph[:, ::3] == args[8][0].item()).all()
+    assert (pw[:, ::3] == args[5][0].item()).all()
+
+
+def test_plain_search_ties_go_to_the_first_pair():
+    args = tie_inputs()
+    pf, ph, pw, cost = _assert_equal_to_jax(args, "ties")
+    fin = np.isfinite(cost)
+    assert fin.any() and (~fin).any()
+    # the winner is the first of the 7 residues: one of pairs 0..6
+    best = np.array([[np.flatnonzero((args[7].numpy() == pf[b, c])
+                                     & (args[8].numpy() == ph[b, c]))[0]
+                      for c in range(16)] for b in range(pf.shape[0])])
+    assert (best < 7).all()
 
 
 # ------------------------------------------------------------ mccm_latency
