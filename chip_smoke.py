@@ -49,10 +49,11 @@ Phases, each printing one JSON line:
 8. the flash-attention kernels at Llama-3.2-1B's attention shape (B 4, S
    4096, 32 query heads, 8 KV heads, head dim 64, causal) in bf16 (tensor
    cores) and f32 (FMA), plus a ragged (S 4000), a sliding-window and a
-   head-dim-128 bf16 case: the kernel against its plain version on the
-   card within the stated tolerance, no input copied; ms, plain ms,
-   ``scaled_dot_product_attention``'s ms (timed only), the bound, the bf16
-   kernel's launch configuration and each instantiation's registers and
+   head-dim-128 case in each dtype: the kernel against its plain version
+   on the card within the stated tolerance, no input copied; ms, plain ms,
+   ``scaled_dot_product_attention``'s ms (timed only), the bound, each
+   kernel's launch plan (the f32 one equal to its Python mirror,
+   ``flash_attn.ops.f32_plan``) and each instantiation's registers and
    spills;
 9. the LM serving path at full width: Llama-3.2-1B in bf16 with random
    weights from ``--seed``, ``ServeEngine.generate`` on 4 prompts of
@@ -1019,19 +1020,26 @@ def phase_flash(card: str, device, seed: int) -> tuple[dict, dict]:
     from repro_torch.configs import get_config
     from repro_torch.kernels import copies, launches, reset_launches
     from repro_torch.kernels.flash_attn import flash_attention, flash_fwd_ref
-    from repro_torch.kernels.flash_attn.ops import launch_plan, library
+    from repro_torch.kernels.flash_attn.ops import (f32_plan, launch_plan,
+                                                    library)
 
     cfg = get_config("llama3.2-1b")
     B, S, H, Hkv = FLASH_B, FLASH_S, cfg.n_heads, cfg.n_kv_heads
     gen = torch.Generator(device=device).manual_seed(seed)
-    cases = [("llama_bf16", torch.bfloat16, S, None, cfg.head_dim),
-             ("llama_f32", torch.float32, S, None, cfg.head_dim),
-             ("ragged_bf16", torch.bfloat16, FLASH_RAGGED_S, None,
-              cfg.head_dim),
-             ("window_bf16", torch.bfloat16, S, FLASH_WINDOW, cfg.head_dim),
-             ("d128_bf16", torch.bfloat16, S, None, FLASH_WIDE_D)]
+    cases = [(f"{name}_{tag}", dtype, s_len, window, D)
+             for tag, dtype in (("bf16", torch.bfloat16),
+                                ("f32", torch.float32))
+             for name, s_len, window, D in (
+                 ("llama", S, None, cfg.head_dim),
+                 ("ragged", FLASH_RAGGED_S, None, cfg.head_dim),
+                 ("window", S, FLASH_WINDOW, cfg.head_dim),
+                 ("d128", S, None, FLASH_WIDE_D))]
     out = {}
     for label, dtype, s_len, window, D in cases:
+        plan = launch_plan(D, dtype)
+        if dtype == torch.float32 and plan != f32_plan(D):
+            raise PhaseFailed(f"{label}: the library's plan {plan} is not "
+                              f"its Python mirror's {f32_plan(D)}")
         q, k, v = (torch.randn(B, s_len, h, D, generator=gen, device=device
                                ).to(dtype) for h in (H, Hkv, Hkv))
         reset_launches()
@@ -1066,7 +1074,7 @@ def phase_flash(card: str, device, seed: int) -> tuple[dict, dict]:
             max_abs_err=err, tolerance=_flash_tolerance(dtype), ms=ms,
             plain_ms=plain_ms, library_ms=library_ms,
             max_abs_diff_vs_library=lib_err,
-            plan=launch_plan(D) if dtype == torch.bfloat16 else None,
+            plan=plan,
             **_attn_cost(B, s_len, s_len, H, Hkv, D, True, window, dtype))
         del q, k, v, qt, kt, vt
     emit("flash", card=card, seed=seed, cases=out,

@@ -5,7 +5,11 @@ version (``ref.flash_fwd_ref``), a CUDA tensor launches a hand-written
 kernel or raises.  There is no fallback from the card to the plain version.
 The dtype picks the kernel: bf16 runs on the tensor cores
 (``csrc/flash_fwd_bf16.cu``: wgmma fed by TMA), f32 on the FMA units
-(``csrc/flash_fwd.cu``).  Both count as ``flash_fwd`` launches.
+(``csrc/flash_fwd.cu``: 8 x 8 register tiles a thread fed by a
+``cp.async`` K/V ring).  Both count as ``flash_fwd`` launches.  Each
+kernel reports its launch plan (:func:`launch_plan`); :func:`f32_plan` is
+the f32 kernel's plan worked out in plain Python, which the CPU tests hold
+to the card's limits.
 """
 from __future__ import annotations
 
@@ -23,14 +27,26 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {torch.float32: _CSRC / "flash_fwd.cu",
            torch.bfloat16: _CSRC / "flash_fwd_bf16.cu"}
 _ENTRY = {torch.float32: "flash_fwd", torch.bfloat16: "flash_fwd_bf16"}
+_PLAN_ENTRY = {torch.float32: "flash_fwd_f32_plan",
+               torch.bfloat16: "flash_fwd_bf16_plan"}
 
-#: CUDA's limit on gridDim.y, which counts batch x query heads in the f32
-#: kernel and tiles of query rows in the bf16 kernel
+#: CUDA's limit on gridDim.y, which counts the bf16 kernel's tiles of query
+#: rows
 MAX_GRID_Y = 65535
-#: query rows a CTA of the bf16 kernel takes (flash_fwd_bf16.cu: BQ)
-BF16_ROWS = 128
+#: CUDA's limit on gridDim.x, which counts every CTA of the f32 kernel
+MAX_GRID_X = 2 ** 31 - 1
+#: query rows a CTA of each kernel takes (BQ in its source)
+BF16_ROWS = F32_ROWS = 128
 #: head dims the kernels are instantiated for
 HEAD_DIMS = tuple(range(16, 129, 16))
+#: an H100's shared memory an SM, and what the runtime keeps back for each
+#: resident CTA
+SM_SHARED_BYTES = 233_472
+CTA_RESERVED_BYTES = 1024
+#: the keys of a launch plan, in the order the C entries report them
+PLAN_KEYS = ("threads", "rows", "keys", "stages", "smem_bytes",
+             "ctas_per_sm")
+F32_PLAN_KEYS = PLAN_KEYS + ("max_ctas",)
 
 _BUILT: dict = {}
 
@@ -48,24 +64,50 @@ def library(dtype):
                        + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        if dtype == torch.bfloat16:
-            built.lib.flash_fwd_bf16_plan.argtypes = [
-                ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-            built.lib.flash_fwd_bf16_plan.restype = ctypes.c_int
+        plan = getattr(built.lib, _PLAN_ENTRY[dtype])
+        plan.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        plan.restype = ctypes.c_int
         _BUILT[dtype] = built
     return built
 
 
-def launch_plan(D: int) -> dict:
-    """The CTA a bf16 launch at head dim ``D`` takes, as the kernel
-    reports it: threads, query rows, keys a tile, stages of the K/V ring,
-    dynamic shared-memory bytes, and the CTAs an SM its launch bound
-    allows for."""
-    keys = ("threads", "rows", "keys", "stages", "smem_bytes", "ctas_per_sm")
+def launch_plan(D: int, dtype) -> dict:
+    """The CTA a launch of ``dtype``'s kernel at head dim ``D`` takes, as
+    the kernel reports it: threads, query rows, keys a tile, stages of the
+    K/V ring, dynamic shared-memory bytes, and the CTAs an SM its launch
+    bound allows for; the f32 kernel adds the most CTAs its one-dimensional
+    grid may have (``max_ctas``)."""
+    keys = F32_PLAN_KEYS if dtype == torch.float32 else PLAN_KEYS
     plan = (ctypes.c_int * len(keys))()
-    if library(torch.bfloat16).lib.flash_fwd_bf16_plan(D, plan) != 0:
+    if getattr(library(dtype).lib, _PLAN_ENTRY[dtype])(D, plan) != 0:
         raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
     return dict(zip(keys, plan))
+
+
+def f32_plan(D: int) -> dict:
+    """The f32 kernel's launch plan at head dim ``D``, worked out as
+    ``csrc/flash_fwd.cu`` works it out: 128 threads, each 8 query rows of
+    the CTA's 128 and 8 keys of a 64-key tile (4 of a 32-key tile for D >
+    64); shared memory for q·scale (D x 128), a 32-key chunk of p (rows
+    padded to 132) and two stages of K (rows padded by 4 floats unless
+    D / 4 is a multiple of 8) and V; two CTAs an SM where two fit in its
+    shared memory with their reserves."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
+    threads, stages, p_keys = 128, 2, 32
+    keys = 64 if D <= 64 else 32
+    k_stride = D if (D // 4) % 8 == 0 else D + 4
+    smem = 4 * (D * F32_ROWS + p_keys * (F32_ROWS + 4)
+                + stages * keys * (k_stride + D))
+    ctas = 2 if 2 * (smem + CTA_RESERVED_BYTES) <= SM_SHARED_BYTES else 1
+    return dict(zip(F32_PLAN_KEYS, (threads, F32_ROWS, keys, stages, smem,
+                                    ctas, MAX_GRID_X)))
+
+
+def f32_ctas(B: int, Sq: int, H: int) -> int:
+    """CTAs of an f32 launch: one per (tile of 128 query rows, batch, query
+    head), on a one-dimensional grid."""
+    return -(-Sq // F32_ROWS) * B * H
 
 
 def _check(q, k, v, window):
@@ -85,17 +127,17 @@ def _check(q, k, v, window):
 
 def readable(t) -> bool:
     """Whether the kernel of ``t``'s dtype reads ``t`` (B, S, heads, D) as
-    it is.  Both need the head dim contiguous; the bf16 kernel's TMA loads
-    also need a 16-byte aligned base and, for each other dim longer than
-    1, a stride that is a positive multiple of 8 elements (16 bytes).  A
-    contiguous tensor, and a head-dim slice of a fused projection, meet
-    both."""
+    it is.  Both read rows in 16-byte pieces (the bf16 kernel by TMA, the
+    f32 kernel by ``cp.async`` and float4 loads), so both need the head dim
+    contiguous, a 16-byte aligned base and, for each other dim longer than
+    1, a stride that is a positive multiple of 16 bytes (8 bf16 or 4 f32
+    elements).  A contiguous tensor, and a head-dim slice of a fused
+    projection, meet them."""
     if t.stride(-1) != 1:
         return False
-    if t.dtype != torch.bfloat16:
-        return True
+    per16 = 16 // t.element_size()
     return t.data_ptr() % 16 == 0 and all(
-        st > 0 and st % 8 == 0
+        st > 0 and st % per16 == 0
         for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
 
 
@@ -135,10 +177,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     Sk, Hkv = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
-    grid_y = -(-Sq // BF16_ROWS) if q.dtype == torch.bfloat16 else B * H
-    if grid_y > MAX_GRID_Y:
-        raise ValueError(f"the launch needs a grid of {grid_y} along y, "
-                         f"past CUDA's limit of {MAX_GRID_Y}")
+    grid, limit, axis = ((-(-Sq // BF16_ROWS), MAX_GRID_Y, "y")
+                         if q.dtype == torch.bfloat16
+                         else (f32_ctas(B, Sq, H), MAX_GRID_X, "x"))
+    if grid > limit:
+        raise ValueError(f"the launch needs a grid of {grid} along {axis}, "
+                         f"past CUDA's limit of {limit}")
     out = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

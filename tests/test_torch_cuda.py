@@ -29,7 +29,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.conv_ce import conv_ce, conv_ref, grid_size
 from repro_torch.kernels import copies
 from repro_torch.kernels.flash_attn import flash_attention, flash_fwd_ref
-from repro_torch.kernels.flash_attn.ops import HEAD_DIMS
+from repro_torch.kernels.flash_attn.ops import (HEAD_DIMS, f32_plan,
+                                                launch_plan)
 from repro_torch.kernels.flash_attn.ref import excess
 from repro_torch.kernels.mccm_eval import (launches, mccm_latency,
                                            mccm_latency_ref, pair_tables,
@@ -386,10 +387,10 @@ def test_flash_kernel_equals_plain_on_card(cuda, B, Sq, Sk, H, Hkv, D,
     assert torch.equal(flash_attention(qs, ks, vs, **kw), got)
 
 
-# the bf16 kernel (tensor cores): every head dim, GQA ratios 1, 4 and 8,
-# Sq != Sk with q_offset (negative too), a ragged 4000-token case, windows
-# and non-causal attention
-@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,q_offset", [
+# each kernel on its own: every head dim, GQA ratios 1, 4 and 8, Sq != Sk
+# with q_offset (negative too), a ragged 4000-token case, windows and
+# non-causal attention
+FLASH_CASES = [
     *[(2, 150, 150, 4, 4, D, True, None, 0) for D in HEAD_DIMS],
     (1, 130, 300, 8, 2, 64, True, None, 170),
     (2, 100, 260, 8, 1, 80, True, 70, 160),
@@ -398,12 +399,15 @@ def test_flash_kernel_equals_plain_on_card(cuda, B, Sq, Sk, H, Hkv, D,
     (1, 1000, 1000, 4, 1, 64, True, 300, 0),
     (2, 200, 333, 4, 4, 96, False, None, 0),
     (1, 257, 129, 8, 2, 48, False, 64, 100),
-])
-def test_flash_bf16_kernel_equals_plain_on_card(cuda, B, Sq, Sk, H, Hkv, D,
-                                                causal, window, q_offset):
+]
+
+
+def _flash_case(cuda, dtype, B, Sq, Sk, H, Hkv, D, causal, window, q_offset):
+    """One launch on random inputs: no copy, and within ``ref.TOLERANCE``
+    of the plain version element by element."""
     rng = np.random.default_rng(Sq + Sk + D + H)
     q, k, v = (torch.from_numpy(rng.standard_normal(
-        (B, s, h, D), dtype=np.float32)).to(cuda, torch.bfloat16)
+        (B, s, h, D), dtype=np.float32)).to(cuda, dtype)
         for s, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     reset_launches()
@@ -411,14 +415,39 @@ def test_flash_bf16_kernel_equals_plain_on_card(cuda, B, Sq, Sk, H, Hkv, D,
     assert launches()["flash_fwd"] == 1 and copies()["flash_fwd"] == 0
     want = flash_fwd_ref(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert got.dtype == dtype and got.shape == q.shape
     assert excess(got, want) <= 0, (got.float() - want.float()).abs().max()
 
 
-def test_flash_bf16_fully_masked_rows_give_zero_on_card(cuda):
+# the bf16 kernel (tensor cores)
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,q_offset",
+                         FLASH_CASES)
+def test_flash_bf16_kernel_equals_plain_on_card(cuda, B, Sq, Sk, H, Hkv, D,
+                                                causal, window, q_offset):
+    _flash_case(cuda, torch.bfloat16, B, Sq, Sk, H, Hkv, D, causal, window,
+                q_offset)
+
+
+# the f32 kernel (FMA units)
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,q_offset",
+                         FLASH_CASES)
+def test_flash_f32_kernel_equals_plain_on_card(cuda, B, Sq, Sk, H, Hkv, D,
+                                               causal, window, q_offset):
+    _flash_case(cuda, torch.float32, B, Sq, Sk, H, Hkv, D, causal, window,
+                q_offset)
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_flash_f32_plan_equals_its_mirror(cuda, D):
+    """The plan the f32 library reports equals ``ops.f32_plan``, which
+    the CPU tests hold to the card's limits."""
+    assert launch_plan(D, torch.float32) == f32_plan(D)
+
+
+def _fully_masked_rows_give_zero(cuda, dtype):
     rng = np.random.default_rng(7)
     q, k, v = (torch.from_numpy(rng.standard_normal(
-        (1, 200, h, 64), dtype=np.float32)).to(cuda, torch.bfloat16)
+        (1, 200, h, 64), dtype=np.float32)).to(cuda, dtype)
         for h in (4, 2, 2))
     out = flash_attention(q, k, v, causal=True, q_offset=-150)
     torch.cuda.synchronize()
@@ -428,6 +457,14 @@ def test_flash_bf16_fully_masked_rows_give_zero_on_card(cuda):
                                      q_offset=-150)) <= 0
     out = flash_attention(q, k[:, :0], v[:, :0], causal=False)
     assert out.shape == q.shape and not bool(out.any())
+
+
+def test_flash_bf16_fully_masked_rows_give_zero_on_card(cuda):
+    _fully_masked_rows_give_zero(cuda, torch.bfloat16)
+
+
+def test_flash_f32_fully_masked_rows_give_zero_on_card(cuda):
+    _fully_masked_rows_give_zero(cuda, torch.float32)
 
 
 def test_flash_bf16_keeps_p_in_f32_on_card(cuda):
@@ -447,16 +484,15 @@ def test_flash_bf16_keeps_p_in_f32_on_card(cuda):
     assert excess(got, want) <= 0, got
 
 
-@pytest.mark.parametrize("D", [64, 80, 128])
-def test_flash_bf16_reads_fused_qkv_views_without_a_copy(cuda, D):
+def _reads_fused_qkv_views_without_a_copy(cuda, D, dtype):
     """q, k and v as head-dim slices of one fused projection (B, S,
     (H + 2 Hkv)·D): read through their strides, no copy, and equal to the
-    contiguous tensors' result bit for bit."""
+    contiguous tensors' result bit for bit; a view one element off a
+    16-byte boundary is copied once, and counted."""
     B, S, H, Hkv = 2, 300, 8, 2
     rng = np.random.default_rng(D)
     qkv = torch.from_numpy(rng.standard_normal(
-        (B, S, (H + 2 * Hkv) * D), dtype=np.float32)).to(cuda,
-                                                          torch.bfloat16)
+        (B, S, (H + 2 * Hkv) * D), dtype=np.float32)).to(cuda, dtype)
     q = qkv[..., :H * D].view(B, S, H, D)
     k = qkv[..., H * D:(H + Hkv) * D].view(B, S, Hkv, D)
     v = qkv[..., (H + Hkv) * D:].view(B, S, Hkv, D)
@@ -466,12 +502,22 @@ def test_flash_bf16_reads_fused_qkv_views_without_a_copy(cuda, D):
     want = flash_attention(*(t.contiguous() for t in (q, k, v)), causal=True)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    # a view TMA cannot read is copied once, and counted
+    # a view the kernel cannot read is copied once, and counted
     reset_launches()
     off = qkv[..., 1:1 + H * D].view(B, S, H, D)
     assert torch.equal(flash_attention(off, k, v, causal=True),
                        flash_attention(off.contiguous(), k, v, causal=True))
     assert copies()["flash_fwd"] == 1
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_bf16_reads_fused_qkv_views_without_a_copy(cuda, D):
+    _reads_fused_qkv_views_without_a_copy(cuda, D, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [16, 64, 80, 128])
+def test_flash_f32_reads_fused_qkv_views_without_a_copy(cuda, D):
+    _reads_fused_qkv_views_without_a_copy(cuda, D, torch.float32)
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):

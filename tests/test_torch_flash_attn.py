@@ -261,7 +261,8 @@ def _bf16_kernel_twin(q, k, v, *, causal=True, window=None, scale=None,
     return out.reshape(B, H, Sq, D).permute(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,q_offset", [
+# the cases each kernel's rounding twin is held to the plain version on
+ROUNDING_CASES = [
     (2, 150, 150, 4, 1, 16, True, None, 0),
     (1, 200, 200, 8, 2, 64, True, None, 0),
     (1, 130, 130, 4, 4, 64, False, None, 0),
@@ -269,7 +270,11 @@ def _bf16_kernel_twin(q, k, v, *, causal=True, window=None, scale=None,
     (2, 100, 100, 2, 2, 80, True, 33, 0),
     (1, 96, 96, 2, 1, 128, True, None, 0),
     (1, 40, 170, 8, 1, 128, True, None, -20),    # rows that see no key
-])
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,q_offset",
+                         ROUNDING_CASES)
 def test_bf16_kernel_roundings_meet_the_plain_version(B, Sq, Sk, H, Hkv, D,
                                                       causal, window,
                                                       q_offset):
@@ -330,7 +335,133 @@ def test_views_the_bf16_kernel_reads_without_a_copy(D):
     off = qkv[..., 1:1 + H * D].view(B, S, H, D)        # 2 bytes in
     assert not ops.readable(off)
     assert not ops.readable(q.transpose(2, 3))
-    # f32 rows of any alignment are read as they are
-    assert ops.readable(off.float()[..., 1:])
+    # f32 rows are read in 16-byte pieces too (cp.async, float4 loads)
+    assert ops.readable(off.float())
+    assert not ops.readable(off.float()[..., 1:])
     one = torch.zeros(1, 1, 1, D, dtype=torch.bfloat16)
     assert ops._strides(one) == [D, D, D] and ops.readable(one)
+
+
+@pytest.mark.parametrize("D", [16, 48, 64, 128])
+def test_views_the_f32_kernel_reads_without_a_copy(D):
+    """The f32 kernel's rule: the bf16 rule in bytes, so 4 f32 elements a
+    16-byte piece.  A fused f32 qkv projection's head-dim slices are read
+    as they are; a slice one element in, or with rows 2 elements apart, is
+    not."""
+    B, S, H, Hkv = 2, 50, 8, 2
+    qkv = torch.zeros(B, S, (H + 2 * Hkv) * D)
+    q = qkv[..., :H * D].view(B, S, H, D)
+    k = qkv[..., H * D:(H + Hkv) * D].view(B, S, Hkv, D)
+    v = qkv[..., (H + Hkv) * D:].view(B, S, Hkv, D)
+    assert all(ops.readable(t) for t in (q, k, v))
+    assert ops.readable(qkv[..., 4:4 + H * D].view(B, S, H, D))
+    assert not ops.readable(qkv[..., 1:1 + H * D].view(B, S, H, D))
+    # tokens H·D + 2 elements apart: every other row off a 16-byte boundary
+    odd = torch.zeros(B * S * (H * D + 2)).as_strided(
+        (B, S, H, D), (S * (H * D + 2), H * D + 2, D, 1))
+    assert not ops.readable(odd)
+    wide = torch.zeros(B, S, H, D + 2)[..., :D]         # heads D + 2 apart
+    assert not ops.readable(wide)
+
+
+# --------------------------------------------------------------------------
+# the f32 kernel's plan and roundings (csrc/flash_fwd.cu)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("D", ops.HEAD_DIMS)
+def test_f32_plan_fits_the_card(D):
+    """The plan the f32 kernel reports (its Python mirror here; the card's
+    own report is held to this mirror by a ``gpu`` test) fits an H100: its
+    shared memory fits a CTA, the CTAs an SM it asks for fit the SM's
+    shared memory with their reserves and leave each thread the most
+    registers a thread may have (255), and no more CTAs fit by shared
+    memory without cutting registers; its tiles divide among its threads."""
+    p = ops.f32_plan(D)
+    assert set(p) == set(ops.F32_PLAN_KEYS)
+    assert p["smem_bytes"] <= 232_448       # the most an H100 CTA may take
+    assert p["ctas_per_sm"] * (p["smem_bytes"] + ops.CTA_RESERVED_BYTES) \
+        <= ops.SM_SHARED_BYTES
+    assert p["ctas_per_sm"] * p["threads"] * 255 <= 65_536
+    fits = ops.SM_SHARED_BYTES // (p["smem_bytes"] + ops.CTA_RESERVED_BYTES)
+    assert p["ctas_per_sm"] == min(2, fits) >= 1
+    # 8 rows a thread, 8 threads a row group; 8 or 4 keys a thread
+    assert p["threads"] == p["rows"] // 8 * 8
+    assert p["keys"] in (32, 64)
+    assert p["keys"] * D // 4 % p["threads"] == 0     # 16-byte copies
+    assert p["stages"] >= 2
+    # Llama-3.2-1B's head dim: two CTAs an SM
+    if D == 64:
+        assert p["ctas_per_sm"] == 2 and p["smem_bytes"] == 115_200
+    with pytest.raises(ValueError, match="head dim"):
+        ops.f32_plan(D + 8)
+
+
+@pytest.mark.parametrize("B,Sq,H", [(1, 1, 1), (4, 4096, 32),
+                                    (1, 131_072, 65_535), (65_535, 128, 1)])
+def test_f32_grid_stays_within_cuda_limits(B, Sq, H):
+    """One CTA per (128 query rows, batch, head) on a one-dimensional grid:
+    within gridDim.x's limit, which the plan reports, at B·H up to 65,535
+    (the y limit the bf16 kernel's grid keeps) and 131,072 tokens."""
+    n = ops.f32_ctas(B, Sq, H)
+    assert n == -(-Sq // 128) * B * H
+    assert n <= ops.f32_plan(64)["max_ctas"] == ops.MAX_GRID_X == 2 ** 31 - 1
+
+
+def _f32_kernel_twin(q, k, v, *, causal=True, window=None, scale=None,
+                     q_offset=0):
+    """The f32 kernel's arithmetic in plain PyTorch: q·(scale·log2 e)
+    rounded to f32 (staged once a CTA), f32 scores in log2 units, exp2,
+    the ``flash_fwd_ref`` recurrence over the kernel's key tiles (64 keys,
+    32 for D > 64), p and the accumulator in f32."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    tile = ops.f32_plan(D)["keys"]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    scale2 = torch.tensor(scale) * torch.tensor(math.log2(math.e))   # f32
+    qs = (q.permute(0, 2, 1, 3).reshape(B, Hkv, rep, Sq, D) * scale2)
+    kf = k.permute(0, 2, 1, 3)[:, :, None]
+    vf = v.permute(0, 2, 1, 3)[:, :, None]
+    q_abs = torch.arange(Sq) + q_offset
+    acc = torch.zeros(B, Hkv, rep, Sq, D)
+    m = torch.full((B, Hkv, rep, Sq), -torch.inf)
+    l = torch.zeros(B, Hkv, rep, Sq)
+    lo, hi = kv_range(Sq, Sk, causal=causal, window=window, q_offset=q_offset)
+    for k0 in range(lo // tile * tile, hi, tile):
+        k1 = min(k0 + tile, Sk)
+        s = qs @ kf[..., k0:k1, :].transpose(-1, -2)
+        msk = attention_mask(q_abs, torch.arange(k0, k1), Sk, causal, window)
+        s = torch.where(msk, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        p = torch.exp2(s - m_safe[..., None])
+        alpha = torch.where(torch.isneginf(m), 0.0, torch.exp2(m - m_safe))
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p @ vf[..., k0:k1, :]
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    out = acc / l[..., None]
+    return out.reshape(B, H, Sq, D).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,q_offset",
+                         ROUNDING_CASES)
+def test_f32_kernel_roundings_meet_the_plain_version(B, Sq, Sk, H, Hkv, D,
+                                                     causal, window,
+                                                     q_offset):
+    """The f32 kernel's own roundings (q·scale·log2 e rounded once, exp2
+    of scores in log2 units, its key tiles) stay within
+    ``ref.TOLERANCE[float32]`` of ``flash_fwd_ref`` element by element,
+    on the bf16 twin's cases (D 80: a scale that is not a power of 2), and
+    near JAX's model code."""
+    (jq, jk, jv), (q, k, v) = _inputs(B, Sq, Sk, H, Hkv, D, "float32",
+                                      seed=Sq * D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    twin = _f32_kernel_twin(q, k, v, **kw)
+    want = flash_fwd_ref(q, k, v, **kw)
+    assert twin.dtype == torch.float32 and twin.shape == q.shape
+    assert excess(twin, want) <= 0
+    if q_offset < 0:
+        assert not twin[:, :-q_offset].any()
+    if q_offset == 0:
+        _close(twin, JL.chunked_attention(jq, jk, jv, **kw), "float32",
+               "chunked")
