@@ -36,7 +36,11 @@ Phases, each printing one JSON line:
    of the ``--designs`` designs of phase 4, as the batch path chooses them,
    through ``mccm_latency``: equal to its plain version and to the batch
    path's own cycles bit for bit, and to the scalar Builder's on the
-   templates; ms, plain ms, bound, launches, peak memory;
+   templates; launches, peak memory; and at three shapes (all designs at
+   160 padded layers, the first 2048 of them, all at the 53 valid layers
+   unpadded), each equal to its plain version bit for bit: ms, plain ms,
+   bound and the launch plan the library reports (held to
+   ``ops.latency_plan``);
 7. the CE convolution kernel at full width: the 53 conv layers of
    ResNet-50 at their published widths (batch 1, unit-normal data from
    ``--seed``), each on its CE's ⟨pf, ph, pw⟩ in the port's Builder for
@@ -683,21 +687,17 @@ def _layer_par(db, t, dt, search):
     return torch.cat(pars), torch.cat(comps)
 
 
-def phase_latency(card: str, device, seed: int, n_designs: int) -> dict:
+def latency_setup(device, seed: int, n_designs: int):
+    """Phase 6's net, board, tables, pair tables, (L, 4) dims and the
+    ``n_designs`` ``sample_mixed`` designs of ``seed``, on ``device``."""
     import numpy as np
     import torch
-    from repro_torch.api import Session, get_board, get_cnn
+    from repro_torch.api import get_board, get_cnn
     from repro_torch.core.batch_eval import (_pair_layer_tables,
                                              make_device_tables,
                                              make_tables, pes_hint)
-    from repro_torch.core.blocks import layer_cycles
-    from repro_torch.core.dse import encode_specs, sample_mixed
-    from repro_torch.fpga.archs import ARCH_NAMES, make_arch
-    from repro_torch.kernels import launches, reset_launches
-    from repro_torch.kernels.mccm_eval import (mccm_latency,
-                                               mccm_latency_ref,
-                                               pair_tables)
-
+    from repro_torch.core.dse import sample_mixed
+    from repro_torch.kernels.mccm_eval import pair_tables
     net, board = get_cnn("resnet50"), get_board("zcu102")
     t = make_tables(net, device=device)
     dt = make_device_tables(board, device=device)
@@ -706,6 +706,67 @@ def phase_latency(card: str, device, seed: int, n_designs: int) -> dict:
     dims = torch.stack([t.F, t.CKK, t.OH, t.OW], 1)        # (L, 4)
     db = sample_mixed(np.random.default_rng(seed), len(net),
                       n_designs).to(device)
+    return net, board, t, dt, search, dims, db
+
+
+def _latency_bound(B: int, L: int) -> tuple[float, str, int, int]:
+    """The latency function's bound at B designs of L layers: its bytes
+    (dims and par read once, totals and cycles written once) at the card's
+    memory rate against its operations (3 divisions, 3 ceils, 3 products,
+    1 add an element) at its f32 rate; bound ms, what sets it, bytes,
+    operations."""
+    nbytes = 4 * (4 * L + 3 * B * L + B + B * L)
+    ops = 10 * B * L        # 3 divisions, 3 ceils, 3 products, 1 add
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
+
+
+def _latency_shape(label: str, dims, par, comp) -> dict:
+    """The latency kernel at one shape: equal to its plain version and to
+    ``layer_state``'s cycles bit for bit, the plan the library reports
+    equal to ``ops.latency_plan``; ms, plain ms and the bound."""
+    import torch
+    from repro_torch.kernels.mccm_eval import (mccm_latency,
+                                               mccm_latency_ref)
+    from repro_torch.kernels.mccm_eval import ops as mccm_ops
+    B, L = par.shape[0], dims.shape[0]
+    tot, cyc = mccm_latency(dims, par)
+    ref_tot, ref_cyc = mccm_latency_ref(dims, par)
+    torch.cuda.synchronize()
+    if not (torch.equal(tot, ref_tot) and torch.equal(cyc, ref_cyc)
+            and torch.equal(cyc, comp)):
+        raise PhaseFailed(
+            f"mccm_latency at {label} (B {B}, L {L}) differs from its plain "
+            f"version in {int((tot != ref_tot).sum())} totals, "
+            f"{int((cyc != ref_cyc).sum())} cycles, or from layer_state's "
+            f"comp in {int((cyc != comp).sum())}")
+    plan = mccm_ops.last_latency_launch()
+    if plan != mccm_ops.latency_plan(B, L):
+        raise PhaseFailed(f"mccm_latency at {label} ran {plan}, not "
+                          f"{mccm_ops.latency_plan(B, L)}")
+    bound_ms, bound_by, nbytes, ops = _latency_bound(B, L)
+    return dict(label=label, designs=B, layers=L, bytes=nbytes, ops=ops,
+                ms=cuda_ms(lambda: mccm_latency(dims, par), 20),
+                plain_ms=cuda_ms(lambda: mccm_latency_ref(dims, par), 3),
+                bound_ms=bound_ms, bound_by=bound_by, plan=plan.as_dict())
+
+
+def phase_latency(card: str, device, seed: int, n_designs: int) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.api import Session
+    from repro_torch.core.batch_eval import DEFAULT_CHUNK
+    from repro_torch.core.blocks import layer_cycles
+    from repro_torch.core.dse import encode_specs
+    from repro_torch.fpga.archs import ARCH_NAMES, make_arch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.mccm_eval import (mccm_latency,
+                                               mccm_latency_ref)
+
+    net, board, t, dt, search, dims, db = latency_setup(device, seed,
+                                                        n_designs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
@@ -753,24 +814,27 @@ def phase_latency(card: str, device, seed: int, n_designs: int) -> dict:
         raise PhaseFailed(f"mccm_latency vs the scalar Builder: layer rel "
                           f"{worst_layer}, total rel {worst_total}")
 
-    kernel_ms = cuda_ms(lambda: mccm_latency(dims, par), 20)
-    plain_ms = cuda_ms(lambda: mccm_latency_ref(dims, par), 3)
-    B, L = par.shape[0], dims.shape[0]
-    nbytes = 4 * (dims.numel() + par.numel() + B + B * L)
-    ops = 10 * B * L        # 3 divisions, 3 ceils, 3 products, 1 add
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    # the main shape, one batch-path chunk of it, and its valid layers
+    # unpadded; no single PyTorch call adds a row in ascending order, so
+    # library_ms stays null
+    nv = t.L
+    shapes = [_latency_shape(label, d, p, c) for label, d, p, c in (
+        ("main", dims, par, comp),
+        ("chunk", dims, par[:DEFAULT_CHUNK], comp[:DEFAULT_CHUNK]),
+        ("valid", dims[:nv].contiguous(), par[:, :nv].contiguous(),
+         comp[:, :nv]))]
+    main = shapes[0]
     kernel = dict(
-        **KERNELS["mccm_latency"], designs=B, layers_padded=L,
-        bytes=nbytes, ops=ops, ms=kernel_ms, plain_ms=plain_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        **KERNELS["mccm_latency"], designs=main["designs"],
+        layers_padded=main["layers"], bytes=main["bytes"], ops=main["ops"],
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=None, launches=n["mccm_latency"],
-        max_abs_err=max_abs_err)
+        max_abs_err=max_abs_err, plan=main["plan"])
     emit("latency", card=card, cnn="resnet50", board="zcu102", seed=seed,
          launches=n, max_memory_allocated=peak, equal_plain=True,
          equal_layer_state=True, template_layer_max_rel=worst_layer,
-         template_total_max_rel=worst_total, kernel=kernel)
+         template_total_max_rel=worst_total, kernel=kernel, shapes=shapes)
     return kernel
 
 

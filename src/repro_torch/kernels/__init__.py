@@ -9,7 +9,8 @@ built with ``nvcc`` at its first launch (``_nvcc.load``), never at import.
 Every kernel wrapper adds one to its entry of the launch count below where
 it launches its kernel, and nowhere else; a plain version run on the CPU
 counts nothing.  A wrapper that has to copy an input before its kernel can
-read it (``flash_attn.ops.readable``) counts each copy in ``copies()``.
+read it (``flash_attn.ops.readable``; a non-contiguous ``par`` of
+``mccm_latency``) counts each copy in ``copies()``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from __future__ import annotations
 _LAUNCHES = {"parallelism_search": 0, "mccm_latency": 0, "conv_ce": 0,
              "flash_fwd": 0}
 #: input copies a wrapper made before a launch, by kernel name
-_COPIES = {"flash_fwd": 0}
+_COPIES = {"flash_fwd": 0, "mccm_latency": 0}
 
 
 def launches() -> dict[str, int]:

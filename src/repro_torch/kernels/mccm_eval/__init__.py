@@ -1,9 +1,13 @@
 from .. import launches, reset_launches  # noqa: F401
 from .ops import (  # noqa: F401
     NPLS,
+    LatencyPlan,
     PairTables,
     SearchPlan,
+    last_latency_launch,
     last_launch,
+    latency_launch_plan,
+    latency_plan,
     mccm_latency,
     mccm_latency_cuda,
     pair_tables,

@@ -14,6 +14,16 @@ ceil(OW/cand) of the layers its designs map, in shared memory.
 lane holds and how many leading layers are staged; the kernel checks the
 plan and refuses one it cannot run.  :func:`last_launch` is the plan of the
 last launch.
+
+The latency kernel is a persistent stream: as many blocks as the SMs keep
+resident, each walking tiles of designs in order; a producer warp streams
+each tile's ⟨pf, ph, pw⟩ through a ring of shared-memory stages by TMA bulk
+copies, while 16 consumer warps compute the cycles, store them 16 bytes a
+lane, and then add each design's row, one design a thread.
+The library works out its own plan and reports it
+(:func:`latency_launch_plan`); :func:`latency_plan` is the same plan in
+plain Python, which the CPU tests hold to the card's limits, and
+:func:`last_latency_launch` the plan of the last launch.
 """
 from __future__ import annotations
 
@@ -26,7 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import _LAUNCHES
+from .. import _COPIES, _LAUNCHES
 from .ref import mccm_latency_ref, parallelism_search_ref
 
 NC = 16      # CEs per design: the kernel's compile-time width
@@ -34,9 +44,22 @@ NC = 16      # CEs per design: the kernel's compile-time width
 SOURCE = Path(__file__).resolve().parent / "csrc" / "parallelism_search.cu"
 LATENCY_SOURCE = SOURCE.with_name("mccm_latency.cu")
 
-#: most layers the latency kernel takes: its (L, 4) dims table and one
-#: design's (L + 1)-word row of cycles fill its 48 KB of shared memory
+#: most layers the latency kernel takes (``csrc/mccm_latency.cu``'s MAX_L),
+#: the limit of its first design, kept (the stream's shared memory would
+#: hold a tile of 4 designs up to 5,212 layers)
 LATENCY_MAX_L = 2457
+#: the latency kernel's block: consumer threads (16 warps; each adds at
+#: most one design's cycles), the stages of its ring, the elements a
+#: consumer takes a stage, and the (design, layer) elements a stage holds
+LAT_CONSUMERS, LAT_STAGES, LAT_STEPS = 512, 4, 2
+LAT_THREADS = LAT_CONSUMERS + 32          # and one producer warp
+LAT_CHUNK = LAT_STEPS * LAT_CONSUMERS
+#: a block's mbarriers, its ring (each stage a chunk's par, with 16 bytes
+#: of slack for a misaligned par) and a chunk's cycles on their way out
+LAT_RING = (16 * LAT_STAGES + LAT_STAGES * (12 * LAT_CHUNK + 16)
+            + 4 * LAT_CHUNK)
+#: an SM's threads
+SM_THREADS = 2048
 
 #: the search kernel's limits (``csrc/parallelism_search.cu``): designs a
 #: block has in flight (a warp each), the most pairs a lane holds in
@@ -58,6 +81,9 @@ SMS, SM_WARPS, SM_BLOCKS = 132, 64, 32
 _REFUSALS = {-1: "bad shape", -2: "bad pairs a lane", -3: "bad warps",
              -4: "bad staged rows", -5: "bad shared-memory size",
              -6: "bad block count"}
+#: the latency entry point's refusals
+_LATENCY_REFUSALS = {-1: "bad shape", -2: "no tile fits",
+                     -3: "misaligned pointer"}
 
 
 class PairTables(NamedTuple):
@@ -124,6 +150,7 @@ _KERNELS = {
 
 _BUILT: dict = {}
 _LAST = None
+_LAST_LATENCY = None
 
 
 @dataclass(frozen=True)
@@ -187,6 +214,82 @@ def search_plan(B: int, L: int, P: int, K: int) -> SearchPlan:
                       _cdiv(P, 32 * npl), rows, smem)
 
 
+@dataclass(frozen=True)
+class LatencyPlan:
+    """How the latency kernel covers a batch (see
+    ``csrc/mccm_latency.cu``)."""
+
+    threads: int            # a block's: the consumers and a producer warp
+    tile: int               # designs a tile, at most one a consumer
+    stages: int             # stages of the ring
+    smem_bytes: int         # ring, dims table, the tile's cycle rows
+    blocks_per_sm: int      # what the SM's shared memory and threads allow
+    grid: int               # blocks, each walking tiles in order
+
+    def as_dict(self) -> dict:
+        return asdict(self)
+
+
+def latency_smem(L: int, T: int) -> int:
+    """Shared-memory bytes of a latency block at L layers and a tile of T
+    designs: the ring, the (L, 4) dims table and T cycle rows padded to an
+    odd stride (``L | 1``)."""
+    return LAT_RING + 16 * L + 4 * T * (L | 1)
+
+
+def _latency_bps(smem: int) -> int:
+    return min(SM_SMEM // (smem + SMEM_PER_BLOCK), SM_THREADS // LAT_THREADS,
+               SM_BLOCKS)
+
+
+@lru_cache(maxsize=4096)
+def latency_plan(B: int, L: int) -> LatencyPlan:
+    """The latency kernel's launch plan for B designs of L layers, worked
+    out as ``csrc/mccm_latency.cu``'s ``make_plan`` works it out.
+
+    A tile holds at most one design a consumer thread, and as many as the
+    shared memory left by the ring and the dims table takes in cycle rows,
+    and T·L is a multiple of 4 (so every tile's spans of par and cycles
+    keep the base pointers' 16-byte alignment).  A batch of few designs
+    takes tiles of about B / 132, so that it still spreads over the SMs.
+    The tile then shrinks to the least that needs no more rounds of the
+    resident blocks, and the grid is as many blocks as the SMs keep
+    resident, or the tiles if fewer.  Raises ``ValueError`` where the
+    library refuses: B < 1, L < 1 or L > ``LATENCY_MAX_L``.
+    """
+    if B < 1 or not 1 <= L <= LATENCY_MAX_L:
+        raise ValueError(f"the latency kernel takes B >= 1 and 1 <= L <= "
+                         f"{LATENCY_MAX_L}, got B {B}, L {L}")
+    q = 1 if L % 4 == 0 else 2 if L % 2 == 0 else 4
+    fit = (MAX_SMEM - latency_smem(L, 0)) // (4 * (L | 1)) // q * q
+    t0 = min(_cdiv(_cdiv(B, SMS), q) * q, LAT_CONSUMERS, fit)
+    bps0 = _latency_bps(latency_smem(L, t0))
+    rounds = _cdiv(_cdiv(B, t0), SMS * bps0)
+    t = min(t0, _cdiv(_cdiv(B, SMS * bps0 * rounds), q) * q)
+    smem = latency_smem(L, t)
+    bps = _latency_bps(smem)
+    return LatencyPlan(LAT_THREADS, t, LAT_STAGES, smem, bps,
+                       min(_cdiv(B, t), SMS * bps))
+
+
+def latency_launch_plan(B: int, L: int) -> LatencyPlan:
+    """The plan the latency library reports for B designs of L layers
+    (``mccm_latency_plan``; builds the library at its first call)."""
+    plan = (ctypes.c_int * 6)()
+    err = library("mccm_latency").lib.mccm_latency_plan(B, L, plan)
+    if err != 0:
+        raise ValueError(f"mccm_latency refuses B {B}, L {L}: "
+                         f"{_LATENCY_REFUSALS.get(err, err)}")
+    return LatencyPlan(*plan)
+
+
+def last_latency_launch() -> LatencyPlan | None:
+    """The plan of the most recent latency launch of this process, as the
+    library reports it (None before the first)."""
+    return None if _LAST_LATENCY is None else latency_launch_plan(
+        *_LAST_LATENCY)
+
+
 def last_launch() -> SearchPlan | None:
     """The plan of the most recent search launch of this process (None
     before the first)."""
@@ -204,6 +307,11 @@ def library(name: str):
         fn = getattr(built.lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        if name == "mccm_latency":
+            plan = built.lib.mccm_latency_plan
+            plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int)]
+            plan.restype = ctypes.c_int
         _BUILT[name] = built
     return _BUILT[name]
 
@@ -296,8 +404,14 @@ def mccm_latency_cuda(dims, par):
 
     dims (L, 4) f32 [F, C*KH*KW, OH, OW] and par (B, L, 3) f32 ⟨pf, ph,
     pw⟩, both on one CUDA device.  Returns ((B,) totals, (B, L) cycles),
-    equal to ``mccm_latency_ref`` on the same inputs bit for bit.
+    equal to ``mccm_latency_ref`` on the same inputs bit for bit (NaN where
+    it has NaN).  A contiguous par is read where it lies, at any 4-byte
+    alignment; another is copied first, and the copy counted in
+    ``copies()["mccm_latency"]``.  The launch runs :func:`latency_plan`'s
+    plan, which :func:`last_latency_launch` then returns as the library
+    reports it.
     """
+    global _LAST_LATENCY
     for name, a in (("dims", dims), ("par", par)):
         if a.device != dims.device or a.device.type != "cuda":
             raise ValueError(f"{name} is on {a.device}; both arguments "
@@ -312,6 +426,8 @@ def mccm_latency_cuda(dims, par):
     if not 1 <= L <= LATENCY_MAX_L:
         raise ValueError(f"the latency kernel takes 1 to {LATENCY_MAX_L} "
                          f"layers, got {L}")
+    if not par.is_contiguous():
+        _COPIES["mccm_latency"] += 1
     dims, par = dims.contiguous(), par.contiguous()
     tot = torch.empty(B, dtype=torch.float32, device=dims.device)
     cyc = torch.empty(B, L, dtype=torch.float32, device=dims.device)
@@ -323,10 +439,15 @@ def mccm_latency_cuda(dims, par):
         err = built.lib.mccm_latency(dims.data_ptr(), par.data_ptr(),
                                      tot.data_ptr(), cyc.data_ptr(), B, L,
                                      stream)
+    if err < 0:
+        raise RuntimeError(f"mccm_latency refused its launch "
+                           f"({_LATENCY_REFUSALS.get(err, err)}): B {B}, "
+                           f"L {L}")
     if err != 0:
         raise RuntimeError(f"mccm_latency kernel launch failed: CUDA error "
                            f"{err}")
     _LAUNCHES["mccm_latency"] += 1
+    _LAST_LATENCY = (B, L)
     return tot, cyc
 
 
@@ -340,8 +461,9 @@ def mccm_latency(dims, par):
 
     The JAX package's ``mccm_latency`` also takes ``design_blk`` and
     ``interpret``: the TPU kernel's design tile and its CPU interpreter.
-    Neither has a counterpart here (the CUDA kernel picks its own tile, and
-    the CPU runs the plain version), so the port drops both.
+    Neither has a counterpart here (the CUDA kernel picks its own tile,
+    :func:`latency_plan`, and the CPU runs the plain version), so the port
+    drops both.
     """
     if dims.device.type == "cuda":
         return mccm_latency_cuda(dims, par)

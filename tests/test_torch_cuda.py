@@ -37,6 +37,7 @@ from repro_torch.kernels.mccm_eval import (launches, mccm_latency,
                                            parallelism_search,
                                            parallelism_search_ref,
                                            reset_launches)
+from repro_torch.kernels.mccm_eval import ops as mccm_ops
 
 pytestmark = pytest.mark.gpu
 
@@ -287,6 +288,99 @@ def test_mccm_latency_kernel_equals_plain_on_card(cuda):
                            .astype(np.float32)).to(cuda)
     for k, r in zip(mccm_latency(dims, par), mccm_latency_ref(dims, par)):
         assert torch.equal(k, r)
+
+
+def _latency_on_card(cuda, dims, par):
+    """The kernel and the plain version on the card, bit for bit (NaN
+    where the plain version has NaN); one launch, no input copied."""
+    dims = torch.as_tensor(dims).to(cuda)
+    par = torch.as_tensor(par).to(cuda) if not torch.is_tensor(par) else par
+    reset_launches()
+    tot, cyc = mccm_latency(dims, par)
+    torch.cuda.synchronize()
+    assert launches()["mccm_latency"] == 1
+    assert copies()["mccm_latency"] == 0
+    rtot, rcyc = mccm_latency_ref(dims, par)
+    torch.testing.assert_close(cyc, rcyc, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(tot, rtot, rtol=0, atol=0, equal_nan=True)
+    for k, r in ((tot, rtot), (cyc, rcyc)):      # the sign of a zero too
+        keep = ~torch.isnan(r)
+        assert torch.equal(k[keep].view(torch.int32),
+                           r[keep].view(torch.int32))
+    return tot, cyc
+
+
+@pytest.mark.parametrize("B", [1, 63, 2049, 100_003])
+def test_mccm_latency_ragged_batches_on_card(cuda, B):
+    """Batches that end inside a tile, a chunk and a 16-byte piece, up to
+    several tiles a block, at 160 layers."""
+    from torch_search_cases import latency_inputs
+    _latency_on_card(cuda, *latency_inputs(B, 160, seed=B))
+
+
+@pytest.mark.parametrize("L", [1, 53, 160, mccm_ops.LATENCY_MAX_L])
+def test_mccm_latency_layer_counts_on_card(cuda, L):
+    """One layer to the most the kernel takes: tiles of 4 designs at odd
+    L, 1 at L a multiple of 4, rows longer than the consumers."""
+    from torch_search_cases import latency_inputs
+    _latency_on_card(cuda, *latency_inputs(777, L, seed=L))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("L", [53, 160])
+def test_mccm_latency_reads_misaligned_par_on_card(cuda, offset, L):
+    """A par view 4, 8 or 12 bytes past a 16-byte boundary (storage
+    offset 1 to 3) is read where it lies, without a copy, and gives the
+    plain version's bits."""
+    from torch_search_cases import latency_inputs
+    dims, par = latency_inputs(2049, L, seed=offset)
+    flat = torch.zeros(offset + par.size, dtype=torch.float32, device=cuda)
+    flat[offset:] = torch.from_numpy(par.ravel()).to(cuda)
+    view = flat[offset:].view(par.shape)
+    assert view.data_ptr() % 16 == 4 * offset and view.is_contiguous()
+    _latency_on_card(cuda, dims, view)
+
+
+@pytest.mark.parametrize("kind", ["zero", "inf", "nan"])
+def test_mccm_latency_nonfinite_on_card(cuda, kind):
+    """Zeros, infinities and NaNs in par give the plain version's inf and
+    NaN in the same places, and its other bits."""
+    from torch_search_cases import latency_nonfinite_inputs
+    _, cyc = _latency_on_card(cuda, *latency_nonfinite_inputs(kind))
+    assert not torch.isfinite(cyc).all()
+
+
+def test_mccm_latency_order_sensitive_total_on_card(cuda):
+    """Totals that the order of the sum decides: the kernel's equal the
+    layers added left to right, not a tree."""
+    from torch_search_cases import (ascending_sum, latency_order_inputs,
+                                    tree_sum)
+    tot, cyc = _latency_on_card(cuda, *latency_order_inputs(B=300))
+    tot, cyc = tot.cpu().numpy(), cyc.cpu().numpy()
+    np.testing.assert_array_equal(tot, ascending_sum(cyc))
+    assert (tot != tree_sum(cyc)).all()
+
+
+def test_mccm_latency_is_deterministic_on_card(cuda):
+    """Two launches on the same inputs give the same bits."""
+    from torch_search_cases import latency_inputs
+    dims, par = (torch.from_numpy(a).to(cuda)
+                 for a in latency_inputs(50_001, 160, seed=9))
+    a, b = mccm_latency(dims, par), mccm_latency(dims, par)
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("B", [1, 63, 2048, 100_000])
+def test_mccm_latency_plan_equals_its_mirror(cuda, B):
+    """The plan the library reports, and runs, equals ``ops.latency_plan``
+    at every L the tests run."""
+    for L in (1, 2, 3, 53, 160, 1001, mccm_ops.LATENCY_MAX_L):
+        assert mccm_ops.latency_launch_plan(B, L) == \
+            mccm_ops.latency_plan(B, L), (B, L)
+    dims = torch.ones(160, 4, device=cuda)
+    mccm_latency(dims, torch.ones(B, 160, 3, device=cuda))
+    assert mccm_ops.last_latency_launch() == mccm_ops.latency_plan(B, 160)
 
 
 @pytest.mark.parametrize("C,H,W,F,K,stride,par,dtype,shows", [

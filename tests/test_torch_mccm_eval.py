@@ -14,8 +14,9 @@ shapes, rtol 1e-6 (the per-layer cycles are equal; the totals may differ
 in the last bits, the JAX sum having its own order), and against the
 batch path's own ``layer_state`` cycles bit for bit.
 
-The search kernel's launch plan (``ops.search_plan``) is plain Python and
-is held here to the card's limits at every (B, L, P) the batch path can
+The search kernel's launch plan (``ops.search_plan``) and the latency
+kernel's (``ops.latency_plan``) are plain Python and are held here to the
+card's limits, the search's at every (B, L, P) the batch path can
 produce, and the plain version to the facts the kernel's design rests on:
 a CE that owns no layer takes its first feasible pair at cost 0, a CE with
 0 PEs takes pair 0 at inf, ties go to the first pair.
@@ -59,8 +60,10 @@ from repro_torch.kernels.mccm_eval import (launches, mccm_latency,
                                            reset_launches, search_plan,
                                            set_fault_hook)
 from repro_torch.kernels.mccm_eval import ops as mccm_ops
-from torch_search_cases import (give_absent_ces_pes, port_inputs,
-                                synthetic_net, tie_inputs)
+from torch_search_cases import (ascending_sum, give_absent_ces_pes,
+                                latency_nonfinite_inputs,
+                                latency_order_inputs, port_inputs,
+                                synthetic_net, tie_inputs, tree_sum)
 
 RTOL_COST = 1e-6
 
@@ -430,3 +433,113 @@ def test_mccm_latency_routes():
     with pytest.raises(ValueError, match="one CUDA device"):
         mccm_latency_cuda(dims, par)
     assert launches()["mccm_latency"] == 0
+
+
+@pytest.mark.parametrize("kind", ["zero", "inf", "nan"])
+def test_mccm_latency_nonfinite_matches_jax(kind):
+    """Zeros, infinities and NaNs in par (and zeros in dims) reach the
+    same cycles, inf and NaN in the same places, as in the JAX Pallas
+    kernel (interpret) and its reference; the totals within rtol 1e-6
+    (the JAX sum has its own order), inf and NaN in the same places."""
+    dims, par = latency_nonfinite_inputs(kind)
+    tot, cyc = mccm_latency(torch.from_numpy(dims), torch.from_numpy(par))
+    assert not np.isfinite(cyc.numpy()).all()
+    for want_tot, want_cyc in (
+            jax_mccm_latency(jnp.asarray(dims), jnp.asarray(par),
+                             design_blk=8),
+            jax_mccm_latency_ref(jnp.asarray(dims), jnp.asarray(par))):
+        np.testing.assert_array_equal(cyc.numpy(), np.asarray(want_cyc))
+        np.testing.assert_allclose(tot.numpy(), np.asarray(want_tot),
+                                   rtol=1e-6, equal_nan=True)
+
+
+def test_mccm_latency_total_adds_in_ascending_order():
+    """A total that the order of the sum decides: the plain version's
+    equals the layers added left to right in f32, and differs from a
+    pairwise (tree) sum of the same cycles, so a kernel that reorders its
+    sum fails the card's equality with the plain version."""
+    dims, par = latency_order_inputs()
+    tot, cyc = mccm_latency(torch.from_numpy(dims), torch.from_numpy(par))
+    np.testing.assert_array_equal(tot.numpy(), ascending_sum(cyc.numpy()))
+    assert (tot.numpy() != tree_sum(cyc.numpy())).all()
+    assert (tot.numpy() != cyc.numpy().astype(np.float64).sum(1)).all()
+
+
+# ------------------------------------------------ the latency kernel's plan
+@pytest.mark.parametrize("L", [1, 53, 160, mccm_ops.LATENCY_MAX_L])
+@pytest.mark.parametrize("B", [1, 63, 2048, 100_000])
+def test_latency_plan_fits_the_card(B, L):
+    """The plan the library computes, mirrored: shared memory within a
+    block's limit, as many blocks an SM as its shared memory and threads
+    allow, tiles of at least one design (at most one a consumer thread,
+    T·L a multiple of 4), a grid no larger than the tiles or the resident
+    blocks, and a batch of few designs spread over the SMs."""
+    o = mccm_ops
+    plan = o.latency_plan(B, L)
+    assert plan.threads == o.LAT_THREADS and plan.stages == o.LAT_STAGES
+    assert plan.smem_bytes == o.latency_smem(L, plan.tile) <= o.MAX_SMEM
+    assert 1 <= plan.tile <= o.LAT_CONSUMERS and plan.tile * L % 4 == 0
+    bps = plan.blocks_per_sm
+    assert 1 <= bps <= o.SM_BLOCKS
+    assert bps * (plan.smem_bytes + o.SMEM_PER_BLOCK) <= o.SM_SMEM
+    assert bps * plan.threads <= o.SM_THREADS
+    assert bps == o.SM_BLOCKS or (bps + 1) * plan.threads > o.SM_THREADS \
+        or (bps + 1) * (plan.smem_bytes + o.SMEM_PER_BLOCK) > o.SM_SMEM
+    tiles = -(-B // plan.tile)
+    assert 1 <= plan.grid == min(tiles, o.SMS * bps)
+    # the tile is the least that needs no more rounds of the grid
+    rounds = -(-tiles // plan.grid)
+    q = 4 // np.gcd(L, 4)
+    if plan.tile > q:
+        assert -(-B // (plan.tile - q)) > rounds * plan.grid
+    if B >= o.SMS * 4:
+        assert plan.grid >= o.SMS
+
+
+def test_latency_plan_refuses_what_the_kernel_refuses():
+    for B, L in ((0, 160), (5, 0), (5, mccm_ops.LATENCY_MAX_L + 1)):
+        with pytest.raises(ValueError, match="latency kernel takes"):
+            mccm_ops.latency_plan(B, L)
+
+
+def test_latency_plan_at_the_smoke_shapes():
+    """The plans ``chip_smoke.py`` phase 6 runs: ResNet-50 padded to 160
+    layers and unpadded (53), at 100,000 designs, and one 2048-design
+    chunk.  At 160 layers the shared memory holds 274 designs' rows, three
+    rounds of 132 blocks, so the tile is the least that keeps three: 253,
+    exactly three tiles a block."""
+    o = mccm_ops
+    assert o.latency_smem(160, 274) <= o.MAX_SMEM < o.latency_smem(160, 275)
+    p = o.latency_plan(100_000, 160)
+    assert (p.tile, p.blocks_per_sm, p.grid) == (253, 1, 132)
+    assert -(-100_000 // p.tile) == 3 * p.grid
+    p = o.latency_plan(100_000, 53)
+    assert (p.tile, p.blocks_per_sm, p.grid) == (380, 1, 132)
+    p = o.latency_plan(2048, 160)
+    assert p.grid >= o.SMS and p.tile == 6
+
+
+def test_latency_constants_match_the_kernel_source():
+    src = mccm_ops.LATENCY_SOURCE.read_text()
+    o = mccm_ops
+    for name, value in (("NT", o.LAT_CONSUMERS), ("STAGES", o.LAT_STAGES),
+                        ("MAX_L", o.LATENCY_MAX_L), ("MAX_SMEM", o.MAX_SMEM),
+                        ("SM_SMEM", o.SM_SMEM),
+                        ("SMEM_PER_BLOCK", o.SMEM_PER_BLOCK),
+                        ("SMS", o.SMS), ("SM_THREADS", o.SM_THREADS),
+                        ("SM_BLOCKS", o.SM_BLOCKS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert re.search(rf"constexpr int STEPS = {o.LAT_STEPS};", src)
+    assert re.search(r"constexpr int THREADS = NT \+ 32;", src)
+    assert re.search(r"constexpr int CHUNK = STEPS \* NT;", src)
+    assert o.LAT_THREADS == o.LAT_CONSUMERS + 32
+    assert o.LAT_CHUNK == o.LAT_STEPS * o.LAT_CONSUMERS
+    assert re.search(r"constexpr int PAR_STAGE = 12 \* CHUNK \+ 16;", src)
+    assert re.search(r"constexpr int RING = 16 \* STAGES \+ STAGES \* "
+                     r"PAR_STAGE \+ 4 \* CHUNK;", src)
+    assert o.LAT_RING == (16 * o.LAT_STAGES
+                          + o.LAT_STAGES * (12 * o.LAT_CHUNK + 16)
+                          + 4 * o.LAT_CHUNK)
+    # the refusals the wrapper names
+    for code in o._LATENCY_REFUSALS:
+        assert f"return {code};" in src

@@ -1,7 +1,8 @@
-"""Search-kernel inputs shared by the CPU tests
-(``test_torch_mccm_eval.py``, against the JAX package) and the card's
-(``test_torch_cuda.py``, kernel against its plain version): built from the
-port alone, so the card's machine, which has no JAX, can import them.
+"""Inputs of the MCCM kernels (the search, the Eq. 1 latency sweep) shared
+by the CPU tests (``test_torch_mccm_eval.py``, against the JAX package) and
+the card's (``test_torch_cuda.py``, kernel against its plain version):
+built from the port alone, so the card's machine, which has no JAX, can
+import them.
 """
 from __future__ import annotations
 
@@ -80,3 +81,64 @@ def tie_inputs(B=6, L=40, P=400, K=20, seed=8, device="cpu"):
     ph = np.arange(P, dtype=np.float32) % 3 + 1
     return [torch.from_numpy(a).to(device) for a in
             (pes, ce, fc, coh, ow, cand, prod, pf, ph)]
+
+
+# ------------------------------------------------------------ mccm_latency
+def latency_inputs(B, L, seed):
+    """dims (L, 4) of integer layer sizes and par (B, L, 3) drawn from the
+    parallelism candidates, as numpy f32."""
+    rng = np.random.default_rng(seed)
+    dims = rng.integers(1, 4096, (L, 4)).astype(np.float32)
+    par = rng.choice([1, 2, 3, 7, 24, 64, 512], (B, L, 3)).astype(np.float32)
+    return dims, par
+
+
+def latency_nonfinite_inputs(kind, B=37, L=53, seed=5):
+    """:func:`latency_inputs` with a fifth of the even designs' par set to
+    ``kind`` (0, inf or nan; half of them negative, some -3) and a few dims
+    to 0 (and layer 1's CKK to inf for ``kind`` inf): F/0 is inf (NaN
+    where F is 0 too), 0 over a negative divisor is -0, F/inf is 0, and
+    inf·0 is NaN, so inf and NaN reach the cycles and the totals in every
+    kind, beside the odd designs' totals."""
+    dims, par = latency_inputs(B, L, seed)
+    rng = np.random.default_rng(seed + 1)
+    value = {"zero": 0.0, "inf": np.inf, "nan": np.nan}[kind]
+    hit = rng.random(par.shape) < 0.2
+    hit[1::2] = False
+    par[hit] = value
+    # and signed: -0 gives -inf, and a zero numerator over a negative
+    # divisor a -0
+    par[hit & (rng.random(par.shape) < 0.5)] = -value
+    par[hit & (rng.random(par.shape) < 0.2)] = -3.0
+    dims[rng.random(dims.shape) < 0.1] = 0.0
+    if kind == "inf":
+        dims[1] = 7.0, value, 5.0, 5.0
+    return dims, par
+
+
+def latency_order_inputs(B=4, L=160):
+    """dims and par whose totals the order of the sum decides: a first
+    layer of 2**25 cycles, then L - 1 odd small ones (3, 5, 7, 3, ...), at
+    ⟨1, 1, 1⟩ in every design.  In f32, 2**25 plus each small one rounds
+    to a multiple of 4; a tree adds the small ones exactly first."""
+    dims = np.ones((L, 4), np.float32)
+    dims[0, 0] = 2.0 ** 25
+    dims[1:, 0] = 3 + 2 * (np.arange(L - 1) % 3)
+    return dims, np.ones((B, L, 3), np.float32)
+
+
+def ascending_sum(cyc):
+    """Each row of (B, L) ``cyc`` added left to right in f32."""
+    acc = np.asarray(cyc[:, 0], np.float32).copy()
+    for l in range(1, cyc.shape[1]):
+        acc = (acc + np.asarray(cyc[:, l], np.float32)).astype(np.float32)
+    return acc
+
+
+def tree_sum(cyc):
+    """Each row of (B, L) ``cyc`` added pairwise, halves first, in f32."""
+    cyc = np.asarray(cyc, np.float32)
+    if cyc.shape[1] == 1:
+        return cyc[:, 0]
+    h = cyc.shape[1] // 2
+    return (tree_sum(cyc[:, :h]) + tree_sum(cyc[:, h:])).astype(np.float32)
