@@ -26,7 +26,8 @@ Phases, each printing one JSON line:
    at the no-FMA rate of its contract (the operations the function needs
    on this chunk's data), the bound of PRs 11-16's count (``bound_5op_ms``),
    its launch plan, ptxas registers and spills, launches, peak memory and
-   a profiler breakdown (written to ``chiprun_out/``);
+   a profiler breakdown of the first 20,480 designs (written to
+   ``chiprun_out/``);
 5. the scalar path, ``Session(board).evaluate(spec, net)`` on every
    template of every CNN x board, against the golden scalar metrics the JAX
    package's Builder computed (exactly equal: both are the same Python
@@ -70,7 +71,24 @@ Phases, each printing one JSON line:
 10. the reduced Llama config in f32 against the golden file the JAX
    package wrote (``src/repro_torch/data/golden_lm.npz``): greedy tokens
    equal, prefill's last logits within the stated tolerance, on a batch
-   longer than 2048 tokens (chunked, the kernel) and a short one (dense).
+   longer than 2048 tokens (chunked, the kernel) and a short one (dense);
+11. the DSE path, ``Session(get_board()).explore`` on MobileNetV2: at the
+   configurations of ``src/repro_torch/data/golden_dse.npz`` (the JAX
+   package's explore on the CPU), the random sweep's designs and the
+   search's first generation equal the golden draws exactly, each front
+   equals the golden front (a row on one front only must be a near-tie
+   within rtol 1e-5, reported in ``front_near_ties``), the front rows'
+   metrics meet it (``n_ces`` exact, the rest within rtol 1e-5), and the
+   first generation whose designs part from the golden run is reported
+   (``search_diverged_at``); then a 100,000-design random sweep (seed 7)
+   and search (seed 3), the paper's budget: the search strictly dominates
+   the sweep's best-latency design on (latency, buffer), each front is
+   ``pareto()`` of its sample and mutually non-dominated, 16 search front
+   rows meet the scalar Builder; seconds and µs a design, per generation
+   the host's breeding and the device step's seconds, search-kernel
+   launches per explore, one step's kernel launches, busy time and idle
+   share under the profiler, the repair's ms and launches at 4096
+   designs, peak memory.
 
 Then the ``kernels`` line (one entry per kernel source: ``flash_fwd``'s
 bf16 source with its launches in phase 9, its f32 source with its launches
@@ -166,6 +184,15 @@ FLASH_WIDE_D = 128
 #: phase 9: 4 prompts of 2300-4000 tokens (the longest 4000), so ``auto``
 #: attention resolves to the chunked path; greedy new tokens
 SERVE_PROMPTS, SERVE_LENS, SERVE_NEW_TOKENS = 4, (2300, 4000), 16
+#: phase 4's profiled evaluate: its first 10 chunks of 2048 designs
+PROFILE_DESIGNS = 20_480
+#: phase 11: the DSE at the paper's budget on MobileNetV2 and the default
+#: board, as the JAX package's acceptance test (tests/test_dse_search.py)
+DSE_CNN, DSE_BUDGET, DSE_OBJ = "mobilenetv2", 100_000, ("latency_s",
+                                                        "buffer_bytes")
+DSE_RANDOM_SEED, DSE_SEARCH_SEED = 7, 3
+#: front rows held to the scalar Builder (RTOL_SCALAR)
+DSE_SCALAR_ROWS = 16
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -173,8 +200,13 @@ class PhaseFailed(RuntimeError):
     pass
 
 
+#: the script's start: each phase line carries the seconds since (t_s)
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - _START,
+                      **fields}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -528,7 +560,16 @@ def phase_load(card: str, device, seed: int, n_designs: int) -> dict:
         library_ms=None, launches=n_launch, plan=plan.as_dict(),
         ptxas=[e for e in ptxas_entries(mccm_ops.library(
             "parallelism_search")) if f"ILi{plan.npl}E" in e["entry"]])
-    breakdown = _profile(ses, batch, net, statistics.median(walls))
+    # the profile covers the first PROFILE_DESIGNS designs: the profiler's
+    # own processing grows with the kernels it records (~847 a chunk)
+    part = batch.take(slice(0, min(PROFILE_DESIGNS, n_designs)))
+    part_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ses.evaluate(part, net)
+        torch.cuda.synchronize()
+        part_walls.append(time.perf_counter() - t0)
+    breakdown = _profile(ses, part, net, statistics.median(part_walls))
     info = dict(card=card, cnn="resnet50", board="zcu102", seed=seed,
                 designs=n_designs, wall_s=walls,
                 us_per_design=[w / n_designs * 1e6 for w in walls],
@@ -542,10 +583,10 @@ def phase_load(card: str, device, seed: int, n_designs: int) -> dict:
 
 
 def _profile(ses, batch, net, wall_unprofiled: float) -> dict:
-    """Device time over one evaluate, from torch.profiler: busy time as the
-    sum of the kernels' device times (one stream, so they do not overlap),
-    the PyTorch ops that launched the most of it, and the full table in
-    chiprun_out/profile_load.txt.  The idle share is taken against
+    """Device time over one evaluate of ``batch``, from torch.profiler:
+    busy time as the sum of the kernels' device times (one stream, so they
+    do not overlap), the PyTorch ops that launched the most of it, and the
+    full table in chiprun_out/profile_load.txt.  The idle share is taken against
     ``wall_unprofiled``, the median wall of the same evaluate without the
     profiler, whose own overhead stretches the profiled wall."""
     import torch
@@ -569,7 +610,8 @@ def _profile(ses, batch, net, wall_unprofiled: float) -> dict:
         return {"device_time": "not measured", "wall_s_profiled": wall}
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:10]
     search = [e for e in kernels if "parallelism_search" in e.key]
-    return {"wall_s_profiled": wall, "wall_s_unprofiled": wall_unprofiled,
+    return {"designs": batch.batch,
+            "wall_s_profiled": wall, "wall_s_unprofiled": wall_unprofiled,
             "device_busy_s": busy_s,
             "device_idle_share": max(0.0, 1 - busy_s / wall_unprofiled),
             "device_idle_share_profiled": max(0.0, 1 - busy_s / wall),
@@ -1339,6 +1381,229 @@ def phase_golden_lm(card: str, device) -> dict:
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 11
+# --------------------------------------------------------------------------
+def _front_check(front, pts, g_front, g_pts, label: str) -> list:
+    """A front (row indices, their oriented points) against the golden
+    one: a row on one front only fails, unless its point lies within
+    RTOL_METRICS of a point of the other front (a near-tie, returned)."""
+    import numpy as np
+    ties = []
+    for side, rows, mine, other_rows, other in (
+            ("port", front, pts, g_front, g_pts),
+            ("golden", g_front, g_pts, front, pts)):
+        for i, p in zip(rows, mine):
+            if i in other_rows:
+                continue
+            rel = np.abs(other - p) / np.maximum(np.abs(p), 1e-30)
+            if not (rel <= RTOL_METRICS).all(1).any():
+                raise PhaseFailed(f"{label}: row {int(i)} is on the "
+                                  f"{side} front only, with no near-tie")
+            ties.append(dict(row=int(i), front=side, point=p.tolist()))
+    return ties
+
+
+def _front_metrics(metrics, front, golden, prefix: str, worst: dict):
+    """The metrics of the rows on both fronts against the golden file's."""
+    import numpy as np
+    g_front = golden[f"{prefix}/front"]
+    both = np.intersect1d(front, g_front)
+    got = {k: np.asarray(v)[both] for k, v in metrics.items()}
+    pos = np.searchsorted(g_front, both)
+    want = {f"{prefix}/front/{k}": golden[f"{prefix}/front/{k}"][pos]
+            for k in metrics}
+    _check_metrics(got, want, f"{prefix}/front", worst)
+
+
+def _golden_dse(ses, net) -> dict:
+    """explore at the golden file's configurations, held to it."""
+    import numpy as np
+    from repro_torch.api import SearchConfig, orient
+    golden = np.load(os.path.join(ROOT, "src", "repro_torch", "data",
+                                  "golden_dse.npz"))
+    cfg = json.loads(str(golden["config"]))
+    fields = ("seg_end", "seg_pipe", "seg_nce", "inter_pipe")
+    worst: dict = {}
+    out = {}
+    for run in ("random", "search"):
+        c = cfg[run]
+        if run == "random":
+            res = ses.explore(net, n=c["n"], seed=c["seed"],
+                              chunk=c["chunk"])
+        else:
+            res = ses.explore(net, n=c["n"], strategy="search",
+                              seed=c["seed"], config=SearchConfig(
+                                  pop_size=c["pop_size"], seed=c["seed"]))
+        designs = res.batch.to_numpy()
+        same = np.ones(c["n"], bool)
+        for f, a in zip(fields, designs):
+            eq = golden[f"{run}/{f}"] == a
+            same &= eq.reshape(len(eq), -1).all(1)
+        pts = orient(res.metrics, DSE_OBJ)[res.front]
+        g_front = golden[f"{run}/front"]
+        g_pts = orient({k: golden[f"{run}/front/{k}"] for k in DSE_OBJ},
+                       DSE_OBJ)
+        info = dict(n=c["n"], front=len(res.front),
+                    golden_front=len(g_front))
+        if run == "random":
+            if not same.all():
+                raise PhaseFailed(f"golden random: {int((~same).sum())} "
+                                  f"designs differ from the JAX package's "
+                                  f"draws")
+            info["front_near_ties"] = _front_check(
+                res.front, pts, g_front, g_pts, "golden random")
+            _front_metrics(res.metrics, res.front, golden, run, worst)
+        else:
+            pop = c["pop_size"]
+            gens = [int(g) for g in range(c["n"] // pop)
+                    if not same[g * pop:(g + 1) * pop].all()]
+            if gens and gens[0] == 0:
+                raise PhaseFailed("golden search: the first generation's "
+                                  "designs differ from the JAX package's "
+                                  "(host draws and repair)")
+            info["search_diverged_at"] = gens[0] if gens else None
+            if not gens:
+                info["front_near_ties"] = _front_check(
+                    res.front, pts, g_front, g_pts, "golden search")
+                _front_metrics(res.metrics, res.front, golden, run, worst)
+        out[run] = info
+    out["rtol"] = RTOL_METRICS
+    out["max_rel_err"] = worst
+    return out
+
+
+def _scalar_front_rows(ses, net, res) -> dict:
+    """Up to DSE_SCALAR_ROWS front rows of a result against the port's
+    scalar Builder, at the JAX package's scalar-vs-batch tolerances."""
+    import numpy as np
+    from repro_torch.core.dse import decode_design
+    worst = {}
+    rows = res.front[:DSE_SCALAR_ROWS]
+    for i in rows:
+        m = ses.evaluate(decode_design(res.batch, int(i), len(net)), net)
+        for k, tol in RTOL_SCALAR.items():
+            want = float(getattr(m, k))
+            rel = abs(float(res.metrics[k][i]) - want) / max(abs(want),
+                                                             1e-30)
+            worst[k] = max(worst.get(k, 0.0), rel)
+            if rel > tol:
+                raise PhaseFailed(f"dse front row {int(i)}: {k} rel err "
+                                  f"{rel} from the scalar Builder > {tol}")
+    return dict(rows=len(rows), max_rel_err=worst)
+
+
+def _step_costs(ses, net, res, device) -> dict:
+    """One generation step at pop_size, on children bred from the search's
+    front, under torch.profiler: its kernel launches, the device's busy
+    time and idle share against the wall (the pulls included); and its
+    repair alone: device ms by CUDA events (the loops' checks wait on the
+    host) and kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dse import SearchConfig, make_children
+    from repro_torch.core.dse.encoding import repair_batch_torch
+    from repro_torch.core.dse.search import search_step
+    cfg = SearchConfig()
+    pop = make_children(np.random.default_rng(0), res.batch.take(res.front),
+                        len(net), cfg, cfg.pop_size).to(device)
+    tables, devt = ses.tables(net), ses.device_tables()
+    w = torch.tensor([0.5, 0.5], dtype=torch.float32, device=device)
+    lo = torch.full((2,), float("inf"), device=device)
+    hi = torch.full((2,), float("-inf"), device=device)
+
+    def step():
+        out = search_step(pop, tables, devt, w, lo, hi, objectives=DSE_OBJ,
+                          min_ces=cfg.min_ces, max_ces=cfg.max_ces,
+                          tile=ses.config.tile, chunk=ses.config.chunk)
+        for t in out[2:5]:
+            t.cpu()
+
+    def repair():
+        repair_batch_torch(pop, len(net), min_ces=cfg.min_ces,
+                           max_ces=cfg.max_ces)
+    step()
+    prof = _device_profile(step, "dse_step")
+    prof.pop("flash_fwd_share_of_busy", None)
+    if "device_busy_s" in prof:
+        prof["device_idle_share"] = max(
+            0.0, 1 - prof["device_busy_s"] / prof["wall_s_profiled"])
+    rprof = _device_profile(repair, "dse_repair")
+    return dict(designs=cfg.pop_size, step=prof,
+                repair=dict(ms=cuda_ms(repair, 10),
+                            kernel_launches=rprof.get("kernel_launches")))
+
+
+def phase_dse(card: str, device) -> dict:
+    """The DSE path, ``Session.explore``, on MobileNetV2 and the default
+    board: the golden configurations, then the paper's budget."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Session, get_board, get_cnn, orient, pareto
+    from repro_torch.kernels import launches, reset_launches
+
+    t_phase = time.perf_counter()
+    net = get_cnn(DSE_CNN)
+    ses = Session(get_board(), device=str(device))
+    golden = _golden_dse(ses, net)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    runs, results = {}, {}
+    for run, kw in (("random", dict(seed=DSE_RANDOM_SEED)),
+                    ("search", dict(strategy="search",
+                                    seed=DSE_SEARCH_SEED))):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = ses.explore(net, n=DSE_BUDGET, **kw)
+        wall = time.perf_counter() - t0
+        n = launches()
+        if n["parallelism_search"] == 0:
+            raise PhaseFailed(f"dse {run}: explore launched no search "
+                              f"kernel")
+        for k, v in res.metrics.items():
+            if v.shape != (DSE_BUDGET,) or not np.isfinite(v).all():
+                raise PhaseFailed(f"dse {run}: {k} has shape {v.shape} or "
+                                  f"non-finite values")
+        pts = orient(res.metrics, DSE_OBJ)
+        if not np.array_equal(np.sort(res.front), pareto(pts)):
+            raise PhaseFailed(f"dse {run}: the front is not pareto() of "
+                              f"its own sample")
+        fp = pts[res.front]
+        if any(((fp <= p).all(1) & (fp < p).any(1)).any() for p in fp):
+            raise PhaseFailed(f"dse {run}: the front is not mutually "
+                              f"non-dominated")
+        results[run] = res
+        runs[run] = dict(
+            seconds=res.seconds, wall_s=wall,
+            per_design_us=res.per_design_us, n_evals=res.n_evals,
+            front=len(res.front), launches=n,
+            generations=len(res.timings) if run == "search" else None,
+            chunks=len(res.timings) if run == "random" else None,
+            breed_s=[t["breed_s"] for t in res.timings],
+            step_s=[t["step_s"] for t in res.timings])
+    peak = torch.cuda.max_memory_allocated(device)
+    rp = orient(results["random"].metrics, DSE_OBJ)
+    ref = rp[int(np.argmin(rp[:, 0]))]
+    sp = orient(results["search"].metrics, DSE_OBJ)
+    dom = (sp <= ref).all(1) & (sp < ref).any(1)
+    if not dom.any():
+        raise PhaseFailed("dse: no searched design strictly dominates the "
+                          "random sweep's best-latency design")
+    scalar = _scalar_front_rows(ses, net, results["search"])
+    step = _step_costs(ses, net, results["search"], device)
+    info = dict(card=card, cnn=DSE_CNN, board=ses.default_device.name,
+                budget=DSE_BUDGET, golden=golden, runs=runs,
+                random_best_latency=ref.tolist(),
+                search_dominating=int(dom.sum()),
+                scalar_vs_front=scalar, step=step,
+                max_memory_allocated=peak,
+                compile=ses.compile_stats(),
+                phase_s=time.perf_counter() - t_phase)
+    emit("dse", **info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1370,6 +1635,7 @@ def main(argv=None) -> int:
                                serve["layer0_max_abs_err"])
     golden_lm = phase_golden_lm(card, device)
     flash_f32["launches"] = golden_lm["batches"]["long"]["flash_launches"]
+    phase_dse(card, device)
     lost = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             or m == "repro" or m.startswith("repro.")]
     if lost:

@@ -6,16 +6,20 @@
     out = ses.evaluate([spec_a, spec_b], get_cnn("resnet50"))
     m = ses.evaluate(spec_a, get_cnn("resnet50"))      # scalar Metrics
     print(format_report(ses.explain(spec_a, get_cnn("resnet50"))))
+    dse = ses.explore(get_cnn("mobilenetv2"), n=100_000, strategy="search")
+    front = dse.front_points()                        # (latency, buffer)
 
 ``Session(device="cpu")`` runs the plain PyTorch path on the CPU.
 """
 from __future__ import annotations
 
 from .cnn.registry import get_cnn
+from .core.dse import DSEResult, SearchConfig, orient, pareto
 from .core.resilience import EvalError
 from .core.session import EvalConfig, Session
 from .fpga.boards import get_board
 from .telemetry.report import bottleneck_report, format_report
 
-__all__ = ["EvalConfig", "EvalError", "Session", "bottleneck_report",
-           "format_report", "get_board", "get_cnn"]
+__all__ = ["DSEResult", "EvalConfig", "EvalError", "SearchConfig", "Session",
+           "bottleneck_report", "format_report", "get_board", "get_cnn",
+           "orient", "pareto"]

@@ -65,3 +65,9 @@ class BoundedLRU:
             self.evictions += 1
             if self.on_evict is not None:
                 self.on_evict(k, v)
+
+    def stats(self) -> dict[str, int]:
+        """Size / bound / eviction counters, as ``observability()``
+        reports them."""
+        return {"size": len(self._d), "maxsize": self.maxsize,
+                "evictions": self.evictions}

@@ -1,4 +1,45 @@
-"""Design encoding and samplers of the port (the single-model part)."""
-from .encoding import (NC, NS, DesignBatch, decode_batch,  # noqa: F401
+"""Design-space exploration of the port (paper §V-E, use case 3).
+
+The layers of the JAX package's ``core/dse`` over one shared design
+encoding: ``encoding`` (``DesignBatch``, spec round trip, validity and
+repair), ``samplers`` (the custom and mixed families), ``pareto`` (fronts
+and the incremental archive), ``search`` (the guided loop) and ``driver``
+(``Session.explore``'s random sweep and search).
+
+Not re-exported, because not ported yet: the deprecated ``explore`` shim,
+the multi-model encoding (``MultiDesignBatch``, ``stack_designs``,
+``pad_deployments``, ``sample_assign``) and the per-design reference
+samplers (``sample_custom_loop``, ``sample_mixed_loop``).
+"""
+from .driver import (DEFAULT_OBJECTIVES, DSEResult, best_scalar_index,
+                     dominating_indices)
+from .encoding import (NC, NS, DesignBatch, concat_batches, decode_batch,
                        decode_design, encode_specs, validate_batch)
-from .samplers import sample_custom, sample_mixed  # noqa: F401
+from .pareto import ParetoArchive, hypervolume_2d, pareto
+from .samplers import sample_custom, sample_mixed
+from .search import SearchConfig, SearchResult, make_children, orient, search
+
+__all__ = [
+    "DEFAULT_OBJECTIVES",
+    "DSEResult",
+    "DesignBatch",
+    "NC",
+    "NS",
+    "ParetoArchive",
+    "SearchConfig",
+    "SearchResult",
+    "best_scalar_index",
+    "concat_batches",
+    "decode_batch",
+    "decode_design",
+    "dominating_indices",
+    "encode_specs",
+    "hypervolume_2d",
+    "make_children",
+    "orient",
+    "pareto",
+    "sample_custom",
+    "sample_mixed",
+    "search",
+    "validate_batch",
+]

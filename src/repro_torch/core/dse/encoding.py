@@ -16,7 +16,10 @@ exactly this plus the NS/NC CE-count bounds, and ``decode_design`` ->
 ``encode_specs`` round-trips any canonical row bit-exactly.
 
 The same encoding as the JAX package's ``core/dse/encoding.py``, with the
-tensors on an explicit device.
+tensors on an explicit device.  :func:`validate_batch_torch` and
+:func:`repair_batch_torch` are the device twins of its
+``validate_batch_jax`` and ``repair_batch_jax``: tensor code on the
+batch's device, which the guided search runs on every generation.
 """
 from __future__ import annotations
 
@@ -71,6 +74,16 @@ class DesignBatch:
         return DesignBatch(self.seg_end.to(device), self.seg_pipe.to(device),
                            self.seg_nce.to(device),
                            self.inter_pipe.to(device))
+
+
+def concat_batches(batches: list[DesignBatch]) -> DesignBatch:
+    """Row-concatenate DesignBatches (all for the same n_layers, on one
+    device)."""
+    return DesignBatch(
+        torch.cat([b.seg_end for b in batches]),
+        torch.cat([b.seg_pipe for b in batches]),
+        torch.cat([b.seg_nce for b in batches]),
+        torch.cat([b.inter_pipe for b in batches]))
 
 
 def encode_specs(specs: list[AcceleratorSpec], n_layers: int, *,
@@ -150,3 +163,100 @@ def validate_batch(batch: DesignBatch, n_layers: int, *,
     total = (seg_nce * active).sum(1)
     ok &= (total >= min_ces) & (total <= min(max_ces, NC))
     return ok
+
+
+def _prev_end(end: torch.Tensor) -> torch.Tensor:
+    """Each segment's start: the previous column's end, 0 for the first."""
+    return torch.cat([torch.zeros_like(end[:, :1]), end[:, :-1]], 1)
+
+
+def validate_batch_torch(batch: DesignBatch, n_layers: int, *,
+                         min_ces: int = 1, max_ces: int = NC
+                         ) -> torch.Tensor:
+    """:func:`validate_batch` as tensor code on the batch's device: a bool
+    (B,) tensor, the JAX package's ``validate_batch_jax``."""
+    seg_end, seg_pipe, seg_nce = batch.seg_end, batch.seg_pipe, batch.seg_nce
+    d = seg_end - _prev_end(seg_end)
+    active = d > 0
+    ok = (d >= 0).all(1)
+    ok &= (seg_end[:, -1] == n_layers) & (seg_end[:, 0] >= 1)
+    ok &= (seg_end <= n_layers).all(1)
+    # compact: once a segment is empty, all later ones are empty too
+    prefix_active = active.to(torch.int32).cumprod(1) > 0
+    ok &= ~(active & ~prefix_active).any(1)
+    ok &= (seg_nce >= 1).all(1)
+    ok &= (seg_pipe == ((seg_nce > 1) & active)).all(1)
+    ok &= (torch.where(active, 1, seg_nce) == 1).all(1)   # padding nce == 1
+    total = (seg_nce * active).sum(1)
+    ok &= (total >= min_ces) & (total <= min(max_ces, NC))
+    return ok
+
+
+#: steps of a repair loop between two checks that the last step changed
+#: a row (a step that changes none leaves every later step a no-op)
+REPAIR_CHECK_EVERY = 8
+
+
+def repair_batch_torch(batch: DesignBatch, n_layers: int, *,
+                       min_ces: int = 1, max_ces: int = NC) -> DesignBatch:
+    """Constraint repair as tensor code on the batch's device: canonicalize
+    a batch and clamp its CE totals into [min_ces, min(max_ces, NC)], the
+    JAX package's ``repair_batch_jax`` bit for bit.
+
+    The identity on canonical rows (sorting, compaction and both clamp
+    loops are no-ops there).  Deterministic: takes from the largest
+    segment (the first of equals), gives to the first.  Repair never
+    merges segments, so a row with more active segments than ``max_ces``
+    stays invalid for :func:`validate_batch_torch` to screen.
+
+    The JAX twin runs NS*NC shrink and 2*NC grow steps as fixed loops.
+    Here each loop stops at the first checked step that changes no row
+    (checked after the first step, then every ``REPAIR_CHECK_EVERY``):
+    the state is then a fixed point, so the result is the same, and a
+    canonical batch costs one step and one host sync a loop.
+    """
+    B = batch.batch
+    end0 = batch.seg_end.clamp(0, n_layers)
+    end, order = torch.sort(end0, dim=1, stable=True)
+    nce = batch.seg_nce.clamp(1, NC).gather(1, order)
+    end[:, -1] = n_layers
+    active = end > _prev_end(end)
+    # compaction: actives first (a stable sort keeps ascending order),
+    # padding columns forced to the canonical (n_layers, 1, False)
+    inactive, corder = torch.sort((~active).to(torch.uint8), dim=1,
+                                  stable=True)
+    active_s = inactive == 0
+    end = torch.where(active_s, end.gather(1, corder), n_layers)
+    nce = torch.where(active_s, nce.gather(1, corder), 1)
+    active = end > _prev_end(end)
+
+    cap = min(max_ces, NC)
+    floor_ces = min(min_ces, cap)
+    rows = torch.arange(B, device=end.device)
+
+    def shrink(nc):
+        over = (nc * active).sum(1) > cap
+        key = torch.where(active & (nc > 1), nc, -1)
+        col = key.argmax(1)                      # the first largest
+        hit = over & (key.gather(1, col[:, None])[:, 0] > 0)
+        return nc.index_put((rows, col), -hit.to(nc.dtype),
+                            accumulate=True), hit
+
+    can_grow = active.any(1)
+    first_active = active.to(torch.uint8).argmax(1)
+
+    def grow(nc):
+        hit = ((nc * active).sum(1) < floor_ces) & can_grow
+        return nc.index_put((rows, first_active), hit.to(nc.dtype),
+                            accumulate=True), hit
+
+    # worst case needs NS*NC - cap decrements (all NS segments at nce=NC)
+    for step, steps in ((shrink, NS * NC), (grow, 2 * NC)):
+        for i in range(steps):
+            nce, hit = step(nce)
+            if i % REPAIR_CHECK_EVERY == 0 and not bool(hit.any()):
+                break
+    nce = torch.where(active, nce, 1)
+    pipe = (nce > 1) & active
+    return DesignBatch(end.to(torch.int32), pipe, nce.to(torch.int32),
+                       batch.inter_pipe)

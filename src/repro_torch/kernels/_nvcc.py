@@ -38,6 +38,11 @@ class Built:
     ptxas: str          # nvcc's -Xptxas -v report (registers, smem, spills)
 
 
+#: libraries built with nvcc (``built``) and loaded (``loaded``) by
+#: :func:`load` in this process
+_BUILDS = {"built": 0, "loaded": 0}
+_BUILDS_LOCK = threading.Lock()
+
 #: one lock per library path: two threads never build the same library,
 #: and different sources build in parallel
 _LOCKS: dict[Path, threading.Lock] = {}
@@ -48,6 +53,12 @@ def nvcc_path() -> str:
     """The CUDA compiler: ``nvcc`` on PATH, else the toolkit's default
     place."""
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def builds() -> dict[str, int]:
+    """Libraries :func:`load` built with nvcc and loaded in this process."""
+    with _BUILDS_LOCK:
+        return dict(_BUILDS)
 
 
 def load(source: Path) -> Built:
@@ -77,5 +88,10 @@ def load(source: Path) -> Built:
                                    f"{proc.stdout}{proc.stderr}")
             report.write_text(proc.stdout + proc.stderr)
             os.replace(tmp, out)
-        return Built(ctypes.CDLL(str(out)), out, seconds,
+            with _BUILDS_LOCK:
+                _BUILDS["built"] += 1
+        lib = ctypes.CDLL(str(out))
+        with _BUILDS_LOCK:
+            _BUILDS["loaded"] += 1
+        return Built(lib, out, seconds,
                      report.read_text() if report.exists() else "")

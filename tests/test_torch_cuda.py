@@ -639,3 +639,75 @@ def test_serve_engine_on_card_equals_cpu(cuda):
         model.to(cuda), prompts, max_new_tokens=8).tokens
     assert launches()["flash_fwd"] == cfg.n_layers
     assert got == want
+
+
+def test_explore_on_card_equals_cpu(cuda):
+    """The card's small explore, random and search, against the CPU plain
+    path: the same designs and front, the metrics within 1e-5; the search
+    kernel launched once per chunk of every generation."""
+    from repro_torch.core.dse import SearchConfig
+    net = get_cnn("mobilenetv2")
+    card = Session(get_board("zc706"), device=str(cuda))
+    cpu = Session(get_board("zc706"), device="cpu")
+    for kw in (dict(n=999, chunk=256, seed=5),
+               dict(n=512, strategy="search", seed=8,
+                    config=SearchConfig(pop_size=128, seed=8))):
+        reset_launches()
+        got = card.explore(net, **kw)
+        n_launch = launches()["parallelism_search"]
+        want = cpu.explore(net, **kw)
+        assert n_launch == 4, kw             # 4 chunks, 4 generations
+        for g, w in zip(got.batch.to_numpy(), want.batch.to_numpy()):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got.front, want.front)
+        for k, w in want.metrics.items():
+            if k == "n_ces":
+                np.testing.assert_array_equal(got.metrics[k], w)
+            else:
+                np.testing.assert_allclose(got.metrics[k], w, rtol=1e-5,
+                                           err_msg=k)
+        assert card.compile_stats()["total"] >= 1
+
+
+def test_faulted_kernel_never_runs_the_plain_version_on_card(cuda,
+                                                             monkeypatch):
+    """A search kernel that fails on the card: the Session retries it and
+    raises BACKEND_FAULT; the plain version never runs on a CUDA tensor."""
+    from repro_torch.core import session as port_session
+    from repro_torch.core.resilience import EvalError
+    calls = {"kernel": 0, "plain": 0}
+
+    def fault(*args):
+        calls["kernel"] += 1
+        raise RuntimeError("injected launch failure")
+
+    def plain(*args):
+        calls["plain"] += 1
+        return parallelism_search_ref(*args)
+
+    monkeypatch.setattr(mccm_ops, "parallelism_search_cuda", fault)
+    monkeypatch.setattr(mccm_ops, "parallelism_search_ref", plain)
+    monkeypatch.setattr(port_session.time, "sleep", lambda s: None)
+    net = get_cnn("mobilenetv2")
+    ses = Session(get_board("zc706"), device=str(cuda), max_retries=2)
+    with pytest.raises(EvalError) as e:
+        ses.evaluate([make_arch("segmented", net, 4)], net)
+    assert e.value.code == EvalError.BACKEND_FAULT
+    with pytest.raises(EvalError) as e:
+        ses.explore(net, n=64, chunk=64)
+    assert e.value.code == EvalError.BACKEND_FAULT
+    assert calls == {"kernel": 4, "plain": 0}
+    assert ses.stats.retried == 2 and ses.breaker.is_open
+
+
+def test_warm_round_adds_no_builds_on_card(cuda):
+    from repro_torch.core.dse import SearchConfig
+    net = get_cnn("mobilenetv2")
+    ses = Session(get_board("zc706"), device=str(cuda))
+    for _ in range(2):
+        ses.evaluate([make_arch("segmented", net, 4)], net)
+        ses.explore(net, n=256, strategy="search",
+                    config=SearchConfig(pop_size=128))
+        if _ == 0:
+            before = ses.compile_stats()["total"]
+    assert before >= 1 and ses.compile_stats()["total"] == before

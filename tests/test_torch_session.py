@@ -224,14 +224,19 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.api\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
-        "n = sum(m.startswith('repro_torch') for m in sys.modules)\n"
-        "print(n, bad)\n")
+        "mods = sorted(m for m in sys.modules if m.startswith('repro_torch'))"
+        "\n"
+        "print(len(mods), bad, ' '.join(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split(" ", 1)
+    n, bad, mods = out.stdout.split(" ", 2)
     assert int(n) >= 20 and bad.strip() == "[]", out.stdout
+    # the DSE slice's modules are among those walked
+    for m in ("core.telemetry", "core.resilience", "core.dse.pareto",
+              "core.dse.search", "core.dse.driver", "telemetry"):
+        assert f"repro_torch.{m}" in mods.split(), m
 
 
 def test_golden_file_is_current():
@@ -265,3 +270,42 @@ def test_golden_matches_port_on_cpu():
     want = {k.rsplit("/", 1)[1]: golden[k] for k in golden.files
             if k.startswith("tmpl/resnet50/zcu102/")}
     _assert_metrics(ses.evaluate(specs, net), want, "golden templates")
+
+
+def test_session_stats_bump_is_atomic():
+    """Counters bumped from many threads at once lose no update (plain
+    ``+=`` on the fields would)."""
+    import threading
+    ses = Session(device="cpu")
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            ses.stats.bump("batch_designs") for _ in range(2000)])
+            for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(prev)
+    assert ses.stats.batch_designs == 16 * 2000
+    assert ses.stats.as_dict()["batch_designs"] == 16 * 2000
+    assert {"explore_calls", "retried", "degraded"} <= set(
+        ses.stats.as_dict())
+
+
+def test_session_observability_report():
+    net = get_cnn("mobilenetv2")
+    ses = Session(get_board("zc706"), device="cpu", max_cached_tables=4)
+    ses.evaluate(["{L1-Last:CE1-CE4}"], net)
+    obs = ses.observability()
+    assert set(obs) == {"compile", "stats", "caches", "breaker",
+                        "telemetry"}
+    assert obs["caches"] == {
+        "net_tables": {"size": 1, "maxsize": 4, "evictions": 0},
+        "device_tables": {"size": 1, "maxsize": 4, "evictions": 0}}
+    assert obs["breaker"] == {"open": False, "trips": 0}
+    assert obs["stats"]["batch_designs"] == 1
+    assert obs["compile"]["retried"] == obs["compile"]["degraded"] == 0

@@ -2,14 +2,16 @@
 against on the card, computed by the JAX package on the CPU.
 
 The machine with the card has no JAX, so the files are committed:
-``src/repro_torch/data/golden_mccm.npz`` (the MCCM paths) and
-``src/repro_torch/data/golden_lm.npz`` (the LM serving path).  Regenerate
+``src/repro_torch/data/golden_mccm.npz`` (the MCCM paths),
+``src/repro_torch/data/golden_lm.npz`` (the LM serving path) and
+``src/repro_torch/data/golden_dse.npz`` (the DSE path).  Regenerate
 them after a change to the JAX package's model with::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py
 
-``tests/test_torch_session.py`` and ``tests/test_torch_lm.py`` check that
-the committed files still equal what this computes.
+``tests/test_torch_session.py``, ``tests/test_torch_lm.py`` and
+``tests/test_torch_dse.py`` check that the committed files still equal what
+this computes.
 
 Contents: for every CNN x board, the 12 baseline templates (3 archs x
 n in {2, 5, 9, 11}) under ``tmpl/<cnn>/<board>/<metric>``, and 256
@@ -29,9 +31,20 @@ prompt past 2048 tokens, so prefill takes the chunked path) and ``short``
 (the dense path).  Per batch: ``n_prompts``, ``prompt/<i>``, the
 ``new_tokens`` greedy ``tokens`` (n_prompts, new_tokens), and prefill's
 ``last_logits`` (n_prompts, padded vocab).
+
+``golden_dse.npz``: the JAX package's DSE of MobileNetV2 on the default
+board, on the CPU, at the two configurations of ``DSE_RUNS``: a random
+sweep (``Session.explore``) and a guided search (``search``, the function
+``Session.explore(strategy="search")`` runs, which also returns its
+history).  Per run under ``<run>/``: the evaluated designs (``seg_end``,
+``seg_pipe``, ``seg_nce``, ``inter_pipe``, in evaluation order), ``ok``
+(valid and finite, as the search's archive screens), the ``front``
+indices, the front rows' metrics under ``front/<metric>``, and (search)
+``history`` as JSON; ``config`` holds ``DSE_RUNS`` as JSON.
 """
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -40,6 +53,7 @@ DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src", "repro_torch", "data")
 GOLDEN = os.path.join(DATA, "golden_mccm.npz")
 GOLDEN_LM = os.path.join(DATA, "golden_lm.npz")
+GOLDEN_DSE = os.path.join(DATA, "golden_dse.npz")
 
 TEMPLATE_NS = (2, 5, 9, 11)
 MIXED = ("resnet50", "zcu102", 256, 0)     # cnn, board, rows, seed
@@ -142,9 +156,52 @@ def compute_golden_lm() -> dict[str, np.ndarray]:
     return out
 
 
+#: the DSE golden runs: MobileNetV2 on the default board
+DSE_CNN = "mobilenetv2"
+DSE_RUNS = {"random": dict(n=8192, seed=7, chunk=4096),
+            "search": dict(n=4096, seed=3, pop_size=1024)}
+DESIGN_FIELDS = ("seg_end", "seg_pipe", "seg_nce", "inter_pipe")
+
+
+def compute_golden_dse() -> dict[str, np.ndarray]:
+    """The JAX package's random sweep and guided search (see the module
+    docstring)."""
+    from repro.api import Session
+    from repro.cnn.registry import get_cnn
+    from repro.core.dse import orient, validate_batch
+    from repro.core.dse.search import SearchConfig, search
+    from repro.fpga.boards import get_board
+
+    net, dev = get_cnn(DSE_CNN), get_board()
+    rnd = DSE_RUNS["random"]
+    res = Session(dev).explore(net, n=rnd["n"], seed=rnd["seed"],
+                               chunk=rnd["chunk"])
+    runs = {"random": (res.batch, res.metrics, res.front, None)}
+    srch = DSE_RUNS["search"]
+    res = search(net, dev, SearchConfig(budget=srch["n"], seed=srch["seed"],
+                                        pop_size=srch["pop_size"]))
+    runs["search"] = (res.batch, res.metrics, res.front_idx, res.history)
+    out = {"config": np.array(json.dumps({"cnn": DSE_CNN, **DSE_RUNS}))}
+    for run, (batch, metrics, front, history) in runs.items():
+        for k, v in zip(DESIGN_FIELDS, batch.to_numpy()):
+            out[f"{run}/{k}"] = v
+        pts = orient(metrics, ("latency_s", "buffer_bytes"))
+        out[f"{run}/ok"] = validate_batch(batch, len(net), min_ces=2,
+                                          max_ces=11) \
+            & np.isfinite(pts).all(1)
+        out[f"{run}/front"] = np.asarray(front, np.int64)
+        for k, v in metrics.items():
+            out[f"{run}/front/{k}"] = np.asarray(v)[front]
+        if history is not None:
+            out[f"{run}/history"] = np.array(json.dumps(history))
+    return out
+
+
 if __name__ == "__main__":
     os.makedirs(DATA, exist_ok=True)
     np.savez_compressed(GOLDEN, **compute_golden())
     print(f"wrote {GOLDEN} ({os.path.getsize(GOLDEN)} bytes)")
     np.savez_compressed(GOLDEN_LM, **compute_golden_lm())
     print(f"wrote {GOLDEN_LM} ({os.path.getsize(GOLDEN_LM)} bytes)")
+    np.savez_compressed(GOLDEN_DSE, **compute_golden_dse())
+    print(f"wrote {GOLDEN_DSE} ({os.path.getsize(GOLDEN_DSE)} bytes)")
