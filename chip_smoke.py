@@ -88,7 +88,29 @@ Phases, each printing one JSON line:
    the host's breeding and the device step's seconds, search-kernel
    launches per explore, one step's kernel launches, busy time and idle
    share under the profiler, the repair's ms and launches at 4096
-   designs, peak memory.
+   designs, peak memory;
+12. the serving lane, ``Session.submit`` and ``submit_search``: (a) one
+   drain of ResNet-50/ZCU102 template probes and sweeps of 5,000 and 300
+   specs, MobileNetV2/ZC706 probes and a 3,000-spec sweep and a notation
+   string, every future equal to ``evaluate`` on the same specs bit for
+   bit, the plan (chunks, merges, splits, shared pad) equal to the
+   session's counters and one search launch a chunk; (b) 8 client threads
+   submitting ~100,000 designs (interactive probes of 1-16 designs among
+   batch-lane sweeps of 2,048-10,000), each result equal to ``evaluate``:
+   wall, µs a design beside phase 4's, requests/s, p50/p99 latency by
+   lane, the ``coalesced_*`` counters, padded over asked rows, launches a
+   megabatch, and one drain under the profiler (kernels, busy time, idle
+   share); (c) a 100,000-design random sweep by ``submit_search`` while a
+   probe arrives every 5 ms: probe p50/p99 with and without the job, every
+   probe's result and the job's designs equal to ``evaluate``'s and
+   ``explore``'s; (d) a deadline of 1 ms, a queue
+   of one, ``with`` and ``close``, and a fault injected into the search
+   kernel in the drain: the right code on every future, the plain search
+   never run, ``degraded`` 0; (e) ``benchmarks/serve_load.py``'s trace
+   (64 requests over 4 CNNs x 4 boards on its arrival times, its session
+   settings) through ``submit``, each result equal to ``evaluate``: p50/p99
+   latency overall and by lane, designs/s, the counters; then its 100k
+   random ``submit_search`` with one deadline-bearing probe beside it.
 
 Then the ``kernels`` line (one entry per kernel source: ``flash_fwd``'s
 bf16 source with its launches in phase 9, its f32 source with its launches
@@ -193,6 +215,32 @@ DSE_CNN, DSE_BUDGET, DSE_OBJ = "mobilenetv2", 100_000, ("latency_s",
 DSE_RANDOM_SEED, DSE_SEARCH_SEED = 7, 3
 #: front rows held to the scalar Builder (RTOL_SCALAR)
 DSE_SCALAR_ROWS = 16
+#: phase 12, the serving lane: (a)'s ResNet-50 sweeps of 5,000 and 300
+#: specs and its MobileNetV2 sweep of 3,000; (b)'s 8 clients, each with 32
+#: interactive probes of 1-16 designs among batch-lane sweeps of
+#: 2,048-10,000 designs, ~100,000 designs in all, drawn from a pool of
+#: 10,000 specs a net; (c)'s probe every 5 ms, 200 of them without a job
+SUBMIT_SWEEPS = (5000, 300, 3000)
+SUBMIT_CLIENTS, SUBMIT_PROBES_PER_CLIENT = 8, 32
+SUBMIT_SWEEP_SIZES, SUBMIT_LOAD_DESIGNS = (2048, 10_000), 100_000
+SUBMIT_POOL, SUBMIT_SEED = 10_000, 0
+SUBMIT_PROBE_EVERY_S, SUBMIT_QUIET_PROBES = 0.005, 200
+#: phase 12 (e): the repo's documented serving traffic,
+#: benchmarks/serve_load.py (copied here: the script imports nothing of the
+#: JAX side): its trace of 64 requests from seed 0 over 4 CNNs x 4 boards,
+#: exponential arrivals of mean 0.1 s, 20 % batch-lane requests of 64-96
+#: designs and 80 % interactive probes of 1-4; its session (VCU110, linger
+#: 2 ms adaptive up to 20 ms); then its 100,000-design random submit_search
+#: and one interactive probe with a 60 s deadline beside the job
+TRACE_NETS = ("mobilenetv2", "resnet50", "xception", "densenet121")
+TRACE_BOARDS = ("zc706", "vcu108", "vcu110", "zcu102")
+TRACE_MEAN_ARRIVAL_S, TRACE_BULK_FRACTION = 0.1, 0.2
+TRACE_REQUESTS, TRACE_SEED, TRACE_DEADLINE_S = 64, 0, 60.0
+TRACE_LINGER_S, TRACE_LINGER_MAX_S = 0.002, 0.02
+SUBMIT_COUNTERS = ("submits", "megabatches", "megabatch_requests",
+                   "coalesced_chunks", "coalesced_merges",
+                   "coalesced_splits", "rejected", "deadline_missed",
+                   "degraded")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -579,6 +627,7 @@ def phase_load(card: str, device, seed: int, n_designs: int) -> dict:
                 max_memory_allocated=peak, kernel=kernel,
                 profile=breakdown)
     emit("load", **info)
+    kernel["us_per_design_median"] = info["us_per_design_median"]
     return kernel
 
 
@@ -1604,6 +1653,554 @@ def phase_dse(card: str, device) -> dict:
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 12
+# --------------------------------------------------------------------------
+def _spec_pool(net, n: int, seed: int) -> list:
+    """``n`` designs of ``net`` as specs, decoded from ``sample_mixed``."""
+    import numpy as np
+    from repro_torch.core.dse import sample_mixed
+    from repro_torch.core.dse.encoding import decode_batch
+    return decode_batch(sample_mixed(np.random.default_rng(seed), len(net),
+                                     n), len(net))
+
+
+def _same_bits(got: dict, want: dict) -> bool:
+    import numpy as np
+    return got.keys() == want.keys() and all(
+        np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
+        for k in want)
+
+
+def _quantiles(xs) -> dict:
+    import numpy as np
+    if not xs:
+        return {"n": 0}
+    a = np.asarray(xs) * 1e3
+    return {"n": len(xs), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)),
+            "max_ms": float(a.max())}
+
+
+class _MegabatchProbe:
+    """Wraps the drain for a block: each megabatch's chunks, asked and
+    padded rows (each chunk at its own pad, read from the drain's plan),
+    search-kernel launches and seconds."""
+
+    def __enter__(self):
+        from repro_torch.core import session as psession
+        from repro_torch.kernels import launches
+        self.records, self._mod, plans = [], psession, []
+        real_plan = self._real_plan = psession.plan_megabatch
+        real_run = self._real_run = psession.Session._run_megabatch
+
+        def plan(*a, **kw):
+            plans.append(real_plan(*a, **kw))
+            return plans[-1]
+
+        def run(ses, reqs):
+            n_plans = len(plans)
+            before = launches()["parallelism_search"]
+            t0 = time.perf_counter()
+            real_run(ses, reqs)
+            s = time.perf_counter() - t0
+            chunks = [c for p in plans[n_plans:] for c in p.chunks]
+            self.records.append(dict(
+                chunks=len(chunks), rows=sum(c.rows for c in chunks),
+                padded=sum(c.pad for c in chunks),
+                launches=launches()["parallelism_search"] - before, s=s))
+        psession.plan_megabatch = plan
+        psession.Session._run_megabatch = run
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.plan_megabatch = self._real_plan
+        self._mod.Session._run_megabatch = self._real_run
+
+
+def _submit_equality(ses, nets, boards) -> dict:
+    """(a): one drain of a fixed mix equals ``evaluate`` bit for bit."""
+    from repro_torch.core.coalesce import plan_megabatch
+    from repro_torch.fpga.archs import ARCH_NAMES, make_arch
+    from repro_torch.kernels import launches, reset_launches
+    (rnet, mnet), (rboard, mboard) = nets, boards
+    reqs = [([make_arch(a, rnet, n)], rnet, rboard)
+            for a in ARCH_NAMES for n in TEMPLATE_NS]
+    pool = _spec_pool(rnet, SUBMIT_SWEEPS[0], 0)
+    reqs += [(pool, rnet, rboard), (pool[:SUBMIT_SWEEPS[1]], rnet, rboard)]
+    reqs += [([make_arch(a, mnet, n)], mnet, mboard)
+             for a in ARCH_NAMES for n in TEMPLATE_NS]
+    reqs.append((_spec_pool(mnet, SUBMIT_SWEEPS[2], 0), mnet, mboard))
+    scalar = f"{{L1-Last:CE1-CE{TEMPLATE_NS[1]}}}"
+    before = {k: getattr(ses.stats, k) for k in SUBMIT_COUNTERS}
+    reset_launches()
+    t0 = time.perf_counter()
+    futs = [ses.submit(specs, net, board) for specs, net, board in reqs]
+    futs.append(ses.submit(scalar, rnet, rboard))
+    outs = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    n_launch = launches()["parallelism_search"]
+    stats = {k: getattr(ses.stats, k) - before[k] for k in SUBMIT_COUNTERS}
+    groups = [((net.name, board.name), len(specs))
+              for specs, net, board in reqs] + [((rnet.name, rboard.name), 1)]
+    plan = plan_megabatch(groups, ses.config.chunk, ses.config.tile)
+    parted = [i for i, (specs, net, board) in enumerate(reqs)
+              if not _same_bits(outs[i], ses.evaluate(specs, net, board))]
+    want = ses.evaluate([scalar], rnet, rboard)
+    if any(outs[-1][k] != float(want[k][0]) for k in want):
+        parted.append(len(reqs))
+    if parted:
+        raise PhaseFailed(f"submit (a): requests {parted} part from "
+                          f"evaluate on the same specs")
+    if stats["megabatches"] != 1:
+        raise PhaseFailed(f"submit (a): {stats['megabatches']} drains, "
+                          f"not one")
+    if (stats["coalesced_chunks"], stats["coalesced_merges"],
+            stats["coalesced_splits"]) != (len(plan.chunks), plan.merges,
+                                          plan.splits):
+        raise PhaseFailed(f"submit (a): counters {stats} against the "
+                          f"plan's {len(plan.chunks)} chunks, "
+                          f"{plan.merges} merges, {plan.splits} splits")
+    if n_launch != len(plan.chunks):
+        raise PhaseFailed(f"submit (a): {n_launch} search launches for "
+                          f"{len(plan.chunks)} chunks")
+    return dict(requests=len(futs),
+                designs=sum(len(r[0]) for r in reqs) + 1,
+                chunks=len(plan.chunks), merges=plan.merges,
+                splits=plan.splits, shared_pad=plan.shared_pad,
+                chunk_rows=[c.rows for c in plan.chunks],
+                launches=n_launch, wall_s=wall, bit_equal=True)
+
+
+def _load_stream(nets, boards, seed: int) -> list:
+    """8 clients' request lists: interactive probes of 1-16 designs and
+    batch-lane sweeps of 2,048-10,000, on both nets, ~100,000 designs."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sweeps, total = [], 0
+    while total < SUBMIT_LOAD_DESIGNS - SUBMIT_CLIENTS \
+            * SUBMIT_PROBES_PER_CLIENT * 8:
+        size = int(rng.integers(SUBMIT_SWEEP_SIZES[0],
+                                SUBMIT_SWEEP_SIZES[1] + 1))
+        sweeps.append(("batch", len(sweeps) % 2, size,
+                       int(rng.integers(0, SUBMIT_POOL - size + 1))))
+        total += size
+    clients = []
+    for c in range(SUBMIT_CLIENTS):
+        mine = sweeps[c::SUBMIT_CLIENTS]
+        every = max(1, SUBMIT_PROBES_PER_CLIENT // (len(mine) + 1))
+        seq = []
+        for i in range(SUBMIT_PROBES_PER_CLIENT):
+            if mine and i % every == 0:
+                seq.append(mine.pop(0))
+            size = int(rng.integers(1, 17))
+            seq.append(("interactive", i % 2, size,
+                        int(rng.integers(0, SUBMIT_POOL - size + 1))))
+        seq += mine
+        clients.append(seq)
+    return clients
+
+
+def _submit_load(ses, nets, boards, pools, want) -> dict:
+    """(b): 8 client threads; probes wait for their result before the
+    next, sweeps are collected at the end."""
+    import threading
+    import numpy as np
+    from repro_torch.kernels import launches, reset_launches
+    clients = _load_stream(nets, boards, SUBMIT_SEED)
+    records, errors = [], []
+
+    def client(seq):
+        mine = []
+        try:
+            for lane, g, size, off in seq:
+                rec = [lane, size, time.perf_counter(), None, g, off]
+                f = ses.submit(pools[g][off:off + size], nets[g], boards[g],
+                               priority=lane)
+                f.add_done_callback(
+                    lambda _, rec=rec: rec.__setitem__(3,
+                                                       time.perf_counter()))
+                mine.append((f, rec))
+                if lane == "interactive":
+                    f.result(timeout=600)
+            for f, _ in mine:
+                f.result(timeout=600)
+        except Exception as e:  # noqa: BLE001 — reported by the phase
+            errors.append(repr(e))
+        records.extend(mine)
+
+    before = {k: getattr(ses.stats, k) for k in SUBMIT_COUNTERS}
+    reset_launches()
+    with _MegabatchProbe() as probe:
+        threads = [threading.Thread(target=client, args=(seq,))
+                   for seq in clients]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+    n_launch = launches()["parallelism_search"]
+    if errors or any(t.is_alive() for t in threads):
+        raise PhaseFailed(f"submit (b): client errors {errors[:3]}")
+    if n_launch == 0:
+        raise PhaseFailed("submit (b): the drain launched no search kernel")
+    stats = {k: getattr(ses.stats, k) - before[k] for k in SUBMIT_COUNTERS}
+    wrong = 0
+    for f, (lane, size, _, _, g, off) in records:
+        out = f.result(timeout=0)
+        if not _same_bits(out, {k: v[off:off + size]
+                                for k, v in want[g].items()}):
+            wrong += 1
+    if wrong:
+        raise PhaseFailed(f"submit (b): {wrong} results part from "
+                          f"evaluate on the same specs")
+    designs = sum(r[1] for _, r in records)
+    lat = {lane: [r[3] - r[2] for _, r in records if r[0] == lane]
+           for lane in ("interactive", "batch")}
+    mb = probe.records
+    return dict(clients=SUBMIT_CLIENTS, requests=len(records),
+                designs=designs, wall_s=wall,
+                us_per_design=wall / designs * 1e6,
+                requests_per_s=len(records) / wall,
+                latency={k: _quantiles(v) for k, v in lat.items()},
+                counters=stats, launches=n_launch,
+                megabatch_launches=[r["launches"] for r in mb],
+                launches_per_megabatch=n_launch / max(len(mb), 1),
+                padded_over_asked=sum(r["padded"] for r in mb)
+                / max(sum(r["rows"] for r in mb), 1),
+                megabatch_s=[r["s"] for r in mb],
+                megabatch_rows=[r["rows"] for r in mb])
+
+
+def _drain_profile(ses, nets, boards, pools) -> dict:
+    """One drain (a 10,000-design sweep and 16 probes of each net) under
+    torch.profiler: kernels, busy time and the idle share against the
+    same drain's wall without the profiler."""
+    import torch
+    from repro_torch.kernels import launches, reset_launches
+    reqs = [(pools[0][:SUBMIT_SWEEP_SIZES[1]], 0)] \
+        + [(pools[g][i:i + 4], g) for g in (0, 1) for i in range(16)]
+
+    def one():
+        futs = [ses.submit(specs, nets[g], boards[g]) for specs, g in reqs]
+        for f in futs:
+            f.result(timeout=600)
+        torch.cuda.synchronize()
+    one()
+    t0 = time.perf_counter()
+    one()
+    unprofiled = time.perf_counter() - t0
+    before = ses.stats.megabatches
+    reset_launches()
+    prof = _device_profile(one, "submit")
+    prof.pop("flash_fwd_share_of_busy", None)
+    prof.update(designs=sum(len(s) for s, _ in reqs),
+                megabatches=ses.stats.megabatches - before,
+                search_kernel_launches=launches()["parallelism_search"],
+                wall_s_unprofiled=unprofiled)
+    if "device_busy_s" in prof:
+        prof["device_idle_share"] = max(
+            0.0, 1 - prof["device_busy_s"] / unprofiled)
+    return prof
+
+
+def _probe_stream(ses, net, board, spec, stop, n_max: int):
+    """Probes of one design every SUBMIT_PROBE_EVERY_S until ``stop()``
+    or ``n_max`` of them: each one's seconds from submit to result, and
+    the results."""
+    lat, futs = [], []
+    t_next = time.perf_counter()
+    while len(futs) < n_max and not stop():
+        t0 = time.perf_counter()
+        f = ses.submit([spec], net, board)
+        f.add_done_callback(
+            lambda _, t0=t0: lat.append(time.perf_counter() - t0))
+        futs.append(f)
+        t_next += SUBMIT_PROBE_EVERY_S
+        time.sleep(max(0.0, t_next - time.perf_counter()))
+    return lat, [f.result(timeout=600) for f in futs]
+
+
+def _submit_lanes(ses, rnet, rboard) -> dict:
+    """(c): a 100,000-design random sweep on the batch lane while a probe
+    arrives every 5 ms; the job's designs against ``explore``'s."""
+    import numpy as np
+    from repro_torch.api import get_board, get_cnn
+    from repro_torch.fpga.archs import make_arch
+    net, board = get_cnn(DSE_CNN), get_board()
+    spec = make_arch("segmented", rnet, TEMPLATE_NS[1])
+    probe_want = ses.evaluate([spec], rnet, rboard)
+    quiet, quiet_outs = _probe_stream(ses, rnet, rboard, spec,
+                                      lambda: False, SUBMIT_QUIET_PROBES)
+    t0 = time.perf_counter()
+    job = ses.submit_search(net, n=DSE_BUDGET, dev=board,
+                            seed=DSE_RANDOM_SEED)
+    busy, busy_outs = _probe_stream(ses, rnet, rboard, spec, job.done,
+                                    10 ** 6)
+    res = job.result(timeout=900)
+    job_s = time.perf_counter() - t0
+    # the probes the drain served while the job thread launched the same
+    # kernel: each equal to evaluate on its design, bit for bit
+    wrong = sum(not _same_bits(out, probe_want)
+                for out in quiet_outs + busy_outs)
+    if wrong:
+        raise PhaseFailed(f"submit (c): {wrong} of "
+                          f"{len(quiet_outs) + len(busy_outs)} probes part "
+                          f"from evaluate on the same design")
+    want = ses.explore(net, n=DSE_BUDGET, dev=board, seed=DSE_RANDOM_SEED)
+    if not all(np.array_equal(g, w) for g, w in
+               zip(res.batch.to_numpy(), want.batch.to_numpy())):
+        raise PhaseFailed("submit (c): the job's designs part from "
+                          "explore's with the same seed")
+    if not np.array_equal(res.front, want.front):
+        raise PhaseFailed("submit (c): the job's front parts from "
+                          "explore's")
+    return dict(job=dict(cnn=DSE_CNN, board=board.name, n=DSE_BUDGET,
+                         seed=DSE_RANDOM_SEED, wall_s=job_s,
+                         seconds=res.seconds, explore_seconds=want.seconds,
+                         designs_equal_explore=True),
+                probe_every_ms=SUBMIT_PROBE_EVERY_S * 1e3,
+                probes_without_job=_quantiles(quiet),
+                probes_during_job=_quantiles(busy), probes_equal=True)
+
+
+def _submit_failures(device, rnet, rboard) -> dict:
+    """(d): deadline, admission, lifecycle and a fault in the drain."""
+    from repro_torch.api import EvalError, Session
+    from repro_torch.fpga.archs import ARCH_NAMES, make_arch
+    from repro_torch.kernels.mccm_eval import ops as mccm_ops
+    specs = [[make_arch(a, rnet, n)] for a in ARCH_NAMES
+             for n in TEMPLATE_NS[:2]]
+    codes = {}
+
+    def code_of(fut):
+        try:
+            fut.result(timeout=600)
+        except EvalError as e:
+            return e.code
+        return "ok"
+
+    with Session(rboard, device=str(device)) as ses:
+        codes["deadline"] = code_of(ses.submit(specs[0], rnet,
+                                               deadline_s=0.001))
+        codes["deadline_missed"] = ses.stats.deadline_missed
+    with Session(rboard, device=str(device), max_queue=1,
+                 linger_s=0.2) as ses:
+        first = ses.submit(specs[0], rnet)
+        try:
+            ses.submit(specs[1], rnet)
+            codes["queue"] = "accepted"
+        except EvalError as e:
+            codes["queue"] = e.code
+        codes["queue_first"] = code_of(first)
+        drain = ses._worker
+    try:
+        ses.submit(specs[0], rnet)
+        codes["after_close"] = "accepted"
+    except RuntimeError:
+        codes["after_close"] = "RuntimeError"
+    codes["threads_stopped"] = ses._worker is None \
+        and not drain.is_alive()
+
+    calls = {"cuda": 0, "plain": 0}
+    real_plain = mccm_ops.parallelism_search_ref
+
+    def hook(site, route):
+        if route == "cuda":
+            calls["cuda"] += 1
+            raise RuntimeError("injected launch failure")
+
+    def plain(*args):
+        calls["plain"] += 1
+        return real_plain(*args)
+
+    prev = mccm_ops.set_fault_hook(hook)
+    mccm_ops.parallelism_search_ref = plain
+    try:
+        with Session(rboard, device=str(device), max_retries=1,
+                     linger_s=0.2) as ses:
+            futs = [ses.submit(s, rnet) for s in specs]
+            faults = [code_of(f) for f in futs]
+            degraded, retried = ses.stats.degraded, ses.stats.retried
+    finally:
+        mccm_ops.set_fault_hook(prev)
+        mccm_ops.parallelism_search_ref = real_plain
+    codes.update(fault=faults, fault_kernel_calls=calls["cuda"],
+                 plain_calls=calls["plain"], degraded=degraded,
+                 retried=retried)
+    want = dict(deadline=EvalError.DEADLINE_EXCEEDED, deadline_missed=1,
+                queue=EvalError.QUEUE_FULL, queue_first="ok",
+                after_close="RuntimeError", threads_stopped=True,
+                fault=[EvalError.BACKEND_FAULT] * len(specs),
+                fault_kernel_calls=2 * (1 + len(specs)), plain_calls=0,
+                degraded=0, retried=1 + len(specs))
+    bad = {k: (codes[k], v) for k, v in want.items() if codes[k] != v}
+    if bad:
+        raise PhaseFailed(f"submit (d): {bad}")
+    return codes
+
+
+def _trace_design(rng) -> str:
+    """One notation string of ``benchmarks/serve_load.py``'s trace."""
+    kind = rng.random()
+    if kind < 0.5:
+        return f"{{L1-Last:CE1-CE{rng.randint(1, 8)}}}"
+    m = rng.randint(1, 8)
+    a = rng.randint(1, 4)
+    b = rng.randint(1, 4)
+    return (f"{{L1-L{m}:CE1-CE{a}, "
+            f"L{m + 1}-Last:CE{a + 1}-CE{a + b}}}")
+
+
+def serve_trace(seed: int, n_requests: int) -> list:
+    """``benchmarks/serve_load.py``'s ``make_trace``: ``n_requests``
+    entries of ``{t, net, board, designs, priority}``, the same draws from
+    ``random.Random(seed)``."""
+    import random
+    rng = random.Random(seed)
+    t, trace = 0.0, []
+    for _ in range(n_requests):
+        t += rng.expovariate(1.0 / TRACE_MEAN_ARRIVAL_S)
+        bulk = rng.random() < TRACE_BULK_FRACTION
+        n = rng.randint(64, 96) if bulk else rng.randint(1, 4)
+        trace.append({
+            "t": round(t, 6),
+            "net": rng.choice(TRACE_NETS),
+            "board": rng.choice(TRACE_BOARDS),
+            "designs": [_trace_design(rng) for _ in range(n)],
+            "priority": "batch" if bulk else "interactive",
+        })
+    return trace
+
+
+def _submit_trace(device) -> dict:
+    """(e): ``benchmarks/serve_load.py``'s trace replayed on its arrival
+    times through ``submit`` (in process: the port has no server yet),
+    with its session settings and warm-up, each result equal to
+    ``evaluate``; then its 100k random ``submit_search`` and one
+    deadline-bearing probe beside it."""
+    import random
+    from repro_torch.api import Session, get_board, get_cnn
+    trace = serve_trace(TRACE_SEED, TRACE_REQUESTS)
+    nets = {n: get_cnn(n) for n in TRACE_NETS}
+    boards = {b: get_board(b) for b in TRACE_BOARDS}
+    lat = {}
+    with Session(boards["vcu110"], device=str(device),
+                 linger_s=TRACE_LINGER_S,
+                 linger_max_s=TRACE_LINGER_MAX_S) as ses:
+        warm_rng = random.Random(TRACE_SEED + 1)
+        t0 = time.perf_counter()
+        for name in sorted({e["net"] for e in trace}):
+            for size in (1, 64, 128, 256):
+                ses.evaluate([_trace_design(warm_rng) for _ in range(size)],
+                             nets[name])
+        for board in sorted({e["board"] for e in trace}):
+            ses.evaluate(_trace_design(warm_rng), nets[trace[0]["net"]],
+                         boards[board])
+        warm_s = time.perf_counter() - t0
+        before = {k: getattr(ses.stats, k) for k in SUBMIT_COUNTERS}
+        futs = []
+        with _MegabatchProbe() as probe:
+            t0 = time.perf_counter()
+            for i, e in enumerate(trace):
+                now = time.perf_counter() - t0
+                if e["t"] > now:
+                    time.sleep(e["t"] - now)
+                t_send = time.perf_counter()
+                f = ses.submit(e["designs"], nets[e["net"]],
+                               boards[e["board"]], priority=e["priority"])
+                f.add_done_callback(
+                    lambda _, i=i, t=t_send:
+                    lat.__setitem__(i, time.perf_counter() - t))
+                futs.append(f)
+            outs = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+        stats = {k: getattr(ses.stats, k) - before[k]
+                 for k in SUBMIT_COUNTERS}
+        parted = [i for i, e in enumerate(trace) if not _same_bits(
+            outs[i], ses.evaluate(e["designs"], nets[e["net"]],
+                                  boards[e["board"]]))]
+        if parted:
+            raise PhaseFailed(f"submit (e): requests {parted} part from "
+                              f"evaluate on the same specs")
+        probe_spec, probe_net, probe_board = \
+            "{L1-Last:CE1-CE4}", nets["resnet50"], boards["zc706"]
+        probe_want = ses.evaluate([probe_spec], probe_net, probe_board)
+        job = ses.submit_search(nets["mobilenetv2"], DSE_BUDGET,
+                                strategy="random", seed=TRACE_SEED)
+        running = not job.done()
+        t_probe = time.perf_counter()
+        got = ses.submit(probe_spec, probe_net, probe_board,
+                         deadline_s=TRACE_DEADLINE_S,
+                         priority="interactive").result(timeout=600)
+        probe_s = time.perf_counter() - t_probe
+        t_dse = time.perf_counter()
+        dse = job.result(timeout=900)
+        dse_wait = time.perf_counter() - t_dse
+    if any(got[k] != float(probe_want[k][0]) for k in probe_want):
+        raise PhaseFailed("submit (e): the probe beside the job parts "
+                          "from evaluate")
+    if dse.n_evals != DSE_BUDGET:
+        raise PhaseFailed(f"submit (e): the job scored {dse.n_evals} "
+                          f"designs, not {DSE_BUDGET}")
+    designs = sum(len(e["designs"]) for e in trace)
+    mb = probe.records
+    return dict(source="benchmarks/serve_load.py make_trace",
+                seed=TRACE_SEED, requests=len(trace), designs=designs,
+                batch_requests=sum(e["priority"] == "batch" for e in trace),
+                warm_s=warm_s, wall_s=wall, designs_per_s=designs / wall,
+                latency=_quantiles(list(lat.values())),
+                latency_by_lane={lane: _quantiles(
+                    [lat[i] for i, e in enumerate(trace)
+                     if e["priority"] == lane])
+                    for lane in ("interactive", "batch")},
+                counters=stats, launches=sum(r["launches"] for r in mb),
+                padded_over_asked=sum(r["padded"] for r in mb)
+                / max(sum(r["rows"] for r in mb), 1),
+                megabatch_ms=_quantiles([r["s"] for r in mb]),
+                dse=dict(n=DSE_BUDGET, n_evals=dse.n_evals,
+                         tail_wait_s=dse_wait, seconds=dse.seconds),
+                interactive_under_dse=dict(
+                    latency_s=probe_s, deadline_s=TRACE_DEADLINE_S,
+                    met=probe_s < TRACE_DEADLINE_S,
+                    dse_running_at_probe=running),
+                bit_equal=True)
+
+
+def phase_submit(card: str, device, us_per_design_phase4: float) -> dict:
+    """The serving lane, ``Session.submit`` and ``submit_search``, on the
+    card: equality, load, lanes and failure semantics."""
+    import torch
+    from repro_torch.api import Session, get_board, get_cnn
+    t_phase = time.perf_counter()
+    nets = (get_cnn("resnet50"), get_cnn("mobilenetv2"))
+    boards = (get_board("zcu102"), get_board("zc706"))
+    with Session(boards[0], device=str(device)) as ses:
+        equality = _submit_equality(ses, nets, boards)
+        pools = [_spec_pool(net, SUBMIT_POOL, SUBMIT_SEED + g)
+                 for g, net in enumerate(nets)]
+        want = [ses.evaluate(pools[g], nets[g], boards[g]) for g in (0, 1)]
+        torch.cuda.synchronize()
+        load = _submit_load(ses, nets, boards, pools, want)
+        load["phase4_us_per_design"] = us_per_design_phase4
+        load["profile"] = _drain_profile(ses, nets, boards, pools)
+        lanes = _submit_lanes(ses, nets[0], boards[0])
+        compile_stats = ses.compile_stats()
+    failures = _submit_failures(device, nets[0], boards[0])
+    trace = _submit_trace(device)
+    info = dict(card=card, equality=equality, load=load, lanes=lanes,
+                failures=failures, trace=trace, compile=compile_stats,
+                phase_s=time.perf_counter() - t_phase)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "submit_megabatches.json"), "w") as f:
+        json.dump({k: load.pop(k) for k in ("megabatch_launches",
+                                            "megabatch_s",
+                                            "megabatch_rows")}, f)
+    emit("submit", **info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1636,6 +2233,7 @@ def main(argv=None) -> int:
     golden_lm = phase_golden_lm(card, device)
     flash_f32["launches"] = golden_lm["batches"]["long"]["flash_launches"]
     phase_dse(card, device)
+    phase_submit(card, device, search["us_per_design_median"])
     lost = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             or m == "repro" or m.startswith("repro.")]
     if lost:

@@ -8,18 +8,23 @@
     print(format_report(ses.explain(spec_a, get_cnn("resnet50"))))
     dse = ses.explore(get_cnn("mobilenetv2"), n=100_000, strategy="search")
     front = dse.front_points()                        # (latency, buffer)
+    fut = ses.submit(specs, get_cnn("resnet50"))      # queued, megabatched
+    job = ses.submit_search(get_cnn("mobilenetv2"), n=100_000, seed=7)
+    ses.close()                                       # or: with Session(...)
 
 ``Session(device="cpu")`` runs the plain PyTorch path on the CPU.
 """
 from __future__ import annotations
 
+from . import telemetry  # noqa: F401
 from .cnn.registry import get_cnn
 from .core.dse import DSEResult, SearchConfig, orient, pareto
-from .core.resilience import EvalError
-from .core.session import EvalConfig, Session
+from .core.resilience import EvalError, load_checkpoint, save_checkpoint
+from .core.session import EvalConfig, Session, SessionStats, default_session
 from .fpga.boards import get_board
 from .telemetry.report import bottleneck_report, format_report
 
 __all__ = ["DSEResult", "EvalConfig", "EvalError", "SearchConfig", "Session",
-           "bottleneck_report", "format_report", "get_board", "get_cnn",
-           "orient", "pareto"]
+           "SessionStats", "bottleneck_report", "default_session",
+           "format_report", "get_board", "get_cnn", "load_checkpoint",
+           "orient", "pareto", "save_checkpoint", "telemetry"]

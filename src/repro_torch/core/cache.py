@@ -44,6 +44,12 @@ class BoundedLRU:
         self.evictions = 0
         self._d: OrderedDict = OrderedDict()
 
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def __contains__(self, key) -> bool:
+        return key in self._d
+
     def get(self, key, default=None):
         """Look up ``key``, refreshing its recency on a hit."""
         try:
@@ -65,6 +71,18 @@ class BoundedLRU:
             self.evictions += 1
             if self.on_evict is not None:
                 self.on_evict(k, v)
+
+    def keys(self):
+        return self._d.keys()
+
+    def values(self):
+        return self._d.values()
+
+    def items(self):
+        return self._d.items()
+
+    def clear(self) -> None:
+        self._d.clear()
 
     def stats(self) -> dict[str, int]:
         """Size / bound / eviction counters, as ``observability()``

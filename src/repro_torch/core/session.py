@@ -2,24 +2,29 @@
 and the evaluation knobs, and scores designs on one device.
 
 The PyTorch port of the JAX package's ``core/session.py``, without the
-submit queue, the mesh and the multi-model and schedule entry points:
-``evaluate`` on one spec or notation string (the scalar Builder, plain
-Python on the host, whatever the session's device), on a list of them and
-on a ``DesignBatch`` (the batch path, on the session's device); ``build``
-and ``explain`` on one design; ``explore``, the DSE (random sweep or
-guided search) on the session's device; and ``compile_stats``,
-``cache_stats`` and ``observability``.  The device is explicit: ``cuda``
-unless the caller passes ``device="cpu"``, and a Session asked for
-``cuda`` on a machine without a visible card raises instead of running on
-the CPU.  A faulted kernel is retried (``EvalConfig.max_retries``) and
-then raises ``EvalError(BACKEND_FAULT)``: nothing falls back to the plain
-version.
+mesh and the multi-model and schedule entry points: ``evaluate`` on one
+spec or notation string (the scalar Builder, plain Python on the host,
+whatever the session's device), on a list of them and on a
+``DesignBatch`` (the batch path, on the session's device); ``build`` and
+``explain`` on one design; ``explore``, the DSE (random sweep or guided
+search) on the session's device; the serving lane: ``submit`` (a
+``Future``, served by a background drain that coalesces queued requests
+into megabatches, with deadlines and admission control) and
+``submit_search`` (long DSE jobs on their own worker); the lifecycle
+(``close``, ``with Session(...)``, :func:`default_session`); and
+``compile_stats``, ``cache_stats`` and ``observability``.  The device is
+explicit: ``cuda`` unless the caller passes ``device="cpu"``, and a
+Session asked for ``cuda`` on a machine without a visible card raises
+instead of running on the CPU.  A faulted kernel is retried
+(``EvalConfig.max_retries``) and then raises ``EvalError(BACKEND_FAULT)``:
+nothing falls back to the plain version, in the drain neither.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 import time
+from concurrent.futures import Future
 from dataclasses import dataclass, fields, replace
 
 import numpy as np
@@ -33,9 +38,11 @@ from .batch_eval import (DEFAULT_CHUNK, DEFAULT_TILE, DeviceTables,
                          NetTables, _evaluate_specs, bucket_max_L,
                          evaluate_batch, make_device_tables, make_tables)
 from .cache import DEFAULT_MAX_TABLES, TABLES_ENV, BoundedLRU, env_bound
+from .coalesce import ArrivalEstimator, plan_megabatch
 from .device import DeviceSpec
 from .dse.driver import DEFAULT_OBJECTIVES, DSEResult, _explore
 from .dse.encoding import NC, DesignBatch, validate_batch
+from .dse.search import SearchConfig
 from .evaluator import _evaluate_design, build_design
 from .notation import AcceleratorSpec, parse
 from .resilience import (CircuitBreaker, EvalError, classify,
@@ -75,6 +82,22 @@ class EvalConfig:
     #: (``resilience.retry_delay``) between attempts; past them the call
     #: raises ``EvalError(BACKEND_FAULT)``
     max_retries: int = 0
+    #: submit() megabatching window: how long the drain lingers after the
+    #: first queued request before evaluating, so concurrent callers land
+    #: in one megabatch
+    linger_s: float = 0.002
+    #: adaptive linger cap, in seconds.  None keeps the fixed ``linger_s``
+    #: window; a value arms the arrival-rate policy (the drain lingers ~2
+    #: observed inter-arrivals, never more than this cap)
+    linger_max_s: float | None = None
+    #: default per-request deadline of submit(), in seconds: a request not
+    #: delivered by then fails with ``EvalError.DEADLINE_EXCEEDED``; None
+    #: disables.  submit(deadline_s=...) wins per request
+    deadline_s: float | None = None
+    #: admission control: most queued submit() requests and search jobs.
+    #: Further submits fail at once with ``EvalError.QUEUE_FULL``; None =
+    #: unbounded
+    max_queue: int | None = None
 
     def resolved(self) -> "EvalConfig":
         """Check the knobs and pin the env-dependent cache bound."""
@@ -85,6 +108,13 @@ class EvalConfig:
         if self.max_retries < 0:
             raise ValueError(f"max_retries must be >= 0, "
                              f"got {self.max_retries}")
+        if self.max_queue is not None and self.max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {self.deadline_s}")
+        if self.linger_max_s is not None and self.linger_max_s < 0:
+            raise ValueError(f"linger_max_s must be >= 0, "
+                             f"got {self.linger_max_s}")
         return replace(
             self, max_cached_tables=env_bound(TABLES_ENV, DEFAULT_MAX_TABLES)
             if self.max_cached_tables is None else self.max_cached_tables)
@@ -107,9 +137,18 @@ class SessionStats:
     batch_designs: int = 0
     scalar_evals: int = 0
     explore_calls: int = 0
+    submits: int = 0
+    megabatches: int = 0
+    megabatch_requests: int = 0
+    coalesced_chunks: int = 0  # padded chunks planned
+    coalesced_merges: int = 0  # requests that shared a chunk with another
+    coalesced_splits: int = 0  # requests split at the chunk size
+    search_jobs: int = 0       # submit_search() jobs accepted
+    rejected: int = 0          # submits refused by admission control
     retried: int = 0           # retry attempts of a faulted call
     degraded: int = 0          # calls served by a fallback: always 0, the
                                # port has none (kept for the JAX schema)
+    deadline_missed: int = 0   # requests failed with DEADLINE_EXCEEDED
 
     def __post_init__(self):
         # not a dataclass field: stays out of fields()/as_dict()/repr
@@ -126,6 +165,43 @@ class SessionStats:
         return {f.name: getattr(self, f.name) for f in fields(self)}
 
 
+#: submit() priority lanes, highest first: the drain serves interactive
+#: requests ahead of batch ones in every megabatch, and search jobs run on
+#: their own worker thread
+PRIORITIES = ("interactive", "batch")
+
+
+class _Request:
+    """One queued :meth:`Session.submit` unit of work."""
+
+    __slots__ = ("specs", "net", "dev", "future", "scalar", "deadline",
+                 "t_enq", "priority")
+
+    def __init__(self, specs, net, dev, future, scalar, deadline=None,
+                 priority="interactive"):
+        self.specs = specs
+        self.net = net
+        self.dev = dev
+        self.future = future
+        self.scalar = scalar
+        self.deadline = deadline   # absolute time.monotonic(), or None
+        self.priority = priority
+        self.t_enq = time.monotonic()   # queue-wait telemetry anchor
+
+
+class _SearchJob:
+    """One queued :meth:`Session.submit_search` job (the batch lane)."""
+
+    __slots__ = ("fn", "future", "deadline", "label", "t_enq")
+
+    def __init__(self, fn, future, deadline=None, label="search"):
+        self.fn = fn
+        self.future = future
+        self.deadline = deadline
+        self.label = label
+        self.t_enq = time.monotonic()
+
+
 class Session:
     """One front door for MCCM evaluation on one device.
 
@@ -133,6 +209,7 @@ class Session:
     >>> ses.evaluate(spec, net)                           # Metrics
     >>> ses.evaluate([spec_a, spec_b], net)               # metric arrays
     >>> ses.evaluate(design_batch, net)                   # metric tensors
+    >>> ses.submit(specs, net).result()                   # queued, megabatched
     """
 
     def __init__(self, dev: DeviceSpec | None = None, *,
@@ -160,6 +237,49 @@ class Session:
         self._dev_tables = BoundedLRU(
             bound,
             on_evict=lambda *_: self.stats.bump("device_table_evictions"))
+        # the submit queue and its drain thread (the interactive lane)
+        self._cv = threading.Condition()
+        self._pending: list[_Request] = []
+        self._worker: threading.Thread | None = None
+        #: adaptive-linger arrival tracking (armed by config.linger_max_s)
+        self._arrivals = ArrivalEstimator()
+        # the batch lane: long searches run on their own worker, so the
+        # drain never waits behind a 100k-design DSE
+        self._jobs: list[_SearchJob] = []
+        self._job_cv = threading.Condition()
+        self._job_worker: threading.Thread | None = None
+        self._job_running = False
+        self._closed = False
+
+    # ---- lifecycle -------------------------------------------------------
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        """Flush the submit queue and stop the drain thread and the
+        search-job worker.  Queued search jobs not yet started are
+        cancelled; a running job finishes (its checkpoint, when set, is
+        what makes killing the process instead lossless).  Idempotent; the
+        caches stay usable, only :meth:`submit` and :meth:`submit_search`
+        are refused afterwards."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        with self._job_cv:
+            cancelled, self._jobs = self._jobs, []
+            self._job_cv.notify_all()
+        for j in cancelled:
+            j.future.cancel()
+        if self._worker is not None:
+            self._worker.join(timeout=60.0)
+            self._worker = None
+        if self._job_worker is not None:
+            self._job_worker.join(timeout=600.0)
+            self._job_worker = None
+        self.drain()
 
     # ---- memoized tables -------------------------------------------------
     @staticmethod
@@ -423,6 +543,420 @@ class Session:
                 self.breaker.record_failure()
                 raise wrap(e, EvalError.BACKEND_FAULT) from e
 
+    # ---- queued requests (the serve-many-users path) ---------------------
+    def submit(self, designs, net: Network,
+               dev: DeviceSpec | None = None, *,
+               inter_segment_pipelining: bool = True,
+               deadline_s: float | None = None,
+               priority: str = "interactive") -> Future:
+        """Queue an evaluation request; returns a ``Future``.
+
+        A background drain thread collects everything queued within the
+        linger window (fixed ``linger_s``, or arrival-rate adaptive when
+        ``linger_max_s`` is set), coalesces it (small same-(net, board)
+        requests merge into shared chunks, oversized ones split at
+        ``chunk``, each chunk padded to its own ladder shape) and
+        evaluates the megabatch on the session's device,
+        one search-kernel launch a chunk on the card.  The future resolves
+        to ``{metric: np.ndarray}`` over the submitted specs, equal to
+        :meth:`evaluate` on them; a single spec or string resolves to
+        ``{metric: float}``.
+
+        ``priority`` is the request's lane: ``"interactive"`` requests are
+        planned and delivered ahead of ``"batch"`` ones in every drain.
+
+        Malformed designs raise ``EvalError(INVALID_INPUT)`` here,
+        synchronously; with ``max_queue`` set, a full queue raises
+        ``EvalError(QUEUE_FULL)``; ``deadline_s`` (by default the
+        config's) fails the future with ``EvalError(DEADLINE_EXCEEDED)``
+        if the result cannot be delivered in time.  A megabatch that
+        faults is re-run request by request on the same device, each
+        under the retry policy: a kernel fault ends as
+        ``EvalError(BACKEND_FAULT)`` on the futures, never as a result of
+        the plain version.
+        """
+        scalar = isinstance(designs, (str, AcceleratorSpec))
+        raw = [designs] if scalar else list(designs)
+        with telemetry.span("session.submit") as sp:
+            sp.set_attr("designs", len(raw))
+            sp.set_attr("priority", priority)
+            return self._submit(raw, net, dev, scalar,
+                                inter_segment_pipelining, deadline_s,
+                                priority)
+
+    def _submit(self, raw, net, dev, scalar, inter_segment_pipelining,
+                deadline_s, priority="interactive") -> Future:
+        if priority not in PRIORITIES:
+            raise EvalError(EvalError.INVALID_INPUT,
+                            f"unknown priority {priority!r}; "
+                            f"known: {PRIORITIES}")
+        try:
+            specs = [parse(d, len(net), inter_segment_pipelining=
+                           inter_segment_pipelining)
+                     if isinstance(d, str) else d for d in raw]
+        except Exception as e:  # noqa: BLE001 — taxonomy boundary
+            raise wrap(e, EvalError.INVALID_INPUT) from e
+        if not specs:
+            # an empty job inside a megabatch would fail its peers too
+            raise EvalError(EvalError.INVALID_INPUT,
+                            "no designs to submit (empty list)")
+        cfg = self.config
+        if deadline_s is None:
+            deadline_s = cfg.deadline_s
+        deadline = None if deadline_s is None \
+            else time.monotonic() + deadline_s
+        req = _Request(specs, net, self._device(dev), Future(), scalar,
+                       deadline, priority)
+        with self._cv:
+            if self._closed:
+                raise RuntimeError(
+                    "session closed: submit() is refused after close() "
+                    "(the drain loop is stopped; synchronous evaluate() "
+                    "still works)")
+            if cfg.max_queue is not None \
+                    and len(self._pending) + len(self._jobs) \
+                    >= cfg.max_queue:
+                self.stats.bump("rejected")
+                telemetry.event("resilience.rejected",
+                                {"queue": len(self._pending)})
+                raise EvalError(
+                    EvalError.QUEUE_FULL,
+                    f"submit queue full ({cfg.max_queue} pending "
+                    f"requests); retry after the queue drains")
+            self._arrivals.observe(time.monotonic())
+            self._pending.append(req)
+            telemetry.gauge("session.queue_depth", len(self._pending))
+            if self._worker is None:
+                self._worker = threading.Thread(
+                    target=self._drain_loop,
+                    name="repro-torch-session-drain", daemon=True)
+                self._worker.start()
+            self._cv.notify_all()
+        self.stats.bump("submits")
+        return req.future
+
+    # ---- the batch lane: long search jobs --------------------------------
+    def submit_search(self, nets, n: int = 100_000,
+                      dev: DeviceSpec | None = None, *,
+                      deadline_s: float | None = None,
+                      checkpoint_path: str | None = None,
+                      checkpoint_interval: int = 8,
+                      **kw) -> Future:
+        """Queue a long DSE job, :meth:`explore` on one ``Network``, on the
+        batch lane; returns a ``Future`` resolving to its
+        :class:`DSEResult`.
+
+        Jobs run first in, first out on their own worker thread, so the
+        drain of :meth:`submit` never waits behind a 100k-design search;
+        the job's evaluations use the session's memoized tables and
+        device.  ``checkpoint_path`` makes a ``strategy="search"`` job
+        resumable: the search snapshots every ``checkpoint_interval``
+        generations, and a resubmitted job resumes from the snapshot bit
+        for bit.  ``max_queue`` counts queued jobs; a job whose
+        ``deadline_s`` passes while it is queued fails with
+        ``DEADLINE_EXCEEDED`` before it spends any budget.  A list of nets
+        (the JAX package's ``deploy``, multinet) raises
+        ``NotImplementedError``: the port does not have multinet yet.
+        """
+        if not isinstance(nets, (Network, NetTables)):
+            raise NotImplementedError(
+                "submit_search on a list of nets runs deploy (multinet), "
+                "which the port does not have yet (ROADMAP.md, queue 1, "
+                "item 9)")
+        if checkpoint_path is not None:
+            if kw.get("strategy", "random") != "search":
+                raise EvalError(
+                    EvalError.INVALID_INPUT,
+                    "checkpoint_path requires strategy='search' (the "
+                    "random sweep has no loop state to snapshot)")
+            config = kw.get("config")
+            if config is None:
+                config = SearchConfig()
+                if "seed" in kw:
+                    config = replace(config, seed=kw["seed"])
+            kw["config"] = replace(config,
+                                   checkpoint_path=checkpoint_path,
+                                   checkpoint_interval=checkpoint_interval,
+                                   resume=True)
+
+        def job():
+            return self.explore(nets, n, dev, **kw)
+
+        cfg = self.config
+        deadline = None if deadline_s is None \
+            else time.monotonic() + deadline_s
+        j = _SearchJob(job, Future(), deadline, label="explore")
+        with self._job_cv:
+            if self._closed:
+                raise RuntimeError(
+                    "session closed: submit_search() is refused after "
+                    "close()")
+            if cfg.max_queue is not None \
+                    and len(self._jobs) + len(self._pending) \
+                    >= cfg.max_queue:
+                self.stats.bump("rejected")
+                telemetry.event("resilience.rejected",
+                                {"queue": len(self._jobs),
+                                 "lane": "batch"})
+                raise EvalError(
+                    EvalError.QUEUE_FULL,
+                    f"search-job queue full ({cfg.max_queue} pending); "
+                    f"retry after the queue drains")
+            self._jobs.append(j)
+            telemetry.gauge("session.job_queue_depth", len(self._jobs))
+            if self._job_worker is None:
+                self._job_worker = threading.Thread(
+                    target=self._job_loop, name="repro-torch-session-jobs",
+                    daemon=True)
+                self._job_worker.start()
+            self._job_cv.notify_all()
+        self.stats.bump("search_jobs")
+        return j.future
+
+    def _job_loop(self) -> None:
+        while True:
+            with self._job_cv:
+                while not self._jobs and not self._closed:
+                    self._job_cv.wait()
+                if not self._jobs:        # closed and drained
+                    return
+                j = self._jobs.pop(0)
+                self._job_running = True
+            try:
+                self._run_job(j)
+            finally:
+                with self._job_cv:
+                    self._job_running = False
+                    self._job_cv.notify_all()
+
+    def _run_job(self, j: _SearchJob) -> None:
+        if not j.future.set_running_or_notify_cancel():
+            return
+        if j.deadline is not None and time.monotonic() > j.deadline:
+            self.stats.bump("deadline_missed")
+            telemetry.event("resilience.deadline_missed",
+                            {"where": "job_queued"})
+            j.future.set_exception(EvalError(
+                EvalError.DEADLINE_EXCEEDED,
+                "deadline passed while the search job was queued"))
+            return
+        with telemetry.span("session.search_job") as sp:
+            sp.set_attr("kind", j.label)
+            telemetry.observe("session.job_queue_wait_s",
+                              time.monotonic() - j.t_enq)
+            try:
+                out = j.fn()
+            except BaseException as e:  # noqa: BLE001 — job isolation
+                j.future.set_exception(wrap(e))
+                if not isinstance(e, Exception):
+                    raise
+            else:
+                j.future.set_result(out)
+
+    # ---- the drain -------------------------------------------------------
+    def drain(self) -> int:
+        """Synchronously megabatch everything queued now (what the drain
+        thread runs); returns the number of requests served.  Interactive
+        requests are planned and delivered ahead of batch ones (stable
+        within a lane)."""
+        with self._cv:
+            reqs, self._pending = self._pending, []
+        if reqs:
+            reqs.sort(key=lambda r: PRIORITIES.index(r.priority))
+            self._run_megabatch(reqs)
+        return len(reqs)
+
+    def _linger(self) -> float:
+        """The next drain's linger window: fixed ``linger_s``, or the
+        arrival-rate policy when ``linger_max_s`` is armed."""
+        cfg = self.config
+        if cfg.linger_max_s is None:
+            return cfg.linger_s
+        return self._arrivals.linger(cfg.linger_max_s)
+
+    def _drain_loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._pending and not self._closed:
+                    self._cv.wait()
+                if self._closed and not self._pending:
+                    return
+            # linger so concurrent submitters land in the same megabatch
+            time.sleep(self._linger())
+            self.drain()
+
+    def _deliver(self, r: _Request, out: dict) -> None:
+        if not r.future.set_running_or_notify_cancel():
+            return
+        if r.scalar:
+            out = {k: float(v[0]) for k, v in out.items()}
+        r.future.set_result(out)
+
+    def _fail(self, r: _Request, exc: BaseException) -> None:
+        if r.future.set_running_or_notify_cancel():
+            r.future.set_exception(wrap(exc))
+
+    def _expire(self, reqs: list[_Request]) -> list[_Request]:
+        """Fail requests whose deadline already passed (DEADLINE_EXCEEDED)
+        before spending any evaluation on them; returns the live rest."""
+        now = time.monotonic()
+        live = []
+        for r in reqs:
+            if r.deadline is not None and now > r.deadline:
+                self.stats.bump("deadline_missed")
+                telemetry.event("resilience.deadline_missed",
+                                {"where": "queued"})
+                self._fail(r, EvalError(
+                    EvalError.DEADLINE_EXCEEDED,
+                    "deadline passed while the request was queued"))
+            else:
+                live.append(r)
+        return live
+
+    def _finish(self, r: _Request, out: dict) -> None:
+        """Finite-guard and deadline-check one request's result, then
+        deliver: NaN/Inf rows fail their own future, not the megabatch,
+        and a passed deadline refuses late delivery."""
+        bad = nonfinite_keys(out)
+        if bad:
+            self._fail(r, EvalError(EvalError.NONFINITE_METRICS,
+                                    f"non-finite metrics {bad}"))
+            return
+        if r.deadline is not None and time.monotonic() > r.deadline:
+            self.stats.bump("deadline_missed")
+            telemetry.event("resilience.deadline_missed",
+                            {"where": "evaluated"})
+            self._fail(r, EvalError(EvalError.DEADLINE_EXCEEDED,
+                                    "deadline passed during evaluation"))
+            return
+        self.stats.bump("megabatch_requests")
+        telemetry.observe("session.request_latency_s",
+                          time.monotonic() - r.t_enq)
+        self._deliver(r, out)
+
+    def _eval_one(self, r: _Request) -> dict:
+        cfg = self.config
+        return _evaluate_specs(r.specs, r.net, self.device_tables(r.dev),
+                               cfg.chunk, tables=self.tables(r.net),
+                               tile=cfg.tile, fm_tile_rows=cfg.fm_tile_rows)
+
+    def _run_megabatch(self, reqs: list[_Request]) -> None:
+        # the outer net: whatever goes wrong below, every future resolves
+        try:
+            self._run_megabatch_inner(reqs)
+        except BaseException as e:  # noqa: BLE001
+            for r in reqs:
+                if not r.future.done():
+                    self._fail(r, e)
+            if not isinstance(e, Exception):   # KeyboardInterrupt etc.
+                raise
+
+    def _run_megabatch_inner(self, reqs: list[_Request]) -> None:
+        with telemetry.span("session.megabatch") as sp:
+            sp.set_attr("requests", len(reqs))
+            self._run_megabatch_spanned(reqs, sp)
+
+    def _run_megabatch_spanned(self, reqs: list[_Request], sp) -> None:
+        cfg = self.config
+        reqs = self._expire(reqs)
+        if not reqs:
+            return
+        if telemetry.enabled():
+            now = time.monotonic()
+            for r in reqs:
+                telemetry.observe("session.queue_wait_s", now - r.t_enq)
+            telemetry.observe("session.megabatch_fill",
+                              len(reqs), bounds=tuple(
+                                  float(2 ** i) for i in range(16)))
+            telemetry.gauge("session.megabatch_size", len(reqs))
+            telemetry.gauge("session.linger_s", cfg.linger_s)
+        # memoized tables for both axes, built per request under its own
+        # guard: one request's broken net or board fails its future only
+        ready: list[tuple[_Request, object, object]] = []
+        for r in reqs:
+            try:
+                tab = self.tables(r.net)
+                dtab = self.device_tables(r.dev)
+            except Exception as e:  # noqa: BLE001
+                self._fail(r, wrap(e, EvalError.INVALID_INPUT))
+            else:
+                ready.append((r, tab, dtab))
+        if not ready:
+            return
+        jobs, scatter = self._coalesce_jobs(ready, sp)
+        try:
+            results = self._resilient_call(lambda: [
+                _evaluate_specs(specs, net, dtab, cfg.chunk, tables=tab,
+                                tile=cfg.tile, pad_to=pad,
+                                fm_tile_rows=cfg.fm_tile_rows)
+                for specs, net, tab, dtab, pad in jobs])
+        except Exception:  # noqa: BLE001 — isolate the bad request(s)
+            # one malformed request must not fail its co-queued peers:
+            # each runs alone, on the session's device, under the same
+            # retry policy, so each future gets its own result or error
+            for r, _, _ in ready:
+                try:
+                    out = self._resilient_call(lambda r=r: self._eval_one(r))
+                except Exception as e:  # noqa: BLE001
+                    self._fail(r, e)
+                else:
+                    self._finish(r, out)
+            return
+        self.stats.bump("megabatches")
+        scatter(results)
+
+    def _coalesce_jobs(self, ready, sp):
+        """Plan the coalesced megabatch: requests with the same memoized
+        ``NetTables`` and ``DeviceTables`` pack into shared chunks,
+        oversized ones split at ``chunk`` (``core.coalesce``).  Returns
+        ``(jobs, scatter)``: one ``(specs, net, NetTables, DeviceTables,
+        pad)`` tuple per chunk, ``pad`` its own ladder shape, and
+        ``scatter(results)``, which slices the per-chunk metric arrays
+        back to each request's future, in its own spec order, every
+        request answered once."""
+        cfg = self.config
+        keyed = [((id(tab), id(dtab)), len(r.specs))
+                 for r, tab, dtab in ready]
+        plan = plan_megabatch(keyed, cfg.chunk, cfg.tile)
+        by_key = {}
+        for i, (key, _) in enumerate(keyed):
+            by_key.setdefault(key, i)
+        jobs = []
+        for c in plan.chunks:
+            specs = []
+            for p in c.parts:
+                specs.extend(ready[p.req][0].specs[p.lo:p.hi])
+            lead, tab, dtab = ready[by_key[c.group]]
+            jobs.append((specs, lead.net, tab, dtab, c.pad))
+        self.stats.bump("coalesced_chunks", len(plan.chunks))
+        if plan.merges:
+            self.stats.bump("coalesced_merges", plan.merges)
+        if plan.splits:
+            self.stats.bump("coalesced_splits", plan.splits)
+        sp.set_attr("chunks", len(plan.chunks))
+        sp.set_attr("shared_pad", plan.shared_pad)
+
+        def scatter(results):
+            pieces: dict[int, list] = {i: [] for i in range(len(ready))}
+            for c, out in zip(plan.chunks, results):
+                off = 0
+                for p in c.parts:
+                    n = len(p)
+                    pieces[p.req].append(
+                        (p.lo, {k: v[off:off + n]
+                                for k, v in out.items()}))
+                    off += n
+            for i, (r, _, _) in enumerate(ready):
+                parts = sorted(pieces[i], key=lambda t: t[0])
+                outs = [d for _, d in parts]
+                if len(outs) == 1:
+                    self._finish(r, outs[0])
+                else:
+                    self._finish(r, {k: np.concatenate(
+                        [o[k] for o in outs]) for k in outs[0]})
+
+        return jobs, scatter
+
     # ---- observability ---------------------------------------------------
     def compile_stats(self) -> dict[str, int]:
         """What the port builds instead of jit programs: the kernel
@@ -435,8 +969,10 @@ class Session:
         counts = {"kernel_builds": b["built"], "kernel_loads": b["loaded"]}
         counts["total"] = counts["kernel_builds"] + counts["kernel_loads"]
         counts.update({f"launches.{k}": v for k, v in launches().items()})
+        counts["rejected"] = self.stats.rejected
         counts["retried"] = self.stats.retried
         counts["degraded"] = self.stats.degraded
+        counts["deadline_missed"] = self.stats.deadline_missed
         return counts
 
     def cache_stats(self) -> dict[str, dict[str, int]]:
@@ -458,3 +994,27 @@ class Session:
                         "trips": self.breaker.trips},
             "telemetry": telemetry.snapshot(),
         }
+
+
+# --------------------------------------------------------------------------
+# the process-wide default session
+# --------------------------------------------------------------------------
+_DEFAULT_LOCK = threading.Lock()
+_DEFAULT: Session | None = None
+
+
+def default_session(**overrides) -> Session:
+    """The process-wide shared session.
+
+    Created on first call; ``overrides`` (EvalConfig fields or ``dev=``)
+    apply only then: asking for other settings once it exists is an
+    error, construct a private :class:`Session` instead."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        if _DEFAULT is None:
+            _DEFAULT = Session(**overrides)
+        elif overrides:
+            raise ValueError(
+                "the default session already exists; construct "
+                "Session(...) directly for different settings")
+        return _DEFAULT

@@ -711,3 +711,67 @@ def test_warm_round_adds_no_builds_on_card(cuda):
         if _ == 0:
             before = ses.compile_stats()["total"]
     assert before >= 1 and ses.compile_stats()["total"] == before
+
+
+def test_submit_on_card_equals_evaluate_on_card(cuda):
+    """The drain on the card: merged probes, a request split at the chunk
+    size and another net's request equal the card's evaluate bit for bit,
+    one search-kernel launch a planned chunk."""
+    from repro_torch.core.dse.encoding import decode_batch
+    net, net2 = get_cnn("mobilenetv2"), get_cnn("resnet50")
+    with Session(get_board("zc706"), device=str(cuda), chunk=256,
+                 linger_s=0.5) as ses:
+        big = decode_batch(sample_mixed(np.random.default_rng(0), len(net),
+                                        700), len(net))
+        probes = [[make_arch(a, net, 4)] for a in ARCH_NAMES]
+        other = [make_arch(a, net2, 6) for a in ARCH_NAMES]
+        want = [ses.evaluate(d, n) for d, n in
+                [(p, net) for p in probes] + [(big, net), (other, net2)]]
+        reset_launches()
+        futs = [ses.submit(p, net) for p in probes]
+        futs += [ses.submit(big, net), ses.submit(other, net2)]
+        got = [f.result(timeout=300) for f in futs]
+        n_launch = launches()["parallelism_search"]
+        stats = ses.stats
+        assert stats.megabatches == 1 and stats.coalesced_splits == 1
+        assert stats.coalesced_merges >= len(probes)
+        assert n_launch == stats.coalesced_chunks
+    for g, w in zip(got, want):
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+def test_faulted_drain_fails_every_future_on_card(cuda, monkeypatch):
+    """A search kernel that faults in the drain: the megabatch and each
+    request's isolated re-run fail on the card, every future ends as
+    BACKEND_FAULT, the plain version never runs and nothing degrades."""
+    from repro_torch.core.resilience import EvalError
+    calls = {"cuda": 0, "plain": 0}
+
+    def hook(site, route):
+        if route == "cuda":
+            calls["cuda"] += 1
+            raise RuntimeError("injected launch failure")
+
+    def plain(*args):
+        calls["plain"] += 1
+        return parallelism_search_ref(*args)
+
+    monkeypatch.setattr(mccm_ops, "parallelism_search_ref", plain)
+    net = get_cnn("mobilenetv2")
+    prev = mccm_ops.set_fault_hook(hook)
+    try:
+        with Session(get_board("zc706"), device=str(cuda), max_retries=1,
+                     linger_s=0.5) as ses:
+            futs = [ses.submit([make_arch(a, net, 4)], net)
+                    for a in ARCH_NAMES]
+            for f in futs:
+                with pytest.raises(EvalError) as e:
+                    f.result(timeout=300)
+                assert e.value.code == EvalError.BACKEND_FAULT
+    finally:
+        mccm_ops.set_fault_hook(prev)
+    # the megabatch and each request alone, each tried twice
+    assert calls == {"cuda": 2 * (1 + len(ARCH_NAMES)), "plain": 0}
+    assert ses.stats.degraded == 0 and ses.stats.retried == \
+        1 + len(ARCH_NAMES)

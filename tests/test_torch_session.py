@@ -233,9 +233,10 @@ def test_port_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
     n, bad, mods = out.stdout.split(" ", 2)
     assert int(n) >= 20 and bad.strip() == "[]", out.stdout
-    # the DSE slice's modules are among those walked
+    # the DSE and serving slices' modules are among those walked
     for m in ("core.telemetry", "core.resilience", "core.dse.pareto",
-              "core.dse.search", "core.dse.driver", "telemetry"):
+              "core.dse.search", "core.dse.driver", "telemetry",
+              "core.coalesce"):
         assert f"repro_torch.{m}" in mods.split(), m
 
 
