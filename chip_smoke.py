@@ -110,7 +110,25 @@ Phases, each printing one JSON line:
    (64 requests over 4 CNNs x 4 boards on its arrival times, its session
    settings) through ``submit``, each result equal to ``evaluate``: p50/p99
    latency overall and by lane, designs/s, the counters; then its 100k
-   random ``submit_search`` with one deadline-bearing probe beside it.
+   random ``submit_search`` with one deadline-bearing probe beside it;
+13. the schedule layer (``Session.schedule``, ``schedule_specs``,
+   ``explore(refine="schedule")``): (a) the golden designs of
+   ``src/repro_torch/data/golden_schedule.npz`` (the JAX package's
+   ``schedule_specs`` on the CPU: the 12 templates of every CNN on ZC706
+   and of ResNet-50 on every board) through ``schedule_specs`` and
+   ``Session.schedule`` on the card, the discrete and per-layer fields
+   equal, the composed metrics within rtol 1e-5, each CNN's golden
+   artifact met, refined <= coarse, refined equal to coarse on rows that
+   keep candidate 0 everywhere; (b) the card's plane on 2,048 of phase 4's
+   designs equal bit for bit to the CPU's from the same layer state,
+   all-tie layers choosing candidate 0; (c) 64 single designs across the
+   CNNs on ZCU102, cold and warm p50/p99 ms, one cold call under the
+   profiler; (d) phase 11's 100k random sweep refined: designs, front and
+   metrics equal to the unrefined run's bit for bit, the refine's seconds;
+   (e) ``schedule_specs`` on the first 20,480 of phase 4's designs (depth
+   cut from 100,000): µs a design beside phase 4's, one search launch a
+   chunk, peak memory, one chunk under the profiler; (f) a scorer fault on
+   the card: ``BACKEND_FAULT`` after the retries, the CPU route never run.
 
 Then the ``kernels`` line (one entry per kernel source: ``flash_fwd``'s
 bf16 source with its launches in phase 9, its f32 source with its launches
@@ -241,6 +259,31 @@ SUBMIT_COUNTERS = ("submits", "megabatches", "megabatch_requests",
                    "coalesced_chunks", "coalesced_merges",
                    "coalesced_splits", "rejected", "deadline_missed",
                    "degraded")
+#: phase 13, the schedule layer: (b) the plane of the first 2,048 of
+#: phase 4's designs (one full-width chunk); (c) 64 distinct designs
+#: across the 7 CNNs on ZCU102, one ``Session.schedule`` call each; (d)
+#: phase 11's 100k random sweep (seed 7), refined; (e) the first 20,480 of
+#: phase 4's 100,000 designs (depth cut to keep the run short); (f) the
+#: retries before a faulted scorer raises BACKEND_FAULT
+SCHED_PLANE_DESIGNS = 2048
+SCHED_SINGLE_DESIGNS, SCHED_SINGLE_BOARD = 64, "zcu102"
+SCHED_FULL_DESIGNS = 20_480
+SCHED_FAULT_RETRIES = 1
+#: schedule_specs fields held to the golden file exactly: the discrete
+#: ones and the per-layer plane fields; the rest (``ref_*``/``coarse_*``
+#: metrics, ``seg_cyc_*``) within RTOL_METRICS
+SCHED_EXACT = ("choice", "ce_of_layer", "seg_of_layer", "pipe_l", "valid_l",
+               "seg_valid", "pf_l", "ph_l", "pw_l", "ref_n_ces",
+               "coarse_n_ces", "phi", "tile_bytes", "companion_bytes",
+               "floor_bytes", "budget_bytes", "lat_ref_l", "lat_coarse_l",
+               "acc_ref_l", "acc_coarse_l", "n_tiles_l", "buf_l",
+               "ce_buf_l", "alloc_seg")
+#: an artifact's floats from the composed metrics (RTOL_METRICS), at its
+#: top level and in its segments; every other field must be equal
+SCHED_TOP_CLOSE = ("latency_s", "coarse_latency_s", "throughput_ips",
+                   "access_bytes", "coarse_access_bytes", "energy_j",
+                   "coarse_energy_j", "buffer_bytes")
+SCHED_SEG_CLOSE = ("coarse_cyc", "refined_cyc")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -1250,10 +1293,12 @@ def phase_flash(card: str, device, seed: int) -> tuple[dict, dict]:
 # --------------------------------------------------------------------------
 # phase 9
 # --------------------------------------------------------------------------
-def _device_profile(fn, name: str, top: int = 8) -> dict:
+def _device_profile(fn, name: str, top: int = 8,
+                    share_of: str = "flash_fwd") -> dict:
     """One call of ``fn`` under torch.profiler: the device's busy time (the
-    sum of its kernels' device times, one stream), the kernels that took
-    the most of it, and the full table in chiprun_out/profile_<name>.txt."""
+    sum of its kernels' device times, one stream), the share of it taken by
+    the kernel named ``share_of``, the kernels that took the most of it, and
+    the full table in chiprun_out/profile_<name>.txt."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1272,10 +1317,10 @@ def _device_profile(fn, name: str, top: int = 8) -> dict:
         f.write(rows.table(sort_by="self_device_time_total", row_limit=40))
     if busy_s == 0:
         return {"device_time": "not measured", "wall_s_profiled": wall}
-    flash_s = sum(e.self_device_time_total for e in kernels
-                  if "flash_fwd" in e.key) / 1e6
+    share_s = sum(e.self_device_time_total for e in kernels
+                  if share_of in e.key) / 1e6
     return {"wall_s_profiled": wall, "device_busy_s": busy_s,
-            "flash_fwd_share_of_busy": flash_s / busy_s,
+            f"{share_of}_share_of_busy": share_s / busy_s,
             "kernel_launches": sum(e.count for e in kernels),
             "top_kernels": [
                 {"kernel": e.key[:80], "device_ms":
@@ -2201,6 +2246,426 @@ def phase_submit(card: str, device, us_per_design_phase4: float) -> dict:
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 13
+# --------------------------------------------------------------------------
+def _artifact_diff(got: dict, want: dict, worst: dict) -> list:
+    """Where an artifact (as a dict) parts from another: the composed
+    floats beyond RTOL_METRICS, any other field not equal."""
+    bad = []
+
+    def close(g, w, where):
+        rel = abs(g - w) / max(abs(w), 1e-30)
+        worst[where] = max(worst.get(where, 0.0), rel)
+        if rel > RTOL_METRICS:
+            bad.append((where, g, w))
+
+    if got.keys() != want.keys():
+        return [("keys", sorted(got), sorted(want))]
+    for k, w in want.items():
+        if k in SCHED_TOP_CLOSE:
+            close(got[k], w, k)
+        elif k == "segments" and len(got[k]) == len(w):
+            for gs, ws in zip(got[k], w):
+                for f, v in ws.items():
+                    if f in SCHED_SEG_CLOSE:
+                        close(gs[f], v, f"segment.{f}")
+                    elif gs.get(f) != v:
+                        bad.append((f"segment.{f}", gs.get(f), v))
+        elif got[k] != w:
+            bad.append((k, "differs"))
+    return bad
+
+
+def _schedule_vs_golden(device) -> dict:
+    """(a): every golden design through ``Session(board).schedule`` and
+    through ``schedule_specs`` on the card, held to the JAX package's."""
+    import numpy as np
+    from repro_torch.api import Session, get_board, get_cnn
+    from repro_torch.cnn.registry import CNN_NAMES
+    from repro_torch.core.notation import format_spec
+    from repro_torch.fpga.archs import ARCH_NAMES, make_arch
+    from repro_torch.fpga.boards import BOARD_NAMES
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.schedule import build_artifact, schedule_specs
+
+    golden = np.load(os.path.join(ROOT, "src", "repro_torch", "data",
+                                  "golden_schedule.npz"))
+    groups = sorted({tuple(k.split("/")[1:3]) for k in golden.files
+                     if k.startswith("sched/")})
+    sessions = {b: Session(get_board(b), device=str(device))
+                for b in BOARD_NAMES}
+    worst: dict = {}
+    strict = untouched = designs = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    for cnn, board in groups:
+        net, ses = get_cnn(cnn), sessions[board]
+        specs = [make_arch(a, net, n) for a in ARCH_NAMES
+                 for n in TEMPLATE_NS]
+        prefix = f"sched/{cnn}/{board}/"
+        want = {k[len(prefix):]: golden[k] for k in golden.files
+                if k.startswith(prefix)}
+        out = schedule_specs(specs, net, ses.device_tables(),
+                             tables=ses.tables(net))
+        got = {k: v[:, :len(net)] if want[k].ndim == 2
+               and v.shape[1] != want[k].shape[1] else v
+               for k, v in out.items()}
+        if sorted(got) != sorted(want):
+            raise PhaseFailed(f"schedule (a) {cnn}/{board}: fields "
+                              f"{sorted(set(got) ^ set(want))}")
+        for k, w in want.items():
+            g = got[k]
+            if g.shape != w.shape:
+                raise PhaseFailed(f"schedule (a) {cnn}/{board}: {k} shape "
+                                  f"{g.shape} != {w.shape}")
+            if k in SCHED_EXACT:
+                if not np.array_equal(g, w):
+                    raise PhaseFailed(
+                        f"schedule (a) {cnn}/{board}: {k} differs in "
+                        f"{int((g != w).sum())} entries")
+                continue
+            if not np.isfinite(g).all():
+                raise PhaseFailed(f"schedule (a) {cnn}/{board}: "
+                                  f"non-finite {k}")
+            rel = float((np.abs(g.astype(np.float64) - w)
+                         / np.maximum(np.abs(w), 1e-30)).max())
+            worst[k] = max(worst.get(k, 0.0), rel)
+            if rel > RTOL_METRICS:
+                raise PhaseFailed(f"schedule (a) {cnn}/{board}: {k} rel "
+                                  f"err {rel} > {RTOL_METRICS}")
+        lat, coarse = got["ref_latency_s"], got["coarse_latency_s"]
+        if (lat > coarse).any():
+            raise PhaseFailed(f"schedule (a) {cnn}/{board}: refined above "
+                              f"coarse on {int((lat > coarse).sum())} rows")
+        same = ~np.any((got["choice"] != 0) & got["valid_l"], axis=1)
+        for k in ("latency_s", "throughput_ips", "access_bytes",
+                  "buffer_bytes"):
+            if not np.array_equal(got[f"ref_{k}"][same],
+                                  got[f"coarse_{k}"][same]):
+                raise PhaseFailed(f"schedule (a) {cnn}/{board}: ref_{k} "
+                                  f"parts from coarse on an all-0 row")
+        strict += int((lat < coarse).sum())
+        untouched += int(same.sum())
+        for i, spec in enumerate(specs):
+            art = ses.schedule(spec, net)
+            exp = build_artifact(want, i, net=net, board_name=board,
+                                 design_repr=format_spec(spec, len(net)),
+                                 wordbytes=get_board(board).wordbytes)
+            bad = _artifact_diff(art.to_dict(), exp.to_dict(), worst)
+            if bad:
+                raise PhaseFailed(f"schedule (a) {cnn}/{board} design {i}: "
+                                  f"artifact {bad[:3]}")
+            designs += 1
+    arts = 0
+    for cnn in CNN_NAMES:
+        net = get_cnn(cnn)
+        art = sessions["zc706"].schedule(make_arch("hybrid", net, 6), net)
+        bad = _artifact_diff(json.loads(art.to_json()),
+                             json.loads(str(golden[f"artifact/{cnn}"])),
+                             worst)
+        if bad:
+            raise PhaseFailed(f"schedule (a) {cnn}: artifact parts from "
+                              f"the golden JSON: {bad[:3]}")
+        arts += 1
+    n = launches()
+    wall = time.perf_counter() - t0
+    calls = designs + arts
+    if n["parallelism_search"] < len(groups) + calls:
+        raise PhaseFailed(f"schedule (a): {n['parallelism_search']} search "
+                          f"launches for {len(groups)} schedule_specs calls "
+                          f"and {calls} Session.schedule calls")
+    for ses in sessions.values():
+        ses.close()
+    return dict(groups=len(groups), designs=designs, golden_artifacts=arts,
+                launches=n, wall_s=wall, strictly_refined=strict,
+                all_zero_rows=untouched, rtol=RTOL_METRICS,
+                max_rel_err=worst)
+
+
+def _schedule_plane(device, batch) -> dict:
+    """(b): the card's plane against the CPU's, from one layer state."""
+    import torch
+    from repro_torch.api import get_board, get_cnn
+    from repro_torch.core.batch_eval import (LayerState, make_device_tables,
+                                             make_tables)
+    from repro_torch.schedule import coarse_state, plane_of_state
+
+    net, board = get_cnn("resnet50"), get_board("zcu102")
+    t = make_tables(net, device=device)
+    dt = make_device_tables(board, device=device)
+    part = batch.take(slice(0, SCHED_PLANE_DESIGNS)).to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    m, st = coarse_state(part, t, dt)
+    card = plane_of_state(t, dt, st, m.pipe_bool, m.valid_b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    plane_ms = cuda_ms(lambda: plane_of_state(t, dt, st, m.pipe_bool,
+                                              m.valid_b), 5)
+    host = plane_of_state(make_tables(net, device="cpu"),
+                          make_device_tables(board, device="cpu"),
+                          LayerState(*[x.cpu() for x in st]),
+                          m.pipe_bool.cpu(), m.valid_b.cpu())
+    if sorted(card) != sorted(host):
+        raise PhaseFailed("schedule (b): the planes' fields differ")
+    for k, h in host.items():
+        c = card[k].cpu()
+        if c.shape != h.shape or c.dtype != h.dtype \
+                or not torch.equal(c, h):
+            n = int((c != h).sum()) if c.shape == h.shape else -1
+            raise PhaseFailed(f"schedule (b): {k} on the card parts from "
+                              f"the CPU's in {n} entries")
+    score = card["score"]
+    valid = m.valid_b
+    ties = (score == score[..., :1]).all(-1) & valid
+    tie_choice = card["choice"][ties]
+    if bool((tie_choice != 0).any()):
+        raise PhaseFailed(f"schedule (b): {int((tie_choice != 0).sum())} "
+                          f"all-tie layers did not choose candidate 0")
+    return dict(cnn="resnet50", board="zcu102", designs=part.batch,
+                layers_padded=t.max_L, candidates=score.shape[-1],
+                fields=sorted(host), bit_equal=True,
+                valid_layers=int(valid.sum()), all_tie_layers=int(
+                    ties.sum()), all_tie_choice_0=True,
+                refined_layers=int(((card["choice"] != 0) & valid).sum()),
+                plane_ms=plane_ms, max_memory_allocated=peak)
+
+
+def _schedule_single(device, seed: int) -> dict:
+    """(c): use case 2, one design at a time: ``Session.schedule`` cold
+    (a memo miss) and warm (a hit) on 64 designs across the CNNs."""
+    import torch
+    from repro_torch.api import Session, get_board, get_cnn
+    from repro_torch.cnn.registry import CNN_NAMES
+    from repro_torch.core.notation import format_spec
+
+    nets = [get_cnn(c) for c in CNN_NAMES]
+    per = -(-(SCHED_SINGLE_DESIGNS + 1) // len(nets))
+    pools = []
+    for i, net in enumerate(nets):            # distinct designs a net
+        seen = {}
+        for spec in _spec_pool(net, 4 * per, seed + i):
+            seen.setdefault(format_spec(spec, len(net)), spec)
+        pools.append(list(seen.values())[:per])
+    todo = [(nets[i % len(nets)], pools[i % len(nets)][i // len(nets)])
+            for i in range(SCHED_SINGLE_DESIGNS + 1)]
+    with Session(get_board(SCHED_SINGLE_BOARD), device=str(device)) as ses:
+        for net in nets:                      # tables built outside timing
+            ses.tables(net)
+        ses.device_tables()
+        cold, warm = [], []
+        for net, spec in todo[:-1]:
+            t0 = time.perf_counter()
+            art = ses.schedule(spec, net)
+            cold.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            again = ses.schedule(spec, net)
+            warm.append(time.perf_counter() - t0)
+            if again is not art or art.latency_s > art.coarse_latency_s:
+                raise PhaseFailed("schedule (c): a warm call missed the "
+                                  "memo or refined above coarse")
+        stats = ses.stats.as_dict()
+        if (stats["schedule_builds"], stats["schedule_hits"]) != (
+                SCHED_SINGLE_DESIGNS, SCHED_SINGLE_DESIGNS):
+            raise PhaseFailed(f"schedule (c): builds/hits {stats}")
+        net, spec = todo[-1]
+        torch.cuda.synchronize()
+        prof = _device_profile(lambda: ses.schedule(spec, net),
+                               "schedule_cold",
+                               share_of="parallelism_search")
+        cold_med = statistics.median(cold)
+        if "device_busy_s" in prof:
+            prof["device_idle_share"] = max(
+                0.0, 1 - prof["device_busy_s"] / cold_med)
+        compile_stats = ses.compile_stats()
+    return dict(board=SCHED_SINGLE_BOARD, designs=SCHED_SINGLE_DESIGNS,
+                cnns=len(nets), cold=_quantiles(cold), warm=_quantiles(warm),
+                cold_median_s=cold_med, profile_cold=prof,
+                compile=compile_stats)
+
+
+def _schedule_front(device) -> dict:
+    """(d): the 100k random sweep's front, refined."""
+    import numpy as np
+    from repro_torch.api import Session, get_board, get_cnn
+
+    net = get_cnn(DSE_CNN)
+    with Session(get_board(), device=str(device)) as ses:
+        t0 = time.perf_counter()
+        base = ses.explore(net, n=DSE_BUDGET, seed=DSE_RANDOM_SEED)
+        base_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = ses.explore(net, n=DSE_BUDGET, seed=DSE_RANDOM_SEED,
+                          refine="schedule")
+        refined_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = ses._refine_front(base, net, None)
+        refine_s = time.perf_counter() - t0
+        board = ses.default_device.name
+    if base.refined is not None or res.refined is None:
+        raise PhaseFailed("schedule (d): refined is set on the wrong run")
+    if not np.array_equal(res.front, base.front):
+        raise PhaseFailed("schedule (d): the refined run's front parts")
+    for a, b in zip(res.batch.to_numpy(), base.batch.to_numpy()):
+        if not np.array_equal(a, b):
+            raise PhaseFailed("schedule (d): the refined run's designs part")
+    if not _same_bits(res.metrics, base.metrics):
+        raise PhaseFailed("schedule (d): the refined run's metrics part")
+    r = res.refined
+    if not np.array_equal(r["coarse_latency_s"],
+                          base.metrics["latency_s"][base.front]):
+        raise PhaseFailed("schedule (d): refined coarse_latency_s parts "
+                          "from the front rows' latency")
+    if (r["latency_s"] > r["coarse_latency_s"]).any():
+        raise PhaseFailed("schedule (d): refined above coarse")
+    if not _same_bits(again, r):
+        raise PhaseFailed("schedule (d): a second refine of the front "
+                          "parts from the first")
+    return dict(cnn=DSE_CNN, board=board, n=DSE_BUDGET,
+                seed=DSE_RANDOM_SEED, front=int(res.front.size),
+                explore_s=base_s, explore_refined_s=refined_s,
+                refine_added_s=refined_s - base_s, refine_front_s=refine_s,
+                strictly_refined=int((r["latency_s"]
+                                      < r["coarse_latency_s"]).sum()),
+                max_saving_frac=float(r["saving_frac"].max()),
+                bit_equal=True)
+
+
+def _schedule_full(device, batch, us_per_design_phase4: float) -> dict:
+    """(e): ``schedule_specs`` at full width on phase 4's designs."""
+    import numpy as np
+    import torch
+    from repro_torch.api import get_board, get_cnn
+    from repro_torch.core.batch_eval import (DEFAULT_CHUNK,
+                                             make_device_tables, make_tables)
+    from repro_torch.core.dse import decode_batch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.schedule import schedule_batch, schedule_specs
+
+    net, board = get_cnn("resnet50"), get_board("zcu102")
+    t = make_tables(net, device=device)
+    dt = make_device_tables(board, device=device)
+    specs = decode_batch(batch.take(slice(0, SCHED_FULL_DESIGNS)), len(net))
+    chunks = -(-len(specs) // DEFAULT_CHUNK)
+    schedule_specs(specs[:DEFAULT_CHUNK], net, dt, tables=t)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = schedule_specs(specs, net, dt, tables=t)
+    wall = time.perf_counter() - t0
+    n = launches()
+    peak = torch.cuda.max_memory_allocated(device)
+    if n["parallelism_search"] != chunks:
+        raise PhaseFailed(f"schedule (e): {n['parallelism_search']} search "
+                          f"launches for {chunks} chunks")
+    for k, v in out.items():
+        if v.shape[0] != len(specs) or not np.isfinite(
+                v.astype(np.float64)).all():
+            raise PhaseFailed(f"schedule (e): {k} has shape {v.shape} or "
+                              f"non-finite values")
+    lat, coarse = out["ref_latency_s"], out["coarse_latency_s"]
+    if (lat > coarse).any():
+        raise PhaseFailed("schedule (e): refined above coarse")
+    # one chunk of the batch path's schedule twin under the profiler
+    part = batch.take(slice(0, DEFAULT_CHUNK)).to(device)
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        schedule_batch(part, t, dt)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    prof = _device_profile(lambda: schedule_batch(part, t, dt),
+                           "schedule_chunk", share_of="parallelism_search")
+    if "device_busy_s" in prof:
+        prof["wall_s_unprofiled"] = statistics.median(walls)
+        prof["device_idle_share"] = max(
+            0.0, 1 - prof["device_busy_s"] / statistics.median(walls))
+    return dict(cnn="resnet50", board="zcu102", designs=len(specs),
+                cut_from=batch.batch, chunks=chunks, wall_s=wall,
+                us_per_design=wall / len(specs) * 1e6,
+                phase4_evaluate_us_per_design=us_per_design_phase4,
+                launches=n, search_launches_per_chunk=n[
+                    "parallelism_search"] / chunks,
+                max_memory_allocated=peak,
+                strictly_refined=int((lat < coarse).sum()),
+                max_saving_frac=float((1 - lat / coarse).max()),
+                chunk_profile=prof)
+
+
+def _schedule_fault(device) -> dict:
+    """(f): a scorer fault on the card ends in BACKEND_FAULT after the
+    retries; the CPU route never runs."""
+    from repro_torch.api import EvalError, Session, get_board, get_cnn
+    from repro_torch.kernels.schedule_score import set_fault_hook
+
+    calls = {"cuda": 0, "cpu": 0}
+
+    def hook(site, route):
+        calls[route] = calls.get(route, 0) + 1
+        if route == "cuda":
+            raise RuntimeError("injected scorer fault")
+
+    net = get_cnn("resnet50")
+    prev = set_fault_hook(hook)
+    try:
+        with Session(get_board("zcu102"), device=str(device),
+                     max_retries=SCHED_FAULT_RETRIES) as ses:
+            try:
+                ses.schedule("{L1-Last:CE1-CE4}", net)
+                code = "ok"
+            except EvalError as e:
+                code = e.code
+            stats = ses.stats.as_dict()
+            memo = ses.cache_stats()["schedule_artifacts"]["size"]
+    finally:
+        set_fault_hook(prev)
+    got = dict(code=code, scorer_calls_cuda=calls["cuda"],
+               plain_calls=calls["cpu"], retried=stats["retried"],
+               degraded=stats["degraded"], memoized=memo)
+    want = dict(code=EvalError.BACKEND_FAULT,
+                scorer_calls_cuda=SCHED_FAULT_RETRIES + 1, plain_calls=0,
+                retried=SCHED_FAULT_RETRIES, degraded=0, memoized=0)
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad:
+        raise PhaseFailed(f"schedule (f): {bad}")
+    return got
+
+
+def phase_schedule(card: str, device, seed: int, n_designs: int,
+                   us_per_design_phase4: float) -> dict:
+    """The schedule layer on the card: against the golden file, the card's
+    plane against the CPU's, use case 2 one design at a time, the DSE
+    front refined, full width, and a fault."""
+    import numpy as np
+    from repro_torch.api import get_cnn
+    from repro_torch.core.dse import sample_mixed
+
+    t_phase = time.perf_counter()
+    parts_s = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts_s[name] = time.perf_counter() - t0
+        return out
+
+    golden = part("a", _schedule_vs_golden, device)
+    batch = sample_mixed(np.random.default_rng(seed),
+                         len(get_cnn("resnet50")), n_designs)
+    plane = part("b", _schedule_plane, device, batch)
+    single = part("c", _schedule_single, device, seed)
+    front = part("d", _schedule_front, device)
+    full = part("e", _schedule_full, device, batch, us_per_design_phase4)
+    fault = part("f", _schedule_fault, device)
+    info = dict(card=card, golden=golden, plane=plane, single=single,
+                front=front, full=full, fault=fault, parts_s=parts_s,
+                phase_s=time.perf_counter() - t_phase)
+    emit("schedule", **info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2234,6 +2699,8 @@ def main(argv=None) -> int:
     flash_f32["launches"] = golden_lm["batches"]["long"]["flash_launches"]
     phase_dse(card, device)
     phase_submit(card, device, search["us_per_design_median"])
+    phase_schedule(card, device, args.seed, args.designs,
+                   search["us_per_design_median"])
     lost = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             or m == "repro" or m.startswith("repro.")]
     if lost:

@@ -6,6 +6,8 @@
     out = ses.evaluate([spec_a, spec_b], get_cnn("resnet50"))
     m = ses.evaluate(spec_a, get_cnn("resnet50"))      # scalar Metrics
     print(format_report(ses.explain(spec_a, get_cnn("resnet50"))))
+    art = ses.schedule(spec_a, get_cnn("resnet50"))   # ScheduleArtifact
+    print(art.to_json())                              # per-layer mappings
     dse = ses.explore(get_cnn("mobilenetv2"), n=100_000, strategy="search")
     front = dse.front_points()                        # (latency, buffer)
     fut = ses.submit(specs, get_cnn("resnet50"))      # queued, megabatched
@@ -22,9 +24,11 @@ from .core.dse import DSEResult, SearchConfig, orient, pareto
 from .core.resilience import EvalError, load_checkpoint, save_checkpoint
 from .core.session import EvalConfig, Session, SessionStats, default_session
 from .fpga.boards import get_board
+from .schedule import ScheduleArtifact
 from .telemetry.report import bottleneck_report, format_report
 
-__all__ = ["DSEResult", "EvalConfig", "EvalError", "SearchConfig", "Session",
-           "SessionStats", "bottleneck_report", "default_session",
-           "format_report", "get_board", "get_cnn", "load_checkpoint",
-           "orient", "pareto", "save_checkpoint", "telemetry"]
+__all__ = ["DSEResult", "EvalConfig", "EvalError", "ScheduleArtifact",
+           "SearchConfig", "Session", "SessionStats", "bottleneck_report",
+           "default_session", "format_report", "get_board", "get_cnn",
+           "load_checkpoint", "orient", "pareto", "save_checkpoint",
+           "telemetry"]

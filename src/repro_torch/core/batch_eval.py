@@ -805,15 +805,13 @@ def _pad_rows(design: DesignBatch, n: int) -> DesignBatch:
                        rep(design.seg_nce), rep(design.inter_pipe))
 
 
-def evaluate_batch(design: DesignBatch, tables: NetTables,
-                   dev: DeviceSpec | DeviceTables, fm_tile_rows: int = 2,
-                   *, tile: int = DEFAULT_TILE,
-                   chunk: int = DEFAULT_CHUNK) -> dict[str, torch.Tensor]:
-    """DesignBatch -> metric tensors on the tables' device.
-
-    The batch runs in blocks of ``chunk`` designs on the card (one search
-    kernel launch per block) and of ``tile`` designs on the CPU.
-    """
+def _blocks(design: DesignBatch, tables: NetTables,
+           dev: DeviceSpec | DeviceTables, *, tile: int = DEFAULT_TILE,
+           chunk: int = DEFAULT_CHUNK):
+    """The set-up a blocked batch call shares: the board's
+    ``DeviceTables``, the search's ``SearchTables`` and the row blocks, all
+    on the tables' device.  A block is ``chunk`` designs on the card (one
+    search-kernel launch) and ``tile`` designs on the CPU."""
     device = tables.device
     if isinstance(dev, DeviceSpec):
         hint = pes_hint(dev.pes)
@@ -825,12 +823,30 @@ def evaluate_batch(design: DesignBatch, tables: NetTables,
     design = design.to(device)
     search = _pair_layer_tables(tables, pair_tables(tables.candidates, hint))
     rows = tile if device.type == "cpu" else chunk
-    outs = [eval_design_block(design.take(slice(s, s + rows)), tables, dev,
-                              search, fm_tile_rows=fm_tile_rows)
-            for s in range(0, design.batch, rows)]
+    return dev, search, [design.take(slice(s, s + rows))
+                         for s in range(0, design.batch, rows)]
+
+
+def _cat_blocks(outs: list[dict]) -> dict:
+    """Row-concatenate the per-block output dicts."""
     if len(outs) == 1:
         return outs[0]
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+def evaluate_batch(design: DesignBatch, tables: NetTables,
+                   dev: DeviceSpec | DeviceTables, fm_tile_rows: int = 2,
+                   *, tile: int = DEFAULT_TILE,
+                   chunk: int = DEFAULT_CHUNK) -> dict[str, torch.Tensor]:
+    """DesignBatch -> metric tensors on the tables' device.
+
+    The batch runs in blocks of ``chunk`` designs on the card (one search
+    kernel launch per block) and of ``tile`` designs on the CPU.
+    """
+    dev, search, parts = _blocks(design, tables, dev, tile=tile, chunk=chunk)
+    return _cat_blocks([eval_design_block(b, tables, dev, search,
+                                          fm_tile_rows=fm_tile_rows)
+                        for b in parts])
 
 
 # --------------------------------------------------------------------------
@@ -850,13 +866,16 @@ def _evaluate_specs(specs: list[AcceleratorSpec], net: Network,
                     chunk: int = DEFAULT_CHUNK, *,
                     tables: NetTables | None = None,
                     tile: int = DEFAULT_TILE, pad_to: int | None = None,
-                    fm_tile_rows: int = 2,
-                    device="cuda") -> dict[str, np.ndarray]:
+                    fm_tile_rows: int = 2, device="cuda",
+                    batch_fn=None) -> dict[str, np.ndarray]:
     """Specs -> stacked host metric arrays, ``chunk`` specs at a time.
 
     Every chunk, the tail included, is padded to one row count
     (``pad_to``, by default ``chunk`` or the bucket of a shorter list).
     ``device`` is where the tables are built when ``tables`` is None.
+    ``batch_fn`` is the batch path each chunk runs through: by default
+    :func:`evaluate_batch`, or the schedule layer's ``schedule_batch``,
+    which takes the same arguments.
     """
     if not specs:
         raise ValueError("no specs to evaluate (empty design list)")
@@ -870,7 +889,8 @@ def _evaluate_specs(specs: list[AcceleratorSpec], net: Network,
         sub = specs[i:i + chunk]
         batch = _pad_rows(encode_specs(sub, n_layers, device=tables.device),
                           pad_to)
-        out = evaluate_batch(batch, tables, dev, fm_tile_rows, tile=tile,
-                             chunk=max(chunk, pad_to))
+        out = (batch_fn or evaluate_batch)(
+            batch, tables, dev, fm_tile_rows, tile=tile,
+            chunk=max(chunk, pad_to))
         outs.append({k: v[:len(sub)].cpu().numpy() for k, v in out.items()})
     return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}

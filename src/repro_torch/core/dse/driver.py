@@ -45,6 +45,9 @@ class DSEResult:
     timings: list[dict] = field(default_factory=list)
     #: the search's per-generation archive record (empty for random)
     history: list[dict] = field(default_factory=list)
+    #: schedule-refined front metrics, front-aligned arrays: set only by
+    #: ``Session.explore(refine="schedule")``
+    refined: dict | None = None
 
     def front_points(self) -> np.ndarray:
         """Oriented (lower-better) objective points of the front rows."""

@@ -2,12 +2,14 @@
 and the evaluation knobs, and scores designs on one device.
 
 The PyTorch port of the JAX package's ``core/session.py``, without the
-mesh and the multi-model and schedule entry points: ``evaluate`` on one
-spec or notation string (the scalar Builder, plain Python on the host,
-whatever the session's device), on a list of them and on a
-``DesignBatch`` (the batch path, on the session's device); ``build`` and
-``explain`` on one design; ``explore``, the DSE (random sweep or guided
-search) on the session's device; the serving lane: ``submit`` (a
+mesh and the multi-model entry points: ``evaluate`` on one spec or
+notation string (the scalar Builder, plain Python on the host, whatever
+the session's device), on a list of them and on a ``DesignBatch`` (the
+batch path, on the session's device); ``build`` and ``explain`` on one
+design; ``schedule``, the per-CE temporal-mapping search under one design
+(and ``refine="schedule"`` on ``explain`` and ``explore``), on the
+session's device; ``explore``, the DSE (random sweep or guided search) on
+the session's device; the serving lane: ``submit`` (a
 ``Future``, served by a background drain that coalesces queued requests
 into megabatches, with deadlines and admission control) and
 ``submit_search`` (long DSE jobs on their own worker); the lifecycle
@@ -32,19 +34,23 @@ import torch
 
 from ..kernels import launches
 from ..kernels._nvcc import builds
+from ..kernels.schedule_score import NCAND
+from ..schedule import ScheduleArtifact, build_artifact
+from ..schedule.search import schedule_batch, schedule_specs
 from ..telemetry.report import bottleneck_report
 from . import telemetry
 from .batch_eval import (DEFAULT_CHUNK, DEFAULT_TILE, DeviceTables,
-                         NetTables, _evaluate_specs, bucket_max_L,
-                         evaluate_batch, make_device_tables, make_tables)
+                         NetTables, _bucket, _evaluate_specs, _pad_rows,
+                         bucket_max_L, evaluate_batch, make_device_tables,
+                         make_tables)
 from .cache import DEFAULT_MAX_TABLES, TABLES_ENV, BoundedLRU, env_bound
 from .coalesce import ArrivalEstimator, plan_megabatch
 from .device import DeviceSpec
 from .dse.driver import DEFAULT_OBJECTIVES, DSEResult, _explore
-from .dse.encoding import NC, DesignBatch, validate_batch
+from .dse.encoding import NC, DesignBatch, encode_specs, validate_batch
 from .dse.search import SearchConfig
 from .evaluator import _evaluate_design, build_design
-from .notation import AcceleratorSpec, parse
+from .notation import AcceleratorSpec, format_spec, parse
 from .resilience import (CircuitBreaker, EvalError, classify,
                          nonfinite_keys, retry_delay, wrap)
 from .workload import Network
@@ -137,6 +143,10 @@ class SessionStats:
     batch_designs: int = 0
     scalar_evals: int = 0
     explore_calls: int = 0
+    schedule_calls: int = 0
+    schedule_builds: int = 0   # schedule searches actually run
+    schedule_hits: int = 0     # artifacts served from the bounded memo
+    schedule_evictions: int = 0
     submits: int = 0
     megabatches: int = 0
     megabatch_requests: int = 0
@@ -210,6 +220,7 @@ class Session:
     >>> ses.evaluate([spec_a, spec_b], net)               # metric arrays
     >>> ses.evaluate(design_batch, net)                   # metric tensors
     >>> ses.submit(specs, net).result()                   # queued, megabatched
+    >>> ses.schedule(spec, net)                           # ScheduleArtifact
     """
 
     def __init__(self, dev: DeviceSpec | None = None, *,
@@ -237,6 +248,11 @@ class Session:
         self._dev_tables = BoundedLRU(
             bound,
             on_evict=lambda *_: self.stats.bump("device_table_evictions"))
+        # schedule artifacts per (net, board, design): small decoded
+        # dataclasses, but keys churn with every distinct design, so the
+        # same bound and the same eviction-counter contract
+        self._schedule_memo = BoundedLRU(
+            bound, on_evict=lambda *_: self.stats.bump("schedule_evictions"))
         # the submit queue and its drain thread (the interactive lane)
         self._cv = threading.Condition()
         self._pending: list[_Request] = []
@@ -474,9 +490,11 @@ class Session:
         the busiest CE, Fig. 6's memory-bound layers and idle fraction, and
         Fig. 7's weights-vs-FMs access split.
 
-        ``refine="schedule"`` (the JAX package's per-CE temporal-mapping
-        refinement) raises ``NotImplementedError``: the schedule layer is
-        a later slice of the port (``ROADMAP.md``, queue 1).
+        ``refine="schedule"`` also runs the per-CE temporal-mapping search
+        (:meth:`schedule`) and attaches its refined per-segment costs as a
+        ``"schedule"`` section: coarse vs refined cycles per segment and
+        the headline latency saving.  The coarse attribution is the same
+        either way.
         """
         if not isinstance(design, (str, AcceleratorSpec)):
             raise EvalError(
@@ -487,14 +505,80 @@ class Session:
             raise EvalError(EvalError.INVALID_INPUT,
                             f"unknown refine mode {refine!r} "
                             "(expected None or 'schedule')")
+        m = self.evaluate(design, net, dev,
+                          inter_segment_pipelining=inter_segment_pipelining)
+        art = None
         if refine == "schedule":
-            raise NotImplementedError(
-                "explain(refine='schedule') needs the schedule layer, which "
-                "the port does not have yet (ROADMAP.md, queue 1: the "
-                "schedule slice)")
-        return bottleneck_report(self.evaluate(
-            design, net, dev,
-            inter_segment_pipelining=inter_segment_pipelining))
+            art = self.schedule(
+                design, net, dev,
+                inter_segment_pipelining=inter_segment_pipelining)
+        return bottleneck_report(m, schedule=art)
+
+    def schedule(self, design, net: Network, dev: DeviceSpec | None = None,
+                 *, inter_segment_pipelining: bool = True
+                 ) -> ScheduleArtifact:
+        """Per-CE temporal-mapping search under one design, on the
+        session's device: refine the coarse MCCM estimate by choosing each
+        layer's loop order, tile size and buffering from an explicit
+        candidate plane, scored in the same cost terms.
+
+        Returns the JSON-serializable
+        :class:`~repro_torch.schedule.ScheduleArtifact`: refined vs coarse
+        latency/traffic/energy, per-layer chosen mappings, per-CE buffer
+        plans and per-segment costs.  Refined latency never exceeds the
+        coarse estimate (candidate 0 is the coarse mapping).  Artifacts
+        memoize per (net, board, design) in a bounded LRU.  A malformed
+        design raises ``EvalError(INVALID_INPUT)``; a faulted search is
+        retried ``max_retries`` times and then raises
+        ``EvalError(BACKEND_FAULT)``, never run on the CPU instead.
+        """
+        if not isinstance(design, (str, AcceleratorSpec)):
+            raise EvalError(
+                EvalError.INVALID_INPUT,
+                "schedule() takes one design (notation string or "
+                "AcceleratorSpec)")
+        dev = self._device(dev)
+        self.stats.bump("schedule_calls")
+        try:
+            spec = parse(design, len(net), inter_segment_pipelining=
+                         inter_segment_pipelining) \
+                if isinstance(design, str) else design
+            spec.validate(len(net))
+            enc = encode_specs([spec], len(net))
+        except Exception as e:  # noqa: BLE001 — taxonomy boundary
+            raise wrap(e, EvalError.INVALID_INPUT) from e
+        key = (self._net_key(net), dev) + tuple(
+            a.tobytes() for a in enc.to_numpy())
+        with self._table_lock:
+            hit = self._schedule_memo.get(key)
+        if hit is not None:
+            self.stats.bump("schedule_hits")
+            return hit
+        cfg = self.config
+        with telemetry.span("session.schedule") as sp:
+            sp.set_attr("net", net.name)
+            sp.set_attr("board", dev.name)
+            out = self._resilient_call(lambda: schedule_specs(
+                [spec], net, self.device_tables(dev),
+                tables=self.tables(net), tile=cfg.tile, chunk=cfg.chunk,
+                fm_tile_rows=cfg.fm_tile_rows))
+            if not np.isfinite([float(out["ref_latency_s"][0]),
+                                float(out["coarse_latency_s"][0])]).all():
+                raise EvalError(EvalError.NONFINITE_METRICS,
+                                "schedule search produced non-finite "
+                                "latency")
+            art = build_artifact(
+                out, 0, net=net, board_name=dev.name,
+                design_repr=format_spec(spec, len(net)),
+                wordbytes=dev.wordbytes)
+            sp.set_attr("candidates", art.n_candidates)
+            sp.set_attr("n_refined", art.meta.get("n_refined", 0))
+        telemetry.count("schedule.candidates", art.n_candidates)
+        telemetry.count("schedule.searches")
+        with self._table_lock:
+            self._schedule_memo.put(key, art)
+        self.stats.bump("schedule_builds")
+        return art
 
     # ---- DSE (paper use case 3) ------------------------------------------
     def explore(self, net: Network, n: int = 100_000,
@@ -510,38 +594,72 @@ class Session:
         same seed draws the same designs as the JAX package's
         ``Session.explore``.
 
-        ``refine="schedule"`` (the JAX package's schedule-refined front)
-        raises ``NotImplementedError``: the schedule layer is a later slice
-        of the port (``ROADMAP.md``, queue 1).  A kernel fault raises
-        ``EvalError(BACKEND_FAULT)`` and is fed to the breaker; a search is
-        not retried, and nothing falls back to the plain version.
+        ``refine="schedule"`` re-scores the final Pareto front with the
+        per-CE temporal-mapping search: the sweep itself still runs on the
+        coarse model (the refinement can only lower latency, never
+        invalidate a front member), and the result gains a ``refined`` dict
+        of schedule-refined latency/access arrays aligned with ``front``.
+        A kernel fault raises ``EvalError(BACKEND_FAULT)`` and is fed to the
+        breaker; a search is not retried, and nothing falls back to the
+        plain version.
         """
         if refine not in (None, "schedule"):
             raise EvalError(EvalError.INVALID_INPUT,
                             f"unknown refine mode {refine!r} "
                             "(expected None or 'schedule')")
-        if refine == "schedule":
-            raise NotImplementedError(
-                "explore(refine='schedule') needs the schedule layer, which "
-                "the port does not have yet (ROADMAP.md, queue 1: the "
-                "schedule slice)")
         self.stats.bump("explore_calls")
         cfg = self.config
         with telemetry.span("session.explore") as sp:
             sp.set_attr("n", n)
             sp.set_attr("strategy", strategy)
             try:
-                return _explore(net, self._device(dev), n, family=family,
-                                seed=seed, chunk=chunk, strategy=strategy,
-                                objectives=objectives, config=config,
-                                tables=self.tables(net), tile=cfg.tile,
-                                eval_chunk=cfg.chunk)
+                res = _explore(net, self._device(dev), n, family=family,
+                               seed=seed, chunk=chunk, strategy=strategy,
+                               objectives=objectives, config=config,
+                               tables=self.tables(net), tile=cfg.tile,
+                               eval_chunk=cfg.chunk)
             except Exception as e:  # noqa: BLE001 — classified below
                 if classify(e) != EvalError.BACKEND_FAULT \
                         or isinstance(e, (EvalError, NotImplementedError)):
                     raise
                 self.breaker.record_failure()
                 raise wrap(e, EvalError.BACKEND_FAULT) from e
+            if refine == "schedule" and res.front.size:
+                res.refined = self._refine_front(res, net, dev)
+                sp.set_attr("refined_front", int(res.front.size))
+            return res
+
+    def _refine_front(self, res: DSEResult, net: Network, dev) -> dict:
+        """Schedule-refine a DSE result's Pareto front: one batched
+        schedule search over the front designs (padded to the ladder
+        bucket), returning front-aligned host arrays."""
+        dev = self._device(dev)
+        cfg = self.config
+        nf = int(res.front.size)
+        front = res.batch.take(torch.as_tensor(res.front))
+        padded = _pad_rows(front, _bucket(nf, cfg.tile))
+        with telemetry.span("session.schedule_front") as fsp:
+            fsp.set_attr("designs", nf)
+            out = self._resilient_call(lambda: schedule_batch(
+                padded.to(self.device), self.tables(net),
+                self.device_tables(dev), cfg.fm_tile_rows, tile=cfg.tile,
+                chunk=cfg.chunk))
+            host = {k: out[k][:nf].cpu().numpy() for k in (
+                "ref_latency_s", "coarse_latency_s", "ref_throughput_ips",
+                "ref_access_bytes", "coarse_access_bytes", "valid_l")}
+        telemetry.count("schedule.candidates",
+                        int(host["valid_l"].sum()) * NCAND)
+        lat, coarse = host["ref_latency_s"], host["coarse_latency_s"]
+        return {
+            "latency_s": lat,
+            "coarse_latency_s": coarse,
+            "throughput_ips": host["ref_throughput_ips"],
+            "access_bytes": host["ref_access_bytes"],
+            "coarse_access_bytes": host["coarse_access_bytes"],
+            "saving_frac": np.where(coarse > 0.0,
+                                    1.0 - lat / np.maximum(coarse, 1e-30),
+                                    0.0),
+        }
 
     # ---- queued requests (the serve-many-users path) ---------------------
     def submit(self, designs, net: Network,
@@ -976,10 +1094,12 @@ class Session:
         return counts
 
     def cache_stats(self) -> dict[str, dict[str, int]]:
-        """Size / bound / eviction counters of the two table memos."""
+        """Size / bound / eviction counters of the table memos and the
+        schedule-artifact memo."""
         with self._table_lock:
             return {"net_tables": self._net_tables.stats(),
-                    "device_tables": self._dev_tables.stats()}
+                    "device_tables": self._dev_tables.stats(),
+                    "schedule_artifacts": self._schedule_memo.stats()}
 
     def observability(self) -> dict:
         """One-stop report: build and launch counts, session counters,

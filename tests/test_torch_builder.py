@@ -179,15 +179,18 @@ def test_scalar_path_errors_and_build():
     with pytest.raises(EvalError) as e:
         ses.explain("{L1-Last:CE1}", net, refine="bogus")
     assert e.value.code == EvalError.INVALID_INPUT
-    with pytest.raises(NotImplementedError, match="schedule"):
-        ses.explain("{L1-Last:CE1}", net, refine="schedule")
+    rep = ses.explain("{L1-Last:CE1}", net, refine="schedule")
+    assert rep["summary"] == ses.explain("{L1-Last:CE1}", net)["summary"]
+    sched = rep["schedule"]
+    assert sched["latency_s"] <= sched["coarse_latency_s"]
+    assert [s["index"] for s in sched["segments"]] == [0]
     acc = ses.build("{L1-L20:CE1, L21-Last:CE2-CE5}", net,
                     inter_segment_pipelining=False)
     assert not acc.spec.inter_segment_pipelining
     m = ses.evaluate("{L1-L20:CE1, L21-Last:CE2-CE5}", net,
                      inter_segment_pipelining=False)
     assert m == _evaluate_design(acc.spec, net, get_board("zcu102"))
-    assert ses.stats.scalar_evals == 2         # the refused one counts
+    assert ses.stats.scalar_evals == 4         # the refused one counts
 
 
 def test_layer_cycles_is_eq1():

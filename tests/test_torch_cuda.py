@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel (the parallelism search, the Eq. 1
 latency sweep, the CE convolution, flash attention) against its plain
-PyTorch version, the Session's main path through the search kernel, and
-the LM serving path through the flash kernel.
+PyTorch version, the Session's main path through the search kernel, the
+schedule layer's plane and artifacts against the CPU's, and the LM serving
+path through the flash kernel.
 
 Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
 no card is visible (the decision is made in the fixture, never at import).
@@ -38,6 +39,8 @@ from repro_torch.kernels.mccm_eval import (launches, mccm_latency,
                                            parallelism_search_ref,
                                            reset_launches)
 from repro_torch.kernels.mccm_eval import ops as mccm_ops
+from repro_torch.core.batch_eval import LayerState
+from repro_torch.schedule import coarse_state, plane_of_state
 
 pytestmark = pytest.mark.gpu
 
@@ -775,3 +778,87 @@ def test_faulted_drain_fails_every_future_on_card(cuda, monkeypatch):
     assert calls == {"cuda": 2 * (1 + len(ARCH_NAMES)), "plain": 0}
     assert ses.stats.degraded == 0 and ses.stats.retried == \
         1 + len(ARCH_NAMES)
+
+
+def _card_and_cpu_planes(device, net, board, db):
+    """The plane on the card and on the CPU from the card's layer state."""
+    t = make_tables(net, device=device)
+    dt = make_device_tables(board, device=device)
+    m, st = coarse_state(db.to(device), t, dt)
+    card = plane_of_state(t, dt, st, m.pipe_bool, m.valid_b)
+    host = plane_of_state(make_tables(net, device="cpu"),
+                          make_device_tables(board, device="cpu"),
+                          LayerState(*[x.cpu() for x in st]),
+                          m.pipe_bool.cpu(), m.valid_b.cpu())
+    return card, host, m.valid_b
+
+
+@pytest.mark.parametrize("cnn,board", [("resnet50", "zcu102"),
+                                       ("mobilenetv2", "zc706"),
+                                       ("vgg16", "vcu108")])
+def test_schedule_plane_on_card_equals_cpu(cuda, cnn, board):
+    net = get_cnn(cnn)
+    db = sample_mixed(np.random.default_rng(3), len(net), 1024)
+    card, host, _ = _card_and_cpu_planes(cuda, net, get_board(board), db)
+    assert sorted(card) == sorted(host)
+    for k, h in host.items():
+        assert card[k].dtype == h.dtype, k
+        assert torch.equal(card[k].cpu(), h), k
+
+
+def test_schedule_all_tie_rows_choose_zero_on_card(cuda):
+    """Where every candidate of a valid layer scores the same, the card's
+    argmin takes candidate 0, as the CPU's does."""
+    n_ties = 0
+    for cnn in CNN_NAMES:
+        net = get_cnn(cnn)
+        db = encode_specs([make_arch(a, net, n) for a in ARCH_NAMES
+                           for n in (2, 5, 9, 11)], len(net))
+        card, _, valid = _card_and_cpu_planes(cuda, net, get_board("zc706"),
+                                              db)
+        score = card["score"]
+        ties = (score == score[..., :1]).all(-1) & valid
+        n_ties += int(ties.sum())
+        assert not bool((card["choice"][ties] != 0).any()), cnn
+    assert n_ties > 0
+
+
+def _assert_close_tree(got, want, where=""):
+    """Nested artifact dicts: floats within rtol 1e-5, the rest equal."""
+    if isinstance(want, dict):
+        assert got.keys() == want.keys(), where
+        for k in want:
+            _assert_close_tree(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_close_tree(g, w, f"{where}[{i}]")
+    elif isinstance(want, float):
+        assert math.isclose(got, want, rel_tol=1e-5, abs_tol=0.0), \
+            f"{where}: {got} vs {want}"
+    else:
+        assert got == want, where
+
+
+@pytest.mark.parametrize("cnn,board", [("mobilenetv2", "zc706"),
+                                       ("resnet50", "zcu102")])
+def test_schedule_artifact_on_card_equals_cpu(cuda, cnn, board):
+    net = get_cnn(cnn)
+    with Session(get_board(board), device="cuda") as gpu, \
+            Session(get_board(board), device="cpu") as cpu:
+        for arch in ARCH_NAMES:
+            spec = make_arch(arch, net, 6)
+            got = gpu.schedule(spec, net)
+            want = cpu.schedule(spec, net)
+            assert got.latency_s <= got.coarse_latency_s
+            assert [(l.layer, l.order, l.tile_frac, l.double_buffer)
+                    for l in got.layers] == \
+                [(l.layer, l.order, l.tile_frac, l.double_buffer)
+                 for l in want.layers], arch
+            _assert_close_tree(got.to_dict(), want.to_dict(), arch)
+        total = gpu.compile_stats()["total"]
+        rep = gpu.explain(make_arch("hybrid", net, 6), net,
+                          refine="schedule")
+        assert rep["schedule"]["latency_s"] <= \
+            rep["schedule"]["coarse_latency_s"]
+        assert gpu.compile_stats()["total"] == total   # warm: no build

@@ -376,8 +376,16 @@ def test_explore_search_equal_jax():
 def test_explore_refine_and_islands():
     net = get_cnn(NET)
     ses = Session(get_board(BOARD), device="cpu")
-    with pytest.raises(NotImplementedError, match="schedule"):
-        ses.explore(net, n=8, refine="schedule")
+    res = ses.explore(net, n=8, refine="schedule")
+    nf = res.front.size
+    assert nf >= 1
+    assert {k: v.shape for k, v in res.refined.items()} == {
+        k: (nf,) for k in ("latency_s", "coarse_latency_s",
+                           "throughput_ips", "access_bytes",
+                           "coarse_access_bytes", "saving_frac")}
+    np.testing.assert_array_equal(res.refined["coarse_latency_s"],
+                                  res.metrics["latency_s"][res.front])
+    assert (res.refined["latency_s"] <= res.refined["coarse_latency_s"]).all()
     with pytest.raises(EvalError) as e:
         ses.explore(net, n=8, refine="bogus")
     assert e.value.code == EvalError.INVALID_INPUT
@@ -386,7 +394,7 @@ def test_explore_refine_and_islands():
                     config=SearchConfig(pop_size=32, n_islands=2))
     with pytest.raises(ValueError, match="strategy"):
         ses.explore(net, n=8, strategy="grid")
-    assert ses.stats.explore_calls == 2
+    assert ses.stats.explore_calls == 3
 
 
 def test_explore_kernel_fault_is_backend_fault(monkeypatch):

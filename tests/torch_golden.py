@@ -3,15 +3,16 @@ against on the card, computed by the JAX package on the CPU.
 
 The machine with the card has no JAX, so the files are committed:
 ``src/repro_torch/data/golden_mccm.npz`` (the MCCM paths),
-``src/repro_torch/data/golden_lm.npz`` (the LM serving path) and
-``src/repro_torch/data/golden_dse.npz`` (the DSE path).  Regenerate
-them after a change to the JAX package's model with::
+``src/repro_torch/data/golden_lm.npz`` (the LM serving path),
+``src/repro_torch/data/golden_dse.npz`` (the DSE path) and
+``src/repro_torch/data/golden_schedule.npz`` (the schedule layer).
+Regenerate them after a change to the JAX package's model with::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py
 
-``tests/test_torch_session.py``, ``tests/test_torch_lm.py`` and
-``tests/test_torch_dse.py`` check that the committed files still equal what
-this computes.
+``tests/test_torch_session.py``, ``tests/test_torch_lm.py``,
+``tests/test_torch_dse.py`` and ``tests/test_torch_schedule.py`` check that
+the committed files still equal what this computes.
 
 Contents: for every CNN x board, the 12 baseline templates (3 archs x
 n in {2, 5, 9, 11}) under ``tmpl/<cnn>/<board>/<metric>``, and 256
@@ -41,6 +42,14 @@ history).  Per run under ``<run>/``: the evaluated designs (``seg_end``,
 (valid and finite, as the search's archive screens), the ``front``
 indices, the front rows' metrics under ``front/<metric>``, and (search)
 ``history`` as JSON; ``config`` holds ``DSE_RUNS`` as JSON.
+
+``golden_schedule.npz``: the JAX package's ``schedule_specs`` on the CPU
+over the 12 baseline templates of every CNN on ZC706 and of ResNet-50 on
+every board (``SCHEDULE_GROUPS``): under ``sched/<cnn>/<board>/<field>``
+every field it returns, the per-layer ones (``SCHEDULE_LAYER_FIELDS``) cut
+to the net's own layer count; and under ``artifact/<cnn>`` the
+``ScheduleArtifact.to_json()`` of ``Session.schedule`` on each CNN's
+``hybrid`` design with 6 CEs on ZC706.
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 GOLDEN = os.path.join(DATA, "golden_mccm.npz")
 GOLDEN_LM = os.path.join(DATA, "golden_lm.npz")
 GOLDEN_DSE = os.path.join(DATA, "golden_dse.npz")
+GOLDEN_SCHEDULE = os.path.join(DATA, "golden_schedule.npz")
 
 TEMPLATE_NS = (2, 5, 9, 11)
 MIXED = ("resnet50", "zcu102", 256, 0)     # cnn, board, rows, seed
@@ -197,6 +207,53 @@ def compute_golden_dse() -> dict[str, np.ndarray]:
     return out
 
 
+#: the schedule golden designs' (cnn, board) groups, and each CNN's
+#: artifact design (arch, CEs) on ARTIFACT_BOARD
+SCHEDULE_BOARD, ARTIFACT_DESIGN = "zc706", ("hybrid", 6)
+#: the (B, max_L) fields of schedule_specs, kept cut to the net's layers
+SCHEDULE_LAYER_FIELDS = (
+    "choice", "phi", "tile_bytes", "companion_bytes", "floor_bytes",
+    "budget_bytes", "lat_ref_l", "lat_coarse_l", "acc_ref_l",
+    "acc_coarse_l", "pf_l", "ph_l", "pw_l", "ce_of_layer", "seg_of_layer",
+    "pipe_l", "valid_l", "n_tiles_l", "ce_buf_l", "buf_l")
+
+
+def schedule_groups() -> list[tuple[str, str]]:
+    """(cnn, board) of every golden schedule group."""
+    from repro.cnn.registry import CNN_NAMES
+    from repro.fpga.boards import BOARD_NAMES
+    return [(c, SCHEDULE_BOARD) for c in CNN_NAMES] + [
+        ("resnet50", b) for b in BOARD_NAMES if b != SCHEDULE_BOARD]
+
+
+def compute_golden_schedule() -> dict[str, np.ndarray]:
+    """The JAX package's schedule search (see the module docstring)."""
+    from repro.api import Session
+    from repro.cnn.registry import CNN_NAMES, get_cnn
+    from repro.fpga.archs import ARCH_NAMES, make_arch
+    from repro.fpga.boards import get_board
+    from repro.schedule import schedule_specs
+
+    out = {}
+    for cnn, board in schedule_groups():
+        net = get_cnn(cnn)
+        specs = [make_arch(a, net, n) for a in ARCH_NAMES
+                 for n in TEMPLATE_NS]
+        res = schedule_specs(specs, net, get_board(board), backend="ref")
+        for k, v in res.items():
+            v = np.asarray(v)
+            out[f"sched/{cnn}/{board}/{k}"] = \
+                v[:, :len(net)] if k in SCHEDULE_LAYER_FIELDS else v
+    ses = Session(get_board(SCHEDULE_BOARD))
+    arch, n = ARTIFACT_DESIGN
+    for cnn in CNN_NAMES:
+        net = get_cnn(cnn)
+        out[f"artifact/{cnn}"] = np.array(
+            ses.schedule(make_arch(arch, net, n), net).to_json())
+    ses.close()
+    return out
+
+
 if __name__ == "__main__":
     os.makedirs(DATA, exist_ok=True)
     np.savez_compressed(GOLDEN, **compute_golden())
@@ -205,3 +262,6 @@ if __name__ == "__main__":
     print(f"wrote {GOLDEN_LM} ({os.path.getsize(GOLDEN_LM)} bytes)")
     np.savez_compressed(GOLDEN_DSE, **compute_golden_dse())
     print(f"wrote {GOLDEN_DSE} ({os.path.getsize(GOLDEN_DSE)} bytes)")
+    np.savez_compressed(GOLDEN_SCHEDULE, **compute_golden_schedule())
+    print(f"wrote {GOLDEN_SCHEDULE} "
+          f"({os.path.getsize(GOLDEN_SCHEDULE)} bytes)")
