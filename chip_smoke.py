@@ -128,7 +128,28 @@ Phases, each printing one JSON line:
    (e) ``schedule_specs`` on the first 20,480 of phase 4's designs (depth
    cut from 100,000): µs a design beside phase 4's, one search launch a
    chunk, peak memory, one chunk under the profiler; (f) a scorer fault on
-   the card: ``BACKEND_FAULT`` after the retries, the CPU route never run.
+   the card: ``BACKEND_FAULT`` after the retries, the CPU route never run;
+14. multinet co-scheduling (``Session.deploy``, ``joint_evaluate``): (a)
+   ``src/repro_torch/data/golden_multinet.npz`` (the JAX package on the
+   CPU): ``joint_evaluate`` on its 256 seeded deployments in each mode
+   (spatial and temporal on ResNet-50 + MobileNetV2 / ZC706, hybrid on the
+   pair + DenseNet-121 under SLOs and a 1:2:1 request mix) and one
+   ``Session.deploy`` per arm (budget 768, pop 256): designs, shares,
+   splits, assignment, ``per_model_n_ces`` and fronts equal, the rest
+   within rtol 1e-5, ``multinet_diverged_at`` null; (b) on the card, bit
+   for bit: M = 1 spatial against ``evaluate_batch`` on every CNN (3 archs
+   x {2, 9} CEs, VCU108), hybrid all-spatial against spatial, hybrid
+   all-shared against temporal; (c) ``benchmarks/multinet_fronts.py``'s
+   two studies and ``benchmarks/multinet_hybrid.py``'s through
+   ``Session.deploy`` at their full budget (6,144, pop 512): per arm
+   seconds, µs a deployment, search launches, front size, hypervolume, the
+   pair's searched front dominating its equal-split front, the benchmarks'
+   other checks reported; (d) ``benchmarks/perf_gate.py``'s points (M = 2
+   spatial, M = 3 hybrid over three assignments, B 1,024): µs a deployment
+   and a model evaluation, one call under the profiler; (e) a fault in the
+   search kernel under ``deploy``: ``BACKEND_FAULT``, the plain search
+   never run, ``degraded`` 0; ``submit_search`` on a list of nets equal to
+   ``deploy``.
 
 Then the ``kernels`` line (one entry per kernel source: ``flash_fwd``'s
 bf16 source with its launches in phase 9, its f32 source with its launches
@@ -284,6 +305,29 @@ SCHED_TOP_CLOSE = ("latency_s", "coarse_latency_s", "throughput_ips",
                    "access_bytes", "coarse_access_bytes", "energy_j",
                    "coarse_energy_j", "buffer_bytes")
 SCHED_SEG_CLOSE = ("coarse_cyc", "refined_cyc")
+#: phase 14, multinet: the golden file's discrete outputs held exactly
+#: (the rest within RTOL_METRICS); (c) the repo's studies at their full
+#: budget (benchmarks/multinet_fronts.py: the ResNet-50 + MobileNetV2 pair
+#: on ZC706 and the pair + DenseNet-121 on VCU110, arms search,
+#: equal_split, temporal; benchmarks/multinet_hybrid.py: the trio on
+#: ZC706 under its SLOs and 1:2:1 request mix, arms search, temporal,
+#: hybrid with objective="slo"), the pair's searched front held to dominate
+#: its equal-split front; (d) benchmarks/perf_gate.py's two points
+MULTINET_EXACT = ("pes_split", "buf_split", "assign", "per_model_n_ces")
+MULTINET_PAIR = ("resnet50", "mobilenetv2")
+MULTINET_TRIO = ("resnet50", "mobilenetv2", "densenet121")
+MULTINET_FULL_BUDGET, MULTINET_FULL_POP = 6144, 512
+MULTINET_HYBRID_CFG = dict(objective="slo", slo_s=(0.120, 0.030, 0.130),
+                           weights=(1.0, 2.0, 1.0))
+MULTINET_STUDIES = (
+    ("resnet50+mobilenetv2", MULTINET_PAIR, "zc706",
+     ("search", "equal_split", "temporal"), {}),
+    ("resnet50+mobilenetv2+densenet121", MULTINET_TRIO, "vcu110",
+     ("search", "equal_split", "temporal"), {}),
+    ("hybrid:resnet50+mobilenetv2+densenet121", MULTINET_TRIO, "zc706",
+     ("search", "temporal", "hybrid"), MULTINET_HYBRID_CFG))
+MULTINET_GATED_STUDY = "resnet50+mobilenetv2"
+MULTINET_GATE_B, MULTINET_GATE_REPS = 1024, 3
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -2666,6 +2710,429 @@ def phase_schedule(card: str, device, seed: int, n_designs: int,
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 14
+# --------------------------------------------------------------------------
+def _multinet_golden() -> tuple:
+    """The golden file and its configuration."""
+    import numpy as np
+    golden = np.load(os.path.join(ROOT, "src", "repro_torch", "data",
+                                  "golden_multinet.npz"))
+    return golden, json.loads(str(golden["config"]))
+
+
+def _multinet_check(got: dict, want: dict, label: str, worst: dict) -> None:
+    """Discrete fields equal, the rest within RTOL_METRICS."""
+    import numpy as np
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape:
+            raise PhaseFailed(f"{label}: {k} has shape {g.shape}, golden "
+                              f"{w.shape}")
+        if k in MULTINET_EXACT or w.dtype.kind in "biu":
+            if not np.array_equal(g, w):
+                raise PhaseFailed(f"{label}: {k} differs in "
+                                  f"{int((g != w).sum())} entries")
+            continue
+        rel = np.abs(g.astype(np.float64) - w) / np.maximum(np.abs(w),
+                                                            1e-30)
+        worst[k] = max(worst.get(k, 0.0), float(rel.max()))
+        if not (rel <= RTOL_METRICS).all():
+            raise PhaseFailed(f"{label}: {k} rel err {float(rel.max())} "
+                              f"> {RTOL_METRICS}")
+
+
+def _multinet_eval_golden(device, golden, cfg) -> dict:
+    """(a) ``joint_evaluate`` on the golden inputs, each mode."""
+    import numpy as np
+    from repro_torch.api import get_board, get_cnn
+    from repro_torch.core.dse import MultiDesignBatch
+    from repro_torch.core.multinet import joint_evaluate, make_multi_tables
+    from repro_torch.kernels import launches, reset_launches
+    fields = ("seg_end", "seg_pipe", "seg_nce", "inter_pipe")
+    out, worst = {}, {}
+    for mode, c in cfg["eval"].items():
+        p = f"eval/{mode}"
+        md = MultiDesignBatch.from_numpy(
+            *(golden[f"{p}/in/{f}"] for f in fields), device=device)
+        planes = {r: golden[f"{p}/in/{r}"]
+                  for r in ("pes", "buf", "bw", "time", "assign")}
+        if mode == "spatial":
+            kw = dict(pes_shares=planes["pes"], buf_shares=planes["buf"],
+                      bw_shares=planes["bw"])
+        elif mode == "temporal":
+            kw = dict(time_shares=planes["time"],
+                      reconfig_s=c["reconfig_s"])
+        else:
+            kw = dict(assign=planes["assign"], pes_shares=planes["pes"],
+                      buf_shares=planes["buf"], bw_shares=planes["bw"],
+                      time_shares=planes["time"],
+                      reconfig_s=c["reconfig_s"])
+        mt = make_multi_tables([get_cnn(n) for n in c["nets"]],
+                               weights=c["weights"], slo_s=c["slo_s"],
+                               device=device)
+        reset_launches()
+        res = joint_evaluate(md, mt, get_board(c["board"]), mode=mode, **kw)
+        got = {k: v.cpu().numpy() for k, v in res.items()}
+        n = launches()["parallelism_search"]
+        want = {k.rsplit("/", 1)[1]: golden[k] for k in golden.files
+                if k.startswith(f"{p}/out/")}
+        if set(got) != set(want):
+            raise PhaseFailed(f"multinet (a) {mode}: keys "
+                              f"{sorted(set(got) ^ set(want))}")
+        _multinet_check(got, want, f"multinet (a) {mode}", worst)
+        out[mode] = dict(models=len(c["nets"]), deployments=c["n"],
+                         search_launches=n)
+    out["max_rel_err"] = worst
+    return out
+
+
+def _multinet_deploy_golden(device, golden, cfg) -> dict:
+    """(a) one ``Session.deploy`` per arm at the golden configurations."""
+    import numpy as np
+    from repro_torch.api import MultinetSearchConfig, Session, get_board, \
+        get_cnn
+    from repro_torch.kernels import launches, reset_launches
+    fields = ("seg_end", "seg_pipe", "seg_nce", "inter_pipe")
+    d = cfg["deploy"]
+    out, worst = {}, {}
+    ses = Session(get_board(d["board"]), device=str(device))
+    for arm, c in d["arms"].items():
+        nets = [get_cnn(n) for n in c["nets"]]
+        reset_launches()
+        if arm == "random":
+            res = ses.deploy(nets, d["budget"], strategy="random",
+                             seed=d["seed"], chunk=d["pop_size"])
+        else:
+            extra = {k: (tuple(v) if isinstance(v, list) else v)
+                     for k, v in c.items() if k != "nets"}
+            res = ses.deploy(nets, d["budget"], strategy=arm,
+                             config=MultinetSearchConfig(
+                                 pop_size=d["pop_size"], seed=d["seed"],
+                                 **extra))
+        n = launches()["parallelism_search"]
+        p = f"deploy/{arm}"
+        same = np.ones(d["budget"], bool)
+        for f, a in zip(fields, res.designs.to_numpy()):
+            eq = golden[f"{p}/{f}"] == a
+            same &= eq.reshape(len(eq), -1).all(1)
+        pop = d["pop_size"]
+        gens = [g for g in range(d["budget"] // pop)
+                if not same[g * pop:(g + 1) * pop].all()]
+        info = dict(models=len(nets), search_launches=n,
+                    front=len(res.front),
+                    multinet_diverged_at=gens[0] if gens else None)
+        out[arm] = info
+        if gens:
+            raise PhaseFailed(f"multinet (a) deploy {arm}: designs part "
+                              f"from the golden run at generation "
+                              f"{gens[0]}")
+        for k, v in res.shares.items():
+            if not np.array_equal(v, golden[f"{p}/shares/{k}"]):
+                raise PhaseFailed(f"multinet (a) deploy {arm}: shares {k} "
+                                  f"differ")
+        if not np.array_equal(res.front, golden[f"{p}/front"]):
+            raise PhaseFailed(f"multinet (a) deploy {arm}: front "
+                              f"{res.front.tolist()} != golden "
+                              f"{golden[p + '/front'].tolist()}")
+        _multinet_check({k: v[res.front] for k, v in res.metrics.items()},
+                        {k: golden[f"{p}/front/{k}"] for k in res.metrics},
+                        f"multinet (a) deploy {arm}", worst)
+    ses.close()
+    out["max_rel_err"] = worst
+    return out
+
+
+def _multinet_reductions(device, golden) -> dict:
+    """(b) the JAX package's reductions, bit for bit on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.api import get_board, get_cnn
+    from repro_torch.cnn.registry import CNN_NAMES
+    from repro_torch.core.batch_eval import evaluate_batch, make_tables
+    from repro_torch.core.dse import (MultiDesignBatch, encode_specs,
+                                      stack_designs)
+    from repro_torch.core.multinet import joint_evaluate, make_multi_tables
+    from repro_torch.core.multinet.joint_eval import PER_MODEL_KEYS
+    from repro_torch.fpga.archs import ARCH_NAMES, make_arch
+    dev = get_board("vcu108")
+    m1 = 0
+    for cnn in CNN_NAMES:
+        net = get_cnn(cnn)
+        db = encode_specs([make_arch(a, net, n) for a in ARCH_NAMES
+                           for n in (2, 9)], len(net), device=device)
+        single = evaluate_batch(db, make_tables(net, device=device), dev)
+        out = joint_evaluate(stack_designs([db], 4), make_multi_tables(
+            [net], device=device), dev)
+        for k in PER_MODEL_KEYS:
+            if not torch.equal(single[k], out[f"per_model_{k}"][:, 0]):
+                raise PhaseFailed(f"multinet (b): M=1 spatial {cnn} {k} "
+                                  f"differs from evaluate_batch")
+        m1 += db.batch
+    fields = ("seg_end", "seg_pipe", "seg_nce", "inter_pipe")
+    md = MultiDesignBatch.from_numpy(
+        *(golden[f"eval/spatial/in/{f}"] for f in fields), device=device)
+    planes = {r: golden[f"eval/spatial/in/{r}"]
+              for r in ("pes", "buf", "bw", "time")}
+    mt = make_multi_tables([get_cnn(n) for n in MULTINET_PAIR],
+                           device=device)
+    board = get_board("zc706")
+    sh = dict(pes_shares=planes["pes"], buf_shares=planes["buf"],
+              bw_shares=planes["bw"])
+    zeros = np.zeros((md.batch, 4), np.float32)
+    ones = zeros.copy()
+    ones[:, :2] = 1.0
+    spatial = joint_evaluate(md, mt, board, **sh)
+    hyb_s = joint_evaluate(md, mt, board, mode="hybrid", assign=zeros,
+                           time_shares=planes["time"], **sh)
+    temporal = joint_evaluate(md, mt, board, mode="temporal",
+                              time_shares=planes["time"], reconfig_s=0.004)
+    hyb_t = joint_evaluate(md, mt, board, mode="hybrid", assign=ones,
+                           time_shares=planes["time"], reconfig_s=0.004,
+                           **sh)
+    for label, a_out, b_out, cols in (("all-spatial", spatial, hyb_s, 4),
+                                      ("all-shared", temporal, hyb_t, 2)):
+        for k, a in a_out.items():
+            a, b = a, b_out[k]
+            if a.dim() == 2:
+                a, b = a[:, :cols], b[:, :cols]
+            if not torch.equal(a, b):
+                raise PhaseFailed(f"multinet (b): hybrid {label} {k} "
+                                  f"differs")
+    return dict(m1_designs=m1, m1_cnns=len(CNN_NAMES),
+                hybrid_deployments=md.batch, bit_equal=True)
+
+
+def _dominates(front, q) -> bool:
+    return bool(((front <= q).all(1) & (front < q).any(1)).any())
+
+
+def _multinet_studies(device) -> dict:
+    """(c) the repo's two multinet studies through ``Session.deploy`` at
+    their full budget, on the card."""
+    import numpy as np
+    from repro_torch.api import MultinetSearchConfig, Session, get_board, \
+        get_cnn
+    from repro_torch.core.dse.pareto import hypervolume_2d, knee_point
+    from repro_torch.kernels import launches, reset_launches
+    studies, checks = {}, {}
+    for label, names, board, arms, extra in MULTINET_STUDIES:
+        nets = [get_cnn(n) for n in names]
+        ses = Session(get_board(board), device=str(device))
+        res, per_arm = {}, {}
+        for arm in arms:
+            cfg = MultinetSearchConfig(pop_size=MULTINET_FULL_POP, seed=3,
+                                       **extra)
+            reset_launches()
+            t0 = time.perf_counter()
+            r = ses.deploy(nets, MULTINET_FULL_BUDGET, strategy=arm,
+                           config=cfg)
+            wall = time.perf_counter() - t0
+            n = launches()["parallelism_search"]
+            if n == 0:
+                raise PhaseFailed(f"multinet (c) {label} {arm}: no search "
+                                  f"kernel launched")
+            for k, v in r.metrics.items():
+                if v.shape[0] != MULTINET_FULL_BUDGET \
+                        or not np.isfinite(v).all():
+                    raise PhaseFailed(f"multinet (c) {label} {arm}: {k} "
+                                      f"has shape {v.shape} or non-finite "
+                                      f"values")
+            res[arm] = r
+            per_arm[arm] = dict(
+                seconds=r.seconds, wall_s=wall, per_eval_us=r.per_eval_us,
+                search_launches=n, front=len(r.front),
+                generations=len(r.timings),
+                breed_s=sum(t["breed_s"] for t in r.timings),
+                step_s=sum(t["step_s"] for t in r.timings))
+        ses.close()
+        fronts = {a: r.front_points() for a, r in res.items()}
+        allp = np.concatenate(list(fronts.values()))
+        ref = allp.max(0) + 0.05 * np.maximum(np.ptp(allp, 0), 1e-9)
+        for a in arms:
+            per_arm[a]["hypervolume"] = hypervolume_2d(fronts[a], ref)
+        study = dict(models=list(names), board=board, arms=per_arm,
+                     hv_ref=ref.tolist())
+        if "equal_split" in arms:
+            sp = fronts["search"]
+            for base in ("equal_split", "temporal"):
+                checks[f"{label}:search_dominates_{base}_knee"] = \
+                    _dominates(sp, knee_point(fronts[base]))
+                checks[f"{label}:search_hv_beats_{base}"] = \
+                    per_arm["search"]["hypervolume"] \
+                    > per_arm[base]["hypervolume"]
+            ep = fronts["equal_split"]
+            weak = all(((sp <= q).all(1)).any() for q in ep)
+            strict = any(_dominates(sp, q) for q in ep)
+            study["search_weakly_dominates_equal_split"] = weak
+            study["search_strictly_dominates_an_equal_split_point"] = strict
+            if label == MULTINET_GATED_STUDY and not (
+                    weak and strict and per_arm["search"]["hypervolume"]
+                    > per_arm["equal_split"]["hypervolume"]):
+                raise PhaseFailed(f"multinet (c) {label}: the searched "
+                                  f"front does not dominate the "
+                                  f"equal-split front")
+        else:
+            best = {a: float(-fronts[a][:, 0].min()) for a in arms}
+            study["best_slo_attainment"] = best
+            checks[f"{label}:hybrid_best_slo_ge_spatial"] = \
+                best["hybrid"] >= best["search"] - 1e-9
+            checks[f"{label}:hybrid_best_slo_ge_temporal"] = \
+                best["hybrid"] >= best["temporal"] - 1e-9
+        studies[label] = study
+    return dict(budget=MULTINET_FULL_BUDGET, pop_size=MULTINET_FULL_POP,
+                studies=studies, benchmark_checks=checks)
+
+
+def _multinet_gate_points(device, seed: int) -> dict:
+    """(d) ``benchmarks/perf_gate.py``'s two multinet points, B 1,024."""
+    import numpy as np
+    import torch
+    from repro_torch.api import get_board, get_cnn
+    from repro_torch.core.dse import sample_assign, sample_mixed, \
+        stack_designs
+    from repro_torch.core.multinet import (joint_evaluate, make_multi_tables,
+                                           sample_shares)
+    from repro_torch.kernels import launches, reset_launches
+    rng = np.random.default_rng(seed)
+    board = get_board("zc706")
+    B = MULTINET_GATE_B
+    out = {}
+    for label, names in (("multinet_m2", MULTINET_PAIR),
+                         ("multinet_hybrid_m3", MULTINET_TRIO)):
+        nets = [get_cnn(n) for n in names]
+        m = len(nets)
+        mt = make_multi_tables(nets, device=device)
+        md = stack_designs([sample_mixed(rng, len(n), B) for n in nets],
+                           4).to(device)
+        sh = [sample_shares(rng, B, 4, m) for _ in range(4)]
+        if m == 2:
+            calls = [dict(pes_shares=sh[0], buf_shares=sh[1],
+                          bw_shares=sh[2])]
+        else:
+            asg = sample_assign(rng, B, 4, m)
+            shared = np.zeros_like(asg)
+            shared[:, :m] = 1.0
+            calls = [dict(mode="hybrid", assign=a, pes_shares=sh[0],
+                          buf_shares=sh[1], bw_shares=sh[2],
+                          time_shares=sh[3])
+                     for a in (asg, np.zeros_like(asg), shared)]
+
+        def run(kw):
+            r = joint_evaluate(md, mt, board, **kw)
+            r["worst_latency_s"].cpu()
+        for kw in calls:
+            run(kw)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(MULTINET_GATE_REPS):
+            for kw in calls:
+                run(kw)
+        steady = (time.perf_counter() - t0) / (MULTINET_GATE_REPS
+                                                * len(calls))
+        n = launches()["parallelism_search"] / (MULTINET_GATE_REPS
+                                                * len(calls))
+        prof = _device_profile(lambda: run(calls[0]), label)
+        prof.pop("flash_fwd_share_of_busy", None)
+        if "device_busy_s" in prof:
+            prof["device_idle_share"] = max(
+                0.0, 1 - prof["device_busy_s"] / prof["wall_s_profiled"])
+        out[label] = dict(B=B, models=m, assignments=len(calls),
+                          steady_s=steady, us_per_deployment=steady / B * 1e6,
+                          us_per_model_eval=steady / (B * m) * 1e6,
+                          search_launches_per_call=n, profile=prof)
+    return out
+
+
+def _multinet_faults(device) -> dict:
+    """(e) a search-kernel fault under ``deploy``, and ``submit_search``
+    on a list of nets."""
+    import numpy as np
+    from repro_torch.api import (EvalError, MultinetSearchConfig, Session,
+                                 get_board, get_cnn)
+    from repro_torch.kernels.mccm_eval import ops as mccm_ops
+    nets = [get_cnn(n) for n in MULTINET_PAIR]
+    calls = {"cuda": 0, "plain": 0}
+    real_plain = mccm_ops.parallelism_search_ref
+
+    def hook(site, route):
+        if route == "cuda":
+            calls["cuda"] += 1
+            raise RuntimeError("injected launch failure")
+
+    def plain(*args):
+        calls["plain"] += 1
+        return real_plain(*args)
+
+    cfg = MultinetSearchConfig(pop_size=256, seed=3)
+    prev = mccm_ops.set_fault_hook(hook)
+    mccm_ops.parallelism_search_ref = plain
+    try:
+        with Session(get_board("zc706"), device=str(device)) as ses:
+            try:
+                ses.deploy(nets, 512, config=cfg)
+                code = "ok"
+            except EvalError as e:
+                code = e.code
+            degraded = ses.stats.degraded
+    finally:
+        mccm_ops.set_fault_hook(prev)
+        mccm_ops.parallelism_search_ref = real_plain
+    got = dict(code=code, kernel_calls=calls["cuda"],
+               plain_calls=calls["plain"], degraded=degraded)
+    want = dict(code=EvalError.BACKEND_FAULT, kernel_calls=1,
+                plain_calls=0, degraded=0)
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad:
+        raise PhaseFailed(f"multinet (e): {bad}")
+    with Session(get_board("zc706"), device=str(device)) as ses:
+        want_r = ses.deploy(nets, 1024, config=cfg)
+        got_r = ses.submit_search(nets, 1024, config=cfg).result(
+            timeout=600)
+    same = all(np.array_equal(a, b) for a, b in zip(
+        got_r.designs.to_numpy(), want_r.designs.to_numpy())) \
+        and np.array_equal(got_r.front, want_r.front) \
+        and all(np.array_equal(got_r.metrics[k], v)
+                for k, v in want_r.metrics.items())
+    if not same:
+        raise PhaseFailed("multinet (e): submit_search on a list of nets "
+                          "differs from deploy")
+    got["submit_search_equals_deploy"] = same
+    return got
+
+
+def phase_multinet(card: str, device, seed: int) -> dict:
+    """Multinet co-scheduling on the card: against the golden file, the
+    reductions, the repo's studies at full budget, perf_gate's points and
+    the faults."""
+    import torch
+    t_phase = time.perf_counter()
+    parts_s = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts_s[name] = time.perf_counter() - t0
+        return out
+
+    golden, cfg = _multinet_golden()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    evals = part("a_eval", _multinet_eval_golden, device, golden, cfg)
+    deploys = part("a_deploy", _multinet_deploy_golden, device, golden, cfg)
+    red = part("b", _multinet_reductions, device, golden)
+    studies = part("c", _multinet_studies, device)
+    gate = part("d", _multinet_gate_points, device, seed)
+    faults = part("e", _multinet_faults, device)
+    info = dict(card=card, golden_eval=evals, golden_deploy=deploys,
+                reductions=red, studies=studies, gate=gate, faults=faults,
+                max_memory_allocated=torch.cuda.max_memory_allocated(device),
+                parts_s=parts_s, phase_s=time.perf_counter() - t_phase)
+    emit("multinet", **info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2701,6 +3168,7 @@ def main(argv=None) -> int:
     phase_submit(card, device, search["us_per_design_median"])
     phase_schedule(card, device, args.seed, args.designs,
                    search["us_per_design_median"])
+    phase_multinet(card, device, args.seed)
     lost = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             or m == "repro" or m.startswith("repro.")]
     if lost:

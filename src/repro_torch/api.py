@@ -12,6 +12,8 @@
     front = dse.front_points()                        # (latency, buffer)
     fut = ses.submit(specs, get_cnn("resnet50"))      # queued, megabatched
     job = ses.submit_search(get_cnn("mobilenetv2"), n=100_000, seed=7)
+    fr = ses.deploy([get_cnn("resnet50"), get_cnn("mobilenetv2")], n=4096)
+    fr.front_points()                                 # multinet front
     ses.close()                                       # or: with Session(...)
 
 ``Session(device="cpu")`` runs the plain PyTorch path on the CPU.
@@ -21,14 +23,16 @@ from __future__ import annotations
 from . import telemetry  # noqa: F401
 from .cnn.registry import get_cnn
 from .core.dse import DSEResult, SearchConfig, orient, pareto
+from .core.multinet import JointDSEResult, MultinetSearchConfig
 from .core.resilience import EvalError, load_checkpoint, save_checkpoint
 from .core.session import EvalConfig, Session, SessionStats, default_session
 from .fpga.boards import get_board
 from .schedule import ScheduleArtifact
 from .telemetry.report import bottleneck_report, format_report
 
-__all__ = ["DSEResult", "EvalConfig", "EvalError", "ScheduleArtifact",
-           "SearchConfig", "Session", "SessionStats", "bottleneck_report",
+__all__ = ["DSEResult", "EvalConfig", "EvalError", "JointDSEResult",
+           "MultinetSearchConfig", "ScheduleArtifact", "SearchConfig",
+           "Session", "SessionStats", "bottleneck_report",
            "default_session", "format_report", "get_board", "get_cnn",
            "load_checkpoint", "orient", "pareto", "save_checkpoint",
            "telemetry"]

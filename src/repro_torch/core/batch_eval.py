@@ -7,7 +7,9 @@ masked tensor ops: the same model, not an approximation.
 
 * ``NetTables``    — per-CNN layer tables, f32 tensors on one device,
   padded to a shared ``max_L`` with a layer-valid mask.
-* ``DeviceTables`` — the board as 0-d f32 tensors on the same device.
+* ``DeviceTables`` — the board as 0-d f32 tensors on the same device, or
+  one board per design row (``(B,)`` leaves: a multinet deployment's
+  slices, ``core.multinet``).
 * ``eval_design_block`` — CE maps -> the fused ⟨pf, ph, pw⟩ search
   (``kernels.mccm_eval``: the CUDA kernel for a CUDA tensor, the plain
   version for a CPU tensor) -> Eqs. 2–9.
@@ -69,6 +71,15 @@ def bucket_max_L(L: int, base: int = DEFAULT_MAX_L,
     if L <= base:
         return base
     return -(-L // step) * step
+
+
+def shared_max_L(layer_counts) -> int:
+    """The one bucket a set of nets must share to be stacked (the model
+    axis of ``core.multinet``): the max over their own buckets."""
+    counts = list(layer_counts)
+    if not counts:
+        return DEFAULT_MAX_L
+    return max(bucket_max_L(int(c)) for c in counts)
 
 
 def pes_hint(pes: float) -> int | None:
@@ -182,7 +193,11 @@ def make_tables(net: Network, candidates=CANDIDATES_DEFAULT,
 
 @dataclass(frozen=True)
 class DeviceTables:
-    """A board as 0-d float32 tensors on one device."""
+    """A board as float32 tensors on one device: 0-d leaves (one board for
+    every design), or ``(B,)`` leaves (row b's design runs on board row b:
+    the multinet slices).  A metric reduced to ``(B,)`` reads a field as it
+    is; a ``(B, L)``, ``(B, NS)`` or ``(B, NC)`` term reads it through
+    :meth:`col`, so both shapes broadcast row by row."""
 
     pes: torch.Tensor
     on_chip_bytes: torch.Tensor
@@ -190,6 +205,23 @@ class DeviceTables:
     bps: torch.Tensor           # off-chip bytes per second
     clock_hz: torch.Tensor
     wordbytes: torch.Tensor
+
+    @property
+    def per_row(self) -> bool:
+        """True for one board per design row (``(B,)`` leaves)."""
+        return self.pes.dim() == 1
+
+    def col(self, name: str) -> torch.Tensor:
+        """Field ``name`` for a term with a trailing axis: ``(B, 1)`` for
+        per-row boards, the 0-d tensor otherwise."""
+        return _col(getattr(self, name))
+
+    def take(self, idx) -> "DeviceTables":
+        """The boards of a row subset (itself for a 0-d board)."""
+        if not self.per_row:
+            return self
+        return DeviceTables(*(getattr(self, k)[idx]
+                              for k in DEVICE_TABLE_FIELDS))
 
 
 DEVICE_TABLE_FIELDS = tuple(f.name for f in fields(DeviceTables))
@@ -213,6 +245,11 @@ def make_device_tables(dev: DeviceSpec, *, device="cuda") -> DeviceTables:
 # --------------------------------------------------------------------------
 # helpers
 # --------------------------------------------------------------------------
+def _col(x):
+    """A per-row ``(B,)`` value as a ``(B, 1)`` column; a 0-d one as it is."""
+    return x[:, None] if x.dim() == 1 else x
+
+
 def _onehot(idx, n: int):
     """f32 one-hot of ``idx`` over ``n`` classes; an index outside [0, n)
     gives a zero row."""
@@ -262,12 +299,12 @@ def _dot_sum(terms):
 def _largest_remainder(shares, total, valid):
     """Vectorized largest-remainder rounding (floor 1 per valid CE).
 
-    shares: (B, NC) f32; total: 0-d f32; valid: (B, NC) bool.  Ties break
-    by index (stable argsorts).
+    shares: (B, NC) f32; total: f32, 0-d (one board) or (B,) (a board
+    per row); valid: (B, NC) bool.  Ties break by index (stable argsorts).
     """
     ssum = _seq_sum(shares)
     s = torch.where(ssum > 0, ssum, 1.0)
-    raw = torch.clamp_min(shares / s[:, None] * total, 1.0)
+    raw = torch.clamp_min(shares / s[:, None] * _col(total), 1.0)
     raw = torch.where(valid, raw, 0.0)
     out = torch.where(valid, torch.clamp_min(torch.floor(raw), 1.0), 0.0)
     rem = total - _seq_sum(out)                        # (B,) can be +/-
@@ -479,8 +516,8 @@ def layer_state(design: DesignBatch, t: NetTables, dev: DeviceTables,
     """Eqs. 1 + 4–7 given the CE maps and the ⟨pf, ph, pw⟩ winners:
     buffer allocation, per-layer compute/memory costs, residency regimes."""
     B, max_L = design.batch, t.max_L
-    wb = dev.wordbytes
-    bpc = dev.bpc
+    wb = dev.col("wordbytes")
+    bpc = dev.col("bpc")
     pf_ce, ph_ce, pw_ce = par
     onehot, valid_b, seg_of_layer = m.onehot, m.valid_b, m.seg_of_layer
     seg_valid, n_seg, pipe_bool = m.seg_valid, m.n_seg, m.pipe_bool
@@ -674,7 +711,7 @@ def compose_metrics(design: DesignBatch, t: NetTables, dev: DeviceTables,
                     m: _CEMaps, st: LayerState) -> dict[str, torch.Tensor]:
     """Eqs. 2–3 + 8–9: per-layer costs -> design metrics."""
     B = design.batch
-    wb = dev.wordbytes
+    wb = dev.col("wordbytes")
     seg_valid, n_seg, pipe_bool = m.seg_valid, m.n_seg, m.pipe_bool
     valid_f = m.valid_b.to(F32)
     seg_end = design.seg_end
@@ -740,7 +777,7 @@ def compose_metrics(design: DesignBatch, t: NetTables, dev: DeviceTables,
     access = (st.acc_single * single_l + st.w_acc_pipe * pipe_l).sum(-1)
     w_access = (st.wacc_single * single_l + st.w_acc_pipe * pipe_l).sum(-1)
     fm_access = (st.facc_single * single_l).sum(-1)
-    mandatory = (IFM[0] + OFM[t.L - 1]) * wb
+    mandatory = (IFM[0] + OFM[t.L - 1]) * dev.wordbytes
     access = access + mandatory
     fm_access = fm_access + mandatory
 
@@ -750,7 +787,8 @@ def compose_metrics(design: DesignBatch, t: NetTables, dev: DeviceTables,
     access = access + spill_acc
     fm_access = fm_access + spill_acc
     comm_cyc = _seq_sum((torch.where(spill, 2 * bound_sz, bound_sz)
-                         / dev.bps) * dev.clock_hz * bound_valid)
+                         / dev.col("bps")) * dev.col("clock_hz")
+                        * bound_valid)
 
     latency_cyc = _seq_sum(seg_lat_single) + lat_pipe_total + comm_cyc
     latency_s = latency_cyc / dev.clock_hz
@@ -806,24 +844,40 @@ def _pad_rows(design: DesignBatch, n: int) -> DesignBatch:
 
 
 def _blocks(design: DesignBatch, tables: NetTables,
-           dev: DeviceSpec | DeviceTables, *, tile: int = DEFAULT_TILE,
-           chunk: int = DEFAULT_CHUNK):
+            dev: DeviceSpec | DeviceTables, *, tile: int = DEFAULT_TILE,
+            chunk: int = DEFAULT_CHUNK, full_pes: float | None = None):
     """The set-up a blocked batch call shares: the board's
     ``DeviceTables``, the search's ``SearchTables`` and the row blocks, all
     on the tables' device.  A block is ``chunk`` designs on the card (one
-    search-kernel launch) and ``tile`` designs on the CPU."""
+    search-kernel launch) and ``tile`` designs on the CPU; each is a
+    ``(designs, boards)`` pair, the boards cut to the block's rows when
+    ``dev`` holds one board per row.
+
+    The pair list is pruned for the board's PE count, or for ``full_pes``
+    when given: a per-row board must name the full board it was cut from
+    (slices never exceed it, so pruning for it stays sound on every row).
+    """
     device = tables.device
     if isinstance(dev, DeviceSpec):
-        hint = pes_hint(dev.pes)
+        hint = pes_hint(dev.pes if full_pes is None else full_pes)
         dev = make_device_tables(dev, device=device)
+    elif full_pes is not None:
+        hint = pes_hint(full_pes)
+    elif dev.per_row:
+        raise ValueError("per-row boards need full_pes, the PE count of "
+                         "the board they were cut from")
     else:
         hint = pes_hint(float(dev.pes))
     if design.batch == 0:
         raise ValueError("no designs to evaluate (empty DesignBatch)")
+    if dev.per_row and dev.pes.shape[0] != design.batch:
+        raise ValueError(f"{dev.pes.shape[0]} board rows for "
+                         f"{design.batch} designs")
     design = design.to(device)
     search = _pair_layer_tables(tables, pair_tables(tables.candidates, hint))
     rows = tile if device.type == "cpu" else chunk
-    return dev, search, [design.take(slice(s, s + rows))
+    return dev, search, [(design.take(slice(s, s + rows)),
+                          dev.take(slice(s, s + rows)))
                          for s in range(0, design.batch, rows)]
 
 
@@ -836,17 +890,20 @@ def _cat_blocks(outs: list[dict]) -> dict:
 
 def evaluate_batch(design: DesignBatch, tables: NetTables,
                    dev: DeviceSpec | DeviceTables, fm_tile_rows: int = 2,
-                   *, tile: int = DEFAULT_TILE,
-                   chunk: int = DEFAULT_CHUNK) -> dict[str, torch.Tensor]:
+                   *, tile: int = DEFAULT_TILE, chunk: int = DEFAULT_CHUNK,
+                   full_pes: float | None = None) -> dict[str, torch.Tensor]:
     """DesignBatch -> metric tensors on the tables' device.
 
     The batch runs in blocks of ``chunk`` designs on the card (one search
-    kernel launch per block) and of ``tile`` designs on the CPU.
+    kernel launch per block) and of ``tile`` designs on the CPU.  ``dev``
+    is one board, or ``DeviceTables`` with one board per design row; those
+    need ``full_pes`` (see :func:`_blocks`).
     """
-    dev, search, parts = _blocks(design, tables, dev, tile=tile, chunk=chunk)
-    return _cat_blocks([eval_design_block(b, tables, dev, search,
+    _, search, parts = _blocks(design, tables, dev, tile=tile, chunk=chunk,
+                               full_pes=full_pes)
+    return _cat_blocks([eval_design_block(b, tables, d, search,
                                           fm_tile_rows=fm_tile_rows)
-                        for b in parts])
+                        for b, d in parts])
 
 
 # --------------------------------------------------------------------------

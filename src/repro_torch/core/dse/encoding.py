@@ -15,6 +15,13 @@ segment is pipelined iff ``seg_nce > 1``, and padding columns carry
 exactly this plus the NS/NC CE-count bounds, and ``decode_design`` ->
 ``encode_specs`` round-trips any canonical row bit-exactly.
 
+Multi-model deployments (``core.multinet``) extend the encoding along a
+model axis: :class:`MultiDesignBatch` stacks M per-model design planes
+into (B, M, NS) tensors, and a hybrid deployment adds the **assignment**
+plane, a float (B, M) array where ``assign[b, m] > 0.5`` places model m in
+deployment b's single time-multiplexed *shared slice* and anything else
+gives it a dedicated spatial slice (``sample_assign`` draws them).
+
 The same encoding as the JAX package's ``core/dse/encoding.py``, with the
 tensors on an explicit device.  :func:`validate_batch_torch` and
 :func:`repair_batch_torch` are the device twins of its
@@ -84,6 +91,118 @@ def concat_batches(batches: list[DesignBatch]) -> DesignBatch:
         torch.cat([b.seg_pipe for b in batches]),
         torch.cat([b.seg_nce for b in batches]),
         torch.cat([b.inter_pipe for b in batches]))
+
+
+@dataclass
+class MultiDesignBatch:
+    """The model-axis extension of :class:`DesignBatch`: row b describes a
+    *deployment* of ``n_models`` co-resident accelerators; model m of row
+    b runs design ``(seg_end[b, m], ...)`` on its slice of the board.
+
+    Segment tensors are (B, M, NS), ``inter_pipe`` is (B, M), on one
+    device.  Each model's plane (:meth:`model`) is a canonical DesignBatch
+    for that model's layer count.
+    """
+
+    seg_end: torch.Tensor       # int32 (B, M, NS)
+    seg_pipe: torch.Tensor      # bool  (B, M, NS)
+    seg_nce: torch.Tensor       # int32 (B, M, NS)
+    inter_pipe: torch.Tensor    # bool  (B, M)
+
+    @property
+    def batch(self) -> int:
+        """Number of deployment rows."""
+        return self.seg_end.shape[0]
+
+    @property
+    def n_models(self) -> int:
+        """Padded model-axis length (max_m)."""
+        return self.seg_end.shape[1]
+
+    @classmethod
+    def from_numpy(cls, seg_end, seg_pipe, seg_nce, inter_pipe, *,
+                   device="cpu") -> "MultiDesignBatch":
+        """Host arrays -> MultiDesignBatch on ``device``, canonical
+        dtypes."""
+        d = DesignBatch.from_numpy(seg_end, seg_pipe, seg_nce, inter_pipe,
+                                   device=device)
+        return cls(d.seg_end, d.seg_pipe, d.seg_nce, d.inter_pipe)
+
+    def model(self, m: int) -> DesignBatch:
+        """Model m's plane as a plain (B, NS) DesignBatch."""
+        return DesignBatch(self.seg_end[:, m], self.seg_pipe[:, m],
+                           self.seg_nce[:, m], self.inter_pipe[:, m])
+
+    def take(self, idx) -> "MultiDesignBatch":
+        """Row subset (a slice, an index array or tensor)."""
+        return MultiDesignBatch(self.seg_end[idx], self.seg_pipe[idx],
+                                self.seg_nce[idx], self.inter_pipe[idx])
+
+    def to_numpy(self):
+        """(seg_end, seg_pipe, seg_nce, inter_pipe) as host arrays."""
+        return tuple(a.cpu().numpy() for a in (
+            self.seg_end, self.seg_pipe, self.seg_nce, self.inter_pipe))
+
+    def to(self, device) -> "MultiDesignBatch":
+        """The same deployments on ``device`` (no copy when already
+        there)."""
+        return MultiDesignBatch(*(a.to(device) for a in (
+            self.seg_end, self.seg_pipe, self.seg_nce, self.inter_pipe)))
+
+
+def stack_designs(batches: list[DesignBatch],
+                  max_m: int | None = None) -> MultiDesignBatch:
+    """Stack per-model DesignBatches (equal B, one device) into a
+    MultiDesignBatch, padding the model axis to ``max_m`` by repeating the
+    LAST entry: the rule ``multinet.make_multi_tables`` pads its tables
+    by, so padded design planes always pair with matching tables."""
+    if not batches:
+        raise ValueError("stack_designs needs at least one DesignBatch")
+    if len({b.batch for b in batches}) != 1:
+        raise ValueError("all model DesignBatches must share one batch size")
+    if max_m is None:
+        max_m = len(batches)
+    if len(batches) > max_m:
+        raise ValueError(f"{len(batches)} models exceed max_m={max_m}")
+    batches = list(batches) + [batches[-1]] * (max_m - len(batches))
+    stack = lambda f: torch.stack([getattr(b, f) for b in batches], dim=1)
+    return MultiDesignBatch(stack("seg_end"), stack("seg_pipe"),
+                            stack("seg_nce"), stack("inter_pipe"))
+
+
+def sample_assign(rng: np.random.Generator, n: int, max_m: int,
+                  n_models: int | None = None,
+                  p_shared: float = 0.5) -> np.ndarray:
+    """(n, max_m) random hybrid-deployment assignments: each real model is
+    a shared-slice member with probability ``p_shared`` (1.0 on the gene ==
+    member, 0.0 == dedicated spatial slice); padded columns stay 0.  The
+    assignment twin of ``multinet.sample_shares``, host numpy on the JAX
+    package's draws."""
+    m = max_m if n_models is None else n_models
+    out = np.zeros((n, max_m), np.float32)
+    out[:, :m] = (rng.random((n, m)) < p_shared).astype(np.float32)
+    return out
+
+
+def pad_plane(a: torch.Tensor, n: int) -> torch.Tensor:
+    """Edge-pad one (B, ...) tensor to ``n`` rows by repeating the last
+    row: how the share/assign planes ride along when their deployments are
+    padded (``pad_deployments``)."""
+    pad = n - a.shape[0]
+    if pad <= 0:
+        return a
+    return torch.cat([a, a[-1:].repeat_interleave(pad, 0)], 0)
+
+
+def pad_deployments(md: MultiDesignBatch, n: int) -> MultiDesignBatch:
+    """Edge-pad a MultiDesignBatch to ``n`` rows (padded rows are
+    evaluated and sliced off)."""
+    if n <= md.batch:
+        return md
+    return MultiDesignBatch(pad_plane(md.seg_end, n),
+                            pad_plane(md.seg_pipe, n),
+                            pad_plane(md.seg_nce, n),
+                            pad_plane(md.inter_pipe, n))
 
 
 def encode_specs(specs: list[AcceleratorSpec], n_layers: int, *,

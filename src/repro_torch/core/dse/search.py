@@ -50,7 +50,7 @@ from .samplers import sample_custom, sample_mixed
 
 # metrics where HIGHER is better get flipped when building objective points
 # (single-model metrics plus the multinet system metrics, as in the JAX
-# package, so `orient` serves the joint searches when they are ported)
+# package, so `orient` serves the joint searches too)
 ORIENT_MAX = frozenset({"throughput_ips", "utilization",
                         "agg_throughput_ips", "min_model_throughput_ips",
                         "fairness", "slo_attainment",
@@ -347,11 +347,12 @@ def _weighted_sum(norm: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # checkpoint plumbing
 # --------------------------------------------------------------------------
-def _cfg_fingerprint(cfg, n_layers: int) -> dict:
+def _cfg_fingerprint(cfg, n_layers: int | tuple[int, ...]) -> dict:
     """The search-trajectory-determining identity a checkpoint is bound
     to: every config field except the checkpoint knobs themselves, plus
-    the workload size.  A resume under a different fingerprint would NOT
-    reproduce the uninterrupted run, so it is refused."""
+    the workload size (a net's layer count, or each net's for multinet).
+    A resume under a different fingerprint would NOT reproduce the
+    uninterrupted run, so it is refused."""
     skip = {"checkpoint_path", "checkpoint_interval", "resume"}
     fp = {f.name: getattr(cfg, f.name) for f in dc_fields(cfg)
           if f.name not in skip}
@@ -359,11 +360,12 @@ def _cfg_fingerprint(cfg, n_layers: int) -> dict:
     return fp
 
 
-def _checkpoint_meta(cfg, n_layers: int) -> dict:
+def _checkpoint_meta(cfg, n_layers: int | tuple[int, ...]) -> dict:
     return {"fingerprint": _cfg_fingerprint(cfg, n_layers)}
 
 
-def _load_search_checkpoint(cfg, n_layers: int, kind: str) -> dict | None:
+def _load_search_checkpoint(cfg, n_layers: int | tuple[int, ...],
+                            kind: str) -> dict | None:
     """The state dict of a resumable checkpoint, or None for a fresh
     start (no path / resume off / file absent)."""
     path = cfg.checkpoint_path

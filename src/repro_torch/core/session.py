@@ -2,17 +2,20 @@
 and the evaluation knobs, and scores designs on one device.
 
 The PyTorch port of the JAX package's ``core/session.py``, without the
-mesh and the multi-model entry points: ``evaluate`` on one spec or
+mesh: ``evaluate`` on one spec or
 notation string (the scalar Builder, plain Python on the host, whatever
 the session's device), on a list of them and on a ``DesignBatch`` (the
 batch path, on the session's device); ``build`` and ``explain`` on one
 design; ``schedule``, the per-CE temporal-mapping search under one design
 (and ``refine="schedule"`` on ``explain`` and ``explore``), on the
 session's device; ``explore``, the DSE (random sweep or guided search) on
-the session's device; the serving lane: ``submit`` (a
+the session's device; ``deploy``, the multi-CNN co-scheduling DSE
+(``core.multinet``: spatial, temporal and hybrid arms) on the session's
+device; the serving lane: ``submit`` (a
 ``Future``, served by a background drain that coalesces queued requests
 into megabatches, with deadlines and admission control) and
-``submit_search`` (long DSE jobs on their own worker); the lifecycle
+``submit_search`` (long ``explore`` and ``deploy`` jobs on their own
+worker); the lifecycle
 (``close``, ``with Session(...)``, :func:`default_session`); and
 ``compile_stats``, ``cache_stats`` and ``observability``.  The device is
 explicit: ``cuda`` unless the caller passes ``device="cpu"``, and a
@@ -50,6 +53,10 @@ from .dse.driver import DEFAULT_OBJECTIVES, DSEResult, _explore
 from .dse.encoding import NC, DesignBatch, encode_specs, validate_batch
 from .dse.search import SearchConfig
 from .evaluator import _evaluate_design, build_design
+from .multinet.driver import JointDSEResult, _joint_explore
+from .multinet.joint_eval import MultiNetTables, make_multi_tables
+from .multinet.partition import DEFAULT_MAX_M
+from .multinet.search import JOINT_OBJECTIVES, MultinetSearchConfig
 from .notation import AcceleratorSpec, format_spec, parse
 from .resilience import (CircuitBreaker, EvalError, classify,
                          nonfinite_keys, retry_delay, wrap)
@@ -81,6 +88,9 @@ class EvalConfig:
     #: designs per chunk: spec lists are encoded and padded per chunk, and
     #: on the card each chunk is one search-kernel launch
     chunk: int = DEFAULT_CHUNK
+    #: model-axis padding of deploy()'s MultiNetTables; None = the
+    #: multinet default (DEFAULT_MAX_M)
+    max_m: int | None = None
     #: bound of each memoized table cache, in entries.  None resolves
     #: REPRO_CACHE_TABLES (default 256); 0 disables eviction
     max_cached_tables: int | None = None
@@ -140,9 +150,13 @@ class SessionStats:
     device_table_hits: int = 0
     net_table_evictions: int = 0
     device_table_evictions: int = 0
+    multi_table_builds: int = 0
+    multi_table_hits: int = 0
+    multi_table_evictions: int = 0
     batch_designs: int = 0
     scalar_evals: int = 0
     explore_calls: int = 0
+    deploy_calls: int = 0
     schedule_calls: int = 0
     schedule_builds: int = 0   # schedule searches actually run
     schedule_hits: int = 0     # artifacts served from the bounded memo
@@ -221,6 +235,7 @@ class Session:
     >>> ses.evaluate(design_batch, net)                   # metric tensors
     >>> ses.submit(specs, net).result()                   # queued, megabatched
     >>> ses.schedule(spec, net)                           # ScheduleArtifact
+    >>> ses.deploy([net_a, net_b], n=4096)                # multinet front
     """
 
     def __init__(self, dev: DeviceSpec | None = None, *,
@@ -248,6 +263,9 @@ class Session:
         self._dev_tables = BoundedLRU(
             bound,
             on_evict=lambda *_: self.stats.bump("device_table_evictions"))
+        self._multi_tables = BoundedLRU(
+            bound,
+            on_evict=lambda *_: self.stats.bump("multi_table_evictions"))
         # schedule artifacts per (net, board, design): small decoded
         # dataclasses, but keys churn with every distinct design, so the
         # same bound and the same eviction-counter contract
@@ -348,6 +366,33 @@ class Session:
                 built = make_device_tables(dev, device=self.device)
             self._dev_tables.put(dev, built)
             self.stats.bump("device_table_builds")
+            return built
+
+    def multi_tables(self, nets, *, weights=None, slo_s=None,
+                     max_m: int | None = None) -> MultiNetTables:
+        """Memoized ``MultiNetTables`` for a model set (+ request weights
+        and per-model SLOs) on the session's device: what :meth:`deploy`
+        evaluates against.  An explicit ``max_m`` wins over the config
+        (deploy passes the search config's)."""
+        if max_m is None:
+            max_m = self.config.max_m or DEFAULT_MAX_M
+        wkey = None if weights is None else tuple(
+            float(w) for w in np.atleast_1d(np.asarray(weights, np.float64)))
+        skey = None if slo_s is None else tuple(
+            float(s) for s in np.atleast_1d(np.asarray(slo_s, np.float64)))
+        key = (tuple(self._net_key(n) for n in nets), wkey, skey, max_m)
+        with self._table_lock:
+            hit = self._multi_tables.get(key)
+            if hit is not None:
+                self.stats.bump("multi_table_hits")
+                return hit
+            with telemetry.span("session.multi_table_build") as sp:
+                sp.set_attr("models", len(list(nets)))
+                built = make_multi_tables(list(nets), weights=weights,
+                                          slo_s=slo_s, max_m=max_m,
+                                          device=self.device)
+            self._multi_tables.put(key, built)
+            self.stats.bump("multi_table_builds")
             return built
 
     # ---- resilience ------------------------------------------------------
@@ -661,6 +706,60 @@ class Session:
                                     0.0),
         }
 
+    # ---- multi-CNN co-scheduling -----------------------------------------
+    def deploy(self, nets, n: int = 4096, dev: DeviceSpec | None = None, *,
+               strategy: str = "search", seed: int = 0, chunk: int = 512,
+               objectives: tuple[str, ...] | None = None,
+               objective: str = "serving", config=None, weights=None,
+               slo_s=None) -> JointDSEResult:
+        """Multi-CNN co-scheduling DSE on the session's device: ``n``
+        deployments of ``nets`` sharing board ``dev``, by arm
+        (``strategy``): ``"search"`` (designs and the spatial split evolve
+        together), ``"equal_split"`` (the split frozen to 1/M),
+        ``"temporal"`` (round-robin time shares), ``"hybrid"`` (dedicated
+        slices and one shared slice) or ``"random"`` (``chunk``
+        deployments drawn at a time).  A ``MultinetSearchConfig`` in
+        ``config`` is authoritative for the guided arms (only the budget
+        comes from ``n``); ``objective="slo"`` drives the front by graded
+        SLO attainment.  Returns a :class:`JointDSEResult`.  The same seed
+        draws the same designs and shares as the JAX package's
+        ``Session.deploy``.
+
+        The tables are the session's memoized ``MultiNetTables``
+        (:meth:`multi_tables`).  Each model lane of each generation is one
+        batch-path call, one search-kernel launch a chunk on the card.  A
+        kernel fault raises ``EvalError(BACKEND_FAULT)`` and is fed to the
+        breaker; a search is not retried, and nothing falls back to the
+        plain version.
+        """
+        # the tables must carry the same weights/SLOs/max_m the search
+        # will use, whether they arrive via config or via the keywords
+        w = config.weights if config is not None else weights
+        s = config.slo_s if config is not None else slo_s
+        mm = config.max_m if config is not None else None
+        self.stats.bump("deploy_calls")
+        cfg = self.config
+        with telemetry.span("session.deploy") as sp:
+            sp.set_attr("n", n)
+            sp.set_attr("models", len(list(nets)))
+            sp.set_attr("strategy", strategy)
+            try:
+                mt = self.multi_tables(nets, weights=w, slo_s=s, max_m=mm)
+                return _joint_explore(
+                    list(nets), self._device(dev), n, strategy=strategy,
+                    seed=seed, chunk=chunk,
+                    objectives=JOINT_OBJECTIVES if objectives is None
+                    else objectives,
+                    objective=objective, config=config, weights=weights,
+                    slo_s=slo_s, mtables=mt, tile=cfg.tile,
+                    eval_chunk=cfg.chunk)
+            except Exception as e:  # noqa: BLE001 — classified below
+                if classify(e) != EvalError.BACKEND_FAULT \
+                        or isinstance(e, (EvalError, NotImplementedError)):
+                    raise
+                self.breaker.record_failure()
+                raise wrap(e, EvalError.BACKEND_FAULT) from e
+
     # ---- queued requests (the serve-many-users path) ---------------------
     def submit(self, designs, net: Network,
                dev: DeviceSpec | None = None, *,
@@ -760,9 +859,10 @@ class Session:
                       checkpoint_path: str | None = None,
                       checkpoint_interval: int = 8,
                       **kw) -> Future:
-        """Queue a long DSE job, :meth:`explore` on one ``Network``, on the
-        batch lane; returns a ``Future`` resolving to its
-        :class:`DSEResult`.
+        """Queue a long DSE job on the batch lane: :meth:`explore` for one
+        ``Network``, :meth:`deploy` for a list of them; returns a
+        ``Future`` resolving to its :class:`DSEResult` or
+        :class:`JointDSEResult`.
 
         Jobs run first in, first out on their own worker thread, so the
         drain of :meth:`submit` never waits behind a 100k-design search;
@@ -772,24 +872,21 @@ class Session:
         generations, and a resubmitted job resumes from the snapshot bit
         for bit.  ``max_queue`` counts queued jobs; a job whose
         ``deadline_s`` passes while it is queued fails with
-        ``DEADLINE_EXCEEDED`` before it spends any budget.  A list of nets
-        (the JAX package's ``deploy``, multinet) raises
-        ``NotImplementedError``: the port does not have multinet yet.
+        ``DEADLINE_EXCEEDED`` before it spends any budget.
         """
-        if not isinstance(nets, (Network, NetTables)):
-            raise NotImplementedError(
-                "submit_search on a list of nets runs deploy (multinet), "
-                "which the port does not have yet (ROADMAP.md, queue 1, "
-                "item 9)")
+        is_single = isinstance(nets, (Network, NetTables))
+        kind = "explore" if is_single else "deploy"
         if checkpoint_path is not None:
-            if kw.get("strategy", "random") != "search":
+            if kw.get("strategy", "random" if is_single else "search") \
+                    != "search":
                 raise EvalError(
                     EvalError.INVALID_INPUT,
                     "checkpoint_path requires strategy='search' (the "
                     "random sweep has no loop state to snapshot)")
             config = kw.get("config")
             if config is None:
-                config = SearchConfig()
+                config = SearchConfig() if is_single \
+                    else MultinetSearchConfig()
                 if "seed" in kw:
                     config = replace(config, seed=kw["seed"])
             kw["config"] = replace(config,
@@ -798,12 +895,14 @@ class Session:
                                    resume=True)
 
         def job():
-            return self.explore(nets, n, dev, **kw)
+            if kind == "explore":
+                return self.explore(nets, n, dev, **kw)
+            return self.deploy(nets, n, dev, **kw)
 
         cfg = self.config
         deadline = None if deadline_s is None \
             else time.monotonic() + deadline_s
-        j = _SearchJob(job, Future(), deadline, label="explore")
+        j = _SearchJob(job, Future(), deadline, label=kind)
         with self._job_cv:
             if self._closed:
                 raise RuntimeError(
@@ -1099,6 +1198,7 @@ class Session:
         with self._table_lock:
             return {"net_tables": self._net_tables.stats(),
                     "device_tables": self._dev_tables.stats(),
+                    "multi_tables": self._multi_tables.stats(),
                     "schedule_artifacts": self._schedule_memo.stats()}
 
     def observability(self) -> dict:

@@ -168,10 +168,10 @@ def schedule_batch(design: DesignBatch, tables: NetTables,
                    chunk: int = DEFAULT_CHUNK) -> dict[str, torch.Tensor]:
     """DesignBatch -> refined + coarse metrics + per-layer schedule detail,
     tensors on the tables' device (blocked as ``evaluate_batch``)."""
-    dev, search, parts = _blocks(design, tables, dev, tile=tile, chunk=chunk)
-    return _cat_blocks([schedule_block(b, tables, dev, search,
+    _, search, parts = _blocks(design, tables, dev, tile=tile, chunk=chunk)
+    return _cat_blocks([schedule_block(b, tables, d, search,
                                        fm_tile_rows=fm_tile_rows)
-                        for b in parts])
+                        for b, d in parts])
 
 
 def schedule_specs(specs, net, dev, *, tables: NetTables | None = None,

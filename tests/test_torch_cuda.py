@@ -1,8 +1,10 @@
 """The port on the card: each CUDA kernel (the parallelism search, the Eq. 1
 latency sweep, the CE convolution, flash attention) against its plain
 PyTorch version, the Session's main path through the search kernel, the
-schedule layer's plane and artifacts against the CPU's, and the LM serving
-path through the flash kernel.
+schedule layer's plane and artifacts against the CPU's, multinet
+(``joint_evaluate``, ``Session.deploy`` and the search kernel on slice
+boards) against the CPU's, and the LM serving path through the flash
+kernel.
 
 Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
 no card is visible (the decision is made in the fixture, never at import).
@@ -862,3 +864,134 @@ def test_schedule_artifact_on_card_equals_cpu(cuda, cnn, board):
         assert rep["schedule"]["latency_s"] <= \
             rep["schedule"]["coarse_latency_s"]
         assert gpu.compile_stats()["total"] == total   # warm: no build
+
+
+# --------------------------------------------------------------------------
+# multinet co-scheduling
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("mode", ["spatial", "temporal", "hybrid"])
+def test_joint_evaluate_on_card_equals_cpu(cuda, mode):
+    """``joint_evaluate`` on the card against the CPU port, each mode at
+    M = 3: the discrete fields equal, the rest within 1e-5; one search
+    launch per lane (the padded lanes one more in the spatial and hybrid
+    modes, none in the temporal mode, which copies the last lane)."""
+    from repro_torch.core.dse import sample_assign, stack_designs
+    from repro_torch.core.multinet import (joint_evaluate, make_multi_tables,
+                                           sample_shares)
+    names = ("resnet50", "mobilenetv2", "densenet121")
+    nets = [get_cnn(n) for n in names]
+    rng = np.random.default_rng(2)
+    md = stack_designs([sample_mixed(rng, len(n), 300) for n in nets], 4)
+    sh = [sample_shares(rng, 300, 4, 3) for _ in range(4)]
+    kw = {"spatial": dict(pes_shares=sh[0], buf_shares=sh[1],
+                          bw_shares=sh[2]),
+          "temporal": dict(time_shares=sh[3], reconfig_s=0.002),
+          "hybrid": dict(assign=sample_assign(rng, 300, 4, 3),
+                         pes_shares=sh[0], buf_shares=sh[1],
+                         bw_shares=sh[2], time_shares=sh[3])}[mode]
+    board = get_board("zc706")
+    want = joint_evaluate(md, make_multi_tables(nets, slo_s=0.05,
+                                                device="cpu"), board,
+                          mode=mode, **kw)
+    reset_launches()
+    got = joint_evaluate(md, make_multi_tables(nets, slo_s=0.05,
+                                               device=cuda), board,
+                         mode=mode, **kw)
+    assert launches()["parallelism_search"] == (3 if mode == "temporal"
+                                                else 4)
+    for k, w in want.items():
+        g = got[k].cpu().numpy()
+        if k in ("pes_split", "buf_split", "assign", "per_model_n_ces"):
+            np.testing.assert_array_equal(g, w.numpy(), err_msg=k)
+        else:
+            np.testing.assert_allclose(g, w.numpy(), rtol=1e-5, err_msg=k)
+
+
+def test_search_kernel_on_slice_boards_equals_plain(cuda):
+    """The search kernel on per-row slice PEs (from one 5 % floor up to
+    the full board, pruned for the full board) meets its plain twin bit
+    for bit."""
+    from repro_torch.core.batch_eval import DeviceTables
+    from repro_torch.core.multinet.partition import (
+        lane_devices, partition_devices, repair_partition_torch)
+    net, board = get_cnn("resnet50"), get_board("zcu102")
+    t = make_tables(net, device=cuda)
+    dev = make_device_tables(board, device=cuda)
+    B = 4096
+    rng = np.random.default_rng(7)
+    raw = rng.gamma(0.3, 1.0, size=(B, 4)).astype(np.float32)
+    raw[:64, 0] = 0.0                  # lane 0 at its floor
+    raw[64:128, 1:] = 0.0              # lane 0 takes all but the floors
+    shares = torch.from_numpy(raw).to(cuda)
+    mv = torch.tensor([1.0, 1.0, 1.0, 0.0], device=cuda)
+    part = repair_partition_torch(shares, shares, shares, dev, mv)
+    devs = partition_devices(dev, part, mv)
+    db = sample_mixed(rng, len(net), B).to(cuda)
+    pairs = pair_tables(t.candidates, pes_hint(board.pes))
+    search = _pair_layer_tables(t, pairs)
+    seen = []
+    for m in range(4):
+        lane = lane_devices(devs, m)
+        assert isinstance(lane, DeviceTables) and lane.per_row
+        seen.append(lane.pes)
+        maps = _ce_maps(db, t, lane)
+        args = (maps.pes_ce, _search_ce(maps), *search)
+        ker = parallelism_search(*args)
+        ref = parallelism_search_ref(*args)
+        for k, r in zip(ker, ref):
+            assert torch.equal(k, r), m
+    pes = torch.cat(seen)
+    assert float(pes.min()) == math.floor(0.05 * board.pes)
+    assert float(pes.max()) == board.pes
+
+
+def test_deploy_on_card_equals_cpu(cuda):
+    """``Session.deploy`` on the card against the CPU port, a guided and
+    the random arm: the same designs, shares and front, the metrics within
+    1e-5; one search launch per lane of every generation."""
+    from repro_torch.core.multinet import MultinetSearchConfig
+    nets = [get_cnn("resnet50"), get_cnn("mobilenetv2")]
+    card = Session(get_board("zc706"), device=str(cuda))
+    cpu = Session(get_board("zc706"), device="cpu")
+    for kw in (dict(strategy="hybrid", config=MultinetSearchConfig(
+                   pop_size=128, seed=3, objective="slo",
+                   slo_s=(0.08, 0.02))),
+               dict(strategy="random", seed=1, chunk=128)):
+        reset_launches()
+        got = card.deploy(nets, 512, **kw)
+        n_launch = launches()["parallelism_search"]
+        want = cpu.deploy(nets, 512, **kw)
+        assert n_launch == 4 * 3, kw       # 4 generations/chunks x 3 lanes
+        for g, w in zip(got.designs.to_numpy(), want.designs.to_numpy()):
+            np.testing.assert_array_equal(g, w)
+        for k, w in want.shares.items():
+            np.testing.assert_array_equal(got.shares[k], w)
+        np.testing.assert_array_equal(got.front, want.front)
+        for k, w in want.metrics.items():
+            if k in ("pes_split", "buf_split", "assign"):
+                np.testing.assert_array_equal(got.metrics[k], w)
+            else:
+                np.testing.assert_allclose(got.metrics[k], w, rtol=1e-5,
+                                           err_msg=k)
+
+
+def test_faulted_kernel_under_deploy_is_backend_fault_on_card(cuda):
+    from repro_torch.core.multinet import MultinetSearchConfig
+    from repro_torch.core.resilience import EvalError
+    calls = {"cuda": 0}
+
+    def hook(site, route):
+        calls[route] = calls.get(route, 0) + 1
+        if route == "cuda":
+            raise RuntimeError("injected launch failure")
+
+    nets = [get_cnn("resnet50"), get_cnn("mobilenetv2")]
+    ses = Session(get_board("zc706"), device=str(cuda))
+    prev = mccm_ops.set_fault_hook(hook)
+    try:
+        with pytest.raises(EvalError) as e:
+            ses.deploy(nets, 128, config=MultinetSearchConfig(pop_size=64))
+    finally:
+        mccm_ops.set_fault_hook(prev)
+    assert e.value.code == EvalError.BACKEND_FAULT
+    assert calls == {"cuda": 1} and ses.stats.degraded == 0

@@ -233,12 +233,16 @@ def test_port_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
     n, bad, mods = out.stdout.split(" ", 2)
     assert int(n) >= 20 and bad.strip() == "[]", out.stdout
-    # the DSE, serving and schedule slices' modules are among those walked
+    # the DSE, serving, schedule and multinet slices' modules are among
+    # those walked
     for m in ("core.telemetry", "core.resilience", "core.dse.pareto",
               "core.dse.search", "core.dse.driver", "telemetry",
               "core.coalesce", "schedule", "schedule.search",
               "schedule.artifact", "kernels.schedule_score",
-              "kernels.schedule_score.ops", "kernels.schedule_score.ref"):
+              "kernels.schedule_score.ops", "kernels.schedule_score.ref",
+              "core.multinet", "core.multinet.partition",
+              "core.multinet.joint_eval", "core.multinet.search",
+              "core.multinet.driver"):
         assert f"repro_torch.{m}" in mods.split(), m
 
 
@@ -309,6 +313,7 @@ def test_session_observability_report():
     assert obs["caches"] == {
         "net_tables": {"size": 1, "maxsize": 4, "evictions": 0},
         "device_tables": {"size": 1, "maxsize": 4, "evictions": 0},
+        "multi_tables": {"size": 0, "maxsize": 4, "evictions": 0},
         "schedule_artifacts": {"size": 0, "maxsize": 4, "evictions": 0}}
     assert obs["breaker"] == {"open": False, "trips": 0}
     assert obs["stats"]["batch_designs"] == 1

@@ -608,11 +608,25 @@ def test_search_job_deadline_and_queue(pkg, sessions):
 
 
 def test_submit_search_of_many_nets_waits_for_multinet(sessions):
-    p = PKGS["port"]
-    ses = sessions(p)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ses.submit_search([p.get_cnn(NET), p.get_cnn("resnet50")], n=64)
-    assert ses.stats.search_jobs == 0
+    """``submit_search`` on a list of nets runs ``deploy`` (multinet) on
+    the batch lane, on both packages: the port's future resolves to what
+    its own ``deploy`` returns, with the JAX package's designs and front."""
+    got = {}
+    for name, p in PKGS.items():
+        ses = sessions(p)
+        nets = [p.get_cnn(NET), p.get_cnn("resnet50")]
+        got[name] = ses.submit_search(nets, n=64, seed=2).result(
+            timeout=TIMEOUT)
+        assert ses.stats.search_jobs == 1
+        if name == "port":
+            want = ses.deploy(nets, n=64, seed=2)
+    for res in (want, got["jax"]):
+        for g, w in zip(got["port"].designs.to_numpy(),
+                        res.designs.to_numpy()):
+            np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(got["port"].front, res.front)
+    for k, v in want.metrics.items():
+        np.testing.assert_array_equal(got["port"].metrics[k], v)
 
 
 # --------------------------------------------------------------------------

@@ -4,15 +4,17 @@ against on the card, computed by the JAX package on the CPU.
 The machine with the card has no JAX, so the files are committed:
 ``src/repro_torch/data/golden_mccm.npz`` (the MCCM paths),
 ``src/repro_torch/data/golden_lm.npz`` (the LM serving path),
-``src/repro_torch/data/golden_dse.npz`` (the DSE path) and
-``src/repro_torch/data/golden_schedule.npz`` (the schedule layer).
+``src/repro_torch/data/golden_dse.npz`` (the DSE path),
+``src/repro_torch/data/golden_schedule.npz`` (the schedule layer) and
+``src/repro_torch/data/golden_multinet.npz`` (multinet co-scheduling).
 Regenerate them after a change to the JAX package's model with::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py
 
 ``tests/test_torch_session.py``, ``tests/test_torch_lm.py``,
-``tests/test_torch_dse.py`` and ``tests/test_torch_schedule.py`` check that
-the committed files still equal what this computes.
+``tests/test_torch_dse.py``, ``tests/test_torch_schedule.py`` and
+``tests/test_torch_multinet.py`` check that the committed files still equal
+what this computes.
 
 Contents: for every CNN x board, the 12 baseline templates (3 archs x
 n in {2, 5, 9, 11}) under ``tmpl/<cnn>/<board>/<metric>``, and 256
@@ -50,6 +52,16 @@ every field it returns, the per-layer ones (``SCHEDULE_LAYER_FIELDS``) cut
 to the net's own layer count; and under ``artifact/<cnn>`` the
 ``ScheduleArtifact.to_json()`` of ``Session.schedule`` on each CNN's
 ``hybrid`` design with 6 CEs on ZC706.
+
+``golden_multinet.npz``: the JAX package's multinet on the CPU at the
+configurations of ``MULTINET_EVAL`` and ``MULTINET_DEPLOY`` (``config``
+holds both as JSON).  Per ``joint_evaluate`` mode under ``eval/<mode>/``:
+the seeded inputs (``in/<design field>``, ``in/pes``, ``in/buf``,
+``in/bw``, ``in/time``, ``in/assign``) and every output
+(``out/<key>``).  Per ``Session.deploy`` arm under ``deploy/<arm>/``: the
+evaluated designs in evaluation order, the raw share genomes
+(``shares/<gene>``), the ``front`` indices, the front rows' metrics
+(``front/<metric>``) and the ``objectives`` as JSON.
 """
 from __future__ import annotations
 
@@ -254,6 +266,117 @@ def compute_golden_schedule() -> dict[str, np.ndarray]:
     return out
 
 
+GOLDEN_MULTINET = os.path.join(DATA, "golden_multinet.npz")
+#: the multinet golden inputs: ``joint_evaluate`` per mode on 256 seeded
+#: deployments (spatial and temporal: the ResNet-50 + MobileNetV2 study of
+#: benchmarks/multinet_fronts.py on ZC706; hybrid: the 3-model study of
+#: benchmarks/multinet_hybrid.py, its SLOs and 1:2:1 request mix), and one
+#: ``Session.deploy`` per arm at the studies' quick budget (768, pop 256,
+#: seed 3): the hybrid arm on the 3-model study with ``objective="slo"``
+MULTINET_PAIR = ["resnet50", "mobilenetv2"]
+MULTINET_TRIO = ["resnet50", "mobilenetv2", "densenet121"]
+MULTINET_SLO = [0.120, 0.030, 0.130]
+MULTINET_WEIGHTS = [1.0, 2.0, 1.0]
+MULTINET_EVAL = {
+    "spatial": dict(nets=MULTINET_PAIR, board="zc706", n=256, seed=0,
+                    weights=None, slo_s=None, reconfig_s=0.0),
+    "temporal": dict(nets=MULTINET_PAIR, board="zc706", n=256, seed=0,
+                     weights=None, slo_s=None, reconfig_s=0.002),
+    "hybrid": dict(nets=MULTINET_TRIO, board="zc706", n=256, seed=1,
+                   weights=MULTINET_WEIGHTS, slo_s=MULTINET_SLO,
+                   reconfig_s=0.002)}
+MULTINET_DEPLOY = {
+    "budget": 768, "pop_size": 256, "seed": 3, "board": "zc706",
+    "arms": {"search": dict(nets=MULTINET_PAIR),
+             "equal_split": dict(nets=MULTINET_PAIR),
+             "temporal": dict(nets=MULTINET_PAIR),
+             "hybrid": dict(nets=MULTINET_TRIO, objective="slo",
+                            slo_s=MULTINET_SLO, weights=MULTINET_WEIGHTS),
+             "random": dict(nets=MULTINET_PAIR)}}
+
+
+def multinet_inputs(mode: str, sample_mixed, stack_designs, sample_shares,
+                    sample_assign, get_cnn, max_m: int = 4):
+    """The seeded inputs of one golden ``joint_evaluate`` mode, drawn with
+    the given package's samplers (both packages draw the same): the
+    stacked designs and ``{pes, buf, bw, time, assign}`` planes."""
+    c = MULTINET_EVAL[mode]
+    rng = np.random.default_rng(c["seed"])
+    nets = [get_cnn(n) for n in c["nets"]]
+    md = stack_designs([sample_mixed(rng, len(n), c["n"]) for n in nets],
+                       max_m)
+    m = len(nets)
+    planes = {r: sample_shares(rng, c["n"], max_m, m)
+              for r in ("pes", "buf", "bw", "time")}
+    planes["assign"] = sample_assign(rng, c["n"], max_m, m)
+    return md, planes
+
+
+def multinet_mode_kw(mode: str, planes: dict) -> dict:
+    """``joint_evaluate``'s keyword arguments for a golden mode."""
+    c = MULTINET_EVAL[mode]
+    if mode == "spatial":
+        return dict(pes_shares=planes["pes"], buf_shares=planes["buf"],
+                    bw_shares=planes["bw"])
+    if mode == "temporal":
+        return dict(time_shares=planes["time"], reconfig_s=c["reconfig_s"])
+    return dict(assign=planes["assign"], pes_shares=planes["pes"],
+                buf_shares=planes["buf"], bw_shares=planes["bw"],
+                time_shares=planes["time"], reconfig_s=c["reconfig_s"])
+
+
+def compute_golden_multinet() -> dict[str, np.ndarray]:
+    """The JAX package's joint evaluator and ``Session.deploy`` arms (see
+    the module docstring)."""
+    from repro.api import Session
+    from repro.cnn.registry import get_cnn
+    from repro.core.dse import sample_assign, stack_designs
+    from repro.core.dse.samplers import sample_mixed
+    from repro.core.multinet import (MultinetSearchConfig, joint_evaluate,
+                                     make_multi_tables, sample_shares)
+    from repro.fpga.boards import get_board
+
+    out = {"config": np.array(json.dumps({"eval": MULTINET_EVAL,
+                                          "deploy": MULTINET_DEPLOY}))}
+    for mode, c in MULTINET_EVAL.items():
+        md, planes = multinet_inputs(mode, sample_mixed, stack_designs,
+                                     sample_shares, sample_assign, get_cnn)
+        mt = make_multi_tables([get_cnn(n) for n in c["nets"]],
+                               weights=c["weights"], slo_s=c["slo_s"])
+        res = joint_evaluate(md, mt, get_board(c["board"]), mode=mode,
+                             **multinet_mode_kw(mode, planes))
+        for k, v in zip(DESIGN_FIELDS, md.to_numpy()):
+            out[f"eval/{mode}/in/{k}"] = v
+        for k, v in planes.items():
+            out[f"eval/{mode}/in/{k}"] = v
+        for k, v in res.items():
+            out[f"eval/{mode}/out/{k}"] = np.asarray(v)
+    d = MULTINET_DEPLOY
+    ses = Session(get_board(d["board"]))
+    for arm, c in d["arms"].items():
+        nets = [get_cnn(n) for n in c["nets"]]
+        if arm == "random":
+            res = ses.deploy(nets, d["budget"], strategy="random",
+                             seed=d["seed"], chunk=d["pop_size"])
+        else:
+            extra = {k: v for k, v in c.items() if k != "nets"}
+            res = ses.deploy(nets, d["budget"], strategy=arm,
+                             config=MultinetSearchConfig(
+                                 pop_size=d["pop_size"], seed=d["seed"],
+                                 **extra))
+        p = f"deploy/{arm}"
+        for k, v in zip(DESIGN_FIELDS, res.designs.to_numpy()):
+            out[f"{p}/{k}"] = v
+        for k, v in res.shares.items():
+            out[f"{p}/shares/{k}"] = v
+        out[f"{p}/front"] = np.asarray(res.front, np.int64)
+        for k, v in res.metrics.items():
+            out[f"{p}/front/{k}"] = np.asarray(v)[res.front]
+        out[f"{p}/objectives"] = np.array(json.dumps(list(res.objectives)))
+    ses.close()
+    return out
+
+
 if __name__ == "__main__":
     os.makedirs(DATA, exist_ok=True)
     np.savez_compressed(GOLDEN, **compute_golden())
@@ -265,3 +388,6 @@ if __name__ == "__main__":
     np.savez_compressed(GOLDEN_SCHEDULE, **compute_golden_schedule())
     print(f"wrote {GOLDEN_SCHEDULE} "
           f"({os.path.getsize(GOLDEN_SCHEDULE)} bytes)")
+    np.savez_compressed(GOLDEN_MULTINET, **compute_golden_multinet())
+    print(f"wrote {GOLDEN_MULTINET} "
+          f"({os.path.getsize(GOLDEN_MULTINET)} bytes)")
