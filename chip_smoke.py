@@ -149,7 +149,34 @@ Phases, each printing one JSON line:
    and a model evaluation, one call under the profiler; (e) a fault in the
    search kernel under ``deploy``: ``BACKEND_FAULT``, the plain search
    never run, ``degraded`` 0; ``submit_search`` on a list of nets equal to
-   ``deploy``.
+   ``deploy``;
+15. the socket server (``EvalServer``/``ServeClient``) and the serial
+   island model (``SearchConfig(n_islands=k)``): (a) every op over
+   loopback on a MobileNetV2/ZC706 card session (ping, observability,
+   a scalar and lists of 2 and 3,000 specs, explores of 4,096 random and
+   search, a ResNet-50 + MobileNetV2 deploy at 512), each reply equal to
+   the same local call bit for bit and its search launches to the local
+   call's; the largest reply's bytes and the seconds each writing thread
+   spends encoding and sending; (b) phase 12 (e)'s trace sent on its
+   arrival times over one pipelined connection with its session
+   settings, each reply equal to ``evaluate``: p50/p99 overall and by
+   lane and designs/s beside phase 12 (e)'s in-process figures, then its
+   100k random explore over the wire with a deadline-bearing probe; (c)
+   a malformed line and an unknown op, net and board (``INVALID_INPUT``,
+   the connection still usable), a 1 ms deadline, a queue of one, the
+   client-side timeout, a fault injected into the search kernel in the
+   drain (``BACKEND_FAULT`` on the wire, the plain search never run,
+   ``degraded`` 0) and a drained shutdown that delivers every reply;
+   (d) ``src/repro_torch/data/golden_islands.npz`` (the JAX package's
+   island search on the CPU at two configurations): every design, the
+   fronts, island fronts, migrants and archive sizes exact, points and
+   metrics within rtol 1e-5, ``islands_diverged_at`` null, one search
+   launch a step; (e) 4 islands at the 100,000-design budget through
+   ``Session.explore`` beside phase 11's serial search: the budget
+   exact, four non-empty island fronts under the merged front, migrants,
+   a rerun bit-identical; seconds, µs a design, per-generation breeding
+   and step seconds, launches, peak memory; then configuration B killed
+   after its second snapshot and resumed, bit for bit.
 
 Then the ``kernels`` line (one entry per kernel source: ``flash_fwd``'s
 bf16 source with its launches in phase 9, its f32 source with its launches
@@ -328,6 +355,14 @@ MULTINET_STUDIES = (
      ("search", "temporal", "hybrid"), MULTINET_HYBRID_CFG))
 MULTINET_GATED_STUDY = "resnet50+mobilenetv2"
 MULTINET_GATE_B, MULTINET_GATE_REPS = 1024, 3
+#: phase 15, the socket server: (a) tests/test_serve_server.py's session
+#: (MobileNetV2 / ZC706), list evaluates of 2 and 3,000 specs, explores of
+#: 4,096 (random and search), a deploy of the ResNet-50 + MobileNetV2 pair
+#: at 512; (e) the island model at the paper's budget, 4 islands
+WIRE_NET, WIRE_BOARD, WIRE_SPEC = "mobilenetv2", "zc706", "{L1-Last:CE1-CE4}"
+WIRE_SWEEPS, WIRE_EXPLORE_N = (2, 3000), 4096
+WIRE_DEPLOY, WIRE_DEPLOY_N = ("resnet50", "mobilenetv2"), 512
+ISLANDS_FULL = 4
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -2163,31 +2198,43 @@ def serve_trace(seed: int, n_requests: int) -> list:
     return trace
 
 
+def _trace_session(device):
+    """``benchmarks/serve_load.py``'s session settings: VCU110, linger 2 ms
+    adaptive up to 20 ms."""
+    from repro_torch.api import Session, get_board
+    return Session(get_board("vcu110"), device=str(device),
+                   linger_s=TRACE_LINGER_S, linger_max_s=TRACE_LINGER_MAX_S)
+
+
+def _trace_warm(ses, trace, nets, boards) -> float:
+    """``benchmarks/serve_load.py``'s warm-up: each net of the trace at
+    the ladder's first sizes, each board once; returns its seconds."""
+    import random
+    warm_rng = random.Random(TRACE_SEED + 1)
+    t0 = time.perf_counter()
+    for name in sorted({e["net"] for e in trace}):
+        for size in (1, 64, 128, 256):
+            ses.evaluate([_trace_design(warm_rng) for _ in range(size)],
+                         nets[name])
+    for board in sorted({e["board"] for e in trace}):
+        ses.evaluate(_trace_design(warm_rng), nets[trace[0]["net"]],
+                     boards[board])
+    return time.perf_counter() - t0
+
+
 def _submit_trace(device) -> dict:
     """(e): ``benchmarks/serve_load.py``'s trace replayed on its arrival
-    times through ``submit`` (in process: the port has no server yet),
-    with its session settings and warm-up, each result equal to
-    ``evaluate``; then its 100k random ``submit_search`` and one
+    times through ``submit`` (in process; phase 15 (b) sends it over the
+    socket server), with its session settings and warm-up, each result
+    equal to ``evaluate``; then its 100k random ``submit_search`` and one
     deadline-bearing probe beside it."""
-    import random
-    from repro_torch.api import Session, get_board, get_cnn
+    from repro_torch.api import get_board, get_cnn
     trace = serve_trace(TRACE_SEED, TRACE_REQUESTS)
     nets = {n: get_cnn(n) for n in TRACE_NETS}
     boards = {b: get_board(b) for b in TRACE_BOARDS}
     lat = {}
-    with Session(boards["vcu110"], device=str(device),
-                 linger_s=TRACE_LINGER_S,
-                 linger_max_s=TRACE_LINGER_MAX_S) as ses:
-        warm_rng = random.Random(TRACE_SEED + 1)
-        t0 = time.perf_counter()
-        for name in sorted({e["net"] for e in trace}):
-            for size in (1, 64, 128, 256):
-                ses.evaluate([_trace_design(warm_rng) for _ in range(size)],
-                             nets[name])
-        for board in sorted({e["board"] for e in trace}):
-            ses.evaluate(_trace_design(warm_rng), nets[trace[0]["net"]],
-                         boards[board])
-        warm_s = time.perf_counter() - t0
+    with _trace_session(device) as ses:
+        warm_s = _trace_warm(ses, trace, nets, boards)
         before = {k: getattr(ses.stats, k) for k in SUBMIT_COUNTERS}
         futs = []
         with _MegabatchProbe() as probe:
@@ -3133,6 +3180,590 @@ def phase_multinet(card: str, device, seed: int) -> dict:
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 15
+# --------------------------------------------------------------------------
+class _ReplyProbe:
+    """Wraps the server's reply writers for a block: per writing thread
+    (the session's drain or job thread, or a connection's reader), the
+    replies, the seconds spent encoding and sending them, and the largest
+    reply's bytes (counted after the clock stops)."""
+
+    def __enter__(self):
+        import json as _json
+        import threading
+        from repro_torch.serve import server as tserver
+        self._cls, self.threads = tserver._Connection, {}
+        real = self._real = (self._cls.reply, self._cls.fail)
+        lock = threading.Lock()
+
+        def timed(k):
+            def writer(conn, rid, obj):
+                t0 = time.perf_counter()
+                real[k](conn, rid, obj)
+                dt = time.perf_counter() - t0
+                n = len(_json.dumps(tserver.jsonify(obj))) if k == 0 else 0
+                name = threading.current_thread().name
+                with lock:
+                    r = self.threads.setdefault(
+                        name, dict(replies=0, s=0.0, max_s=0.0,
+                                   max_bytes=0))
+                    r["replies"] += 1
+                    r["s"] += dt
+                    r["max_s"] = max(r["max_s"], dt)
+                    r["max_bytes"] = max(r["max_bytes"], n)
+            return writer
+        self._cls.reply, self._cls.fail = timed(0), timed(1)
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.reply, self._cls.fail = self._real
+
+    def summary(self) -> dict:
+        t = self.threads
+        return dict(by_thread=t,
+                    max_reply_bytes=max((r["max_bytes"] for r in t.values()),
+                                        default=0),
+                    writer_s=sum(r["s"] for r in t.values()))
+
+
+def _wire_same(got: dict, want: dict) -> bool:
+    """A wire reply (lists of Python floats and ints) against local
+    ``evaluate``'s arrays: the same keys, and each value bit for bit once
+    cast back to the array's dtype."""
+    import numpy as np
+    return got.keys() == want.keys() and all(
+        np.array_equal(np.asarray(got[k], np.asarray(w).dtype),
+                       np.asarray(w)) for k, w in want.items())
+
+
+def _same_summary(got: dict, want: dict) -> bool:
+    """A wire summary against ``summarize_search`` of the local call: every
+    field but the host clocks equal (front exact, floats bit for bit)."""
+    skip = ("seconds", "per_design_us", "per_eval_us")
+    return {k: v for k, v in got.items() if k not in skip} \
+        == {k: v for k, v in want.items() if k not in skip}
+
+
+def _wire_ops(device) -> dict:
+    """(a): every op over loopback on a warmed card session (MobileNetV2
+    / ZC706, as tests/test_serve_server.py), each reply equal to the same
+    local call; search launches a request equal to the local call's."""
+    from repro_torch.api import Session, get_board, get_cnn
+    from repro_torch.core.notation import format_spec
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serve import EvalServer, ServeClient, summarize_search
+    net = get_cnn(WIRE_NET)
+    specs = [format_spec(s, len(net))
+             for s in _spec_pool(net, max(WIRE_SWEEPS), SUBMIT_SEED)]
+    out, bad = {}, []
+
+    def counted(fn):
+        reset_launches()
+        t0 = time.perf_counter()
+        r = fn()
+        return r, launches()["parallelism_search"], time.perf_counter() - t0
+
+    with Session(get_board(WIRE_BOARD), device=str(device),
+                 linger_s=0.005) as ses:
+        ses.evaluate([WIRE_SPEC], net)
+        with EvalServer(ses) as srv, ServeClient(*srv.address) as cli, \
+                _MegabatchProbe() as mb, _ReplyProbe() as rp:
+            if cli.ping() != {"pong": True}:
+                bad.append("ping")
+            obs = cli.observability()
+            if not {"compile", "stats", "caches", "breaker"} <= obs.keys():
+                bad.append("observability")
+            got, n, wall = counted(lambda: cli.evaluate(WIRE_SPEC, WIRE_NET))
+            want = ses.evaluate([WIRE_SPEC], net)
+            if got != {k: float(v[0]) for k, v in want.items()}:
+                bad.append("scalar evaluate")
+            out["scalar"] = dict(launches=n, wall_s=wall)
+            for size in WIRE_SWEEPS:
+                chunks = sum(r["chunks"] for r in mb.records)
+                got, n, wall = counted(
+                    lambda: cli.evaluate(specs[:size], WIRE_NET))
+                chunks = sum(r["chunks"] for r in mb.records) - chunks
+                if not _wire_same(got, ses.evaluate(specs[:size], net)):
+                    bad.append(f"evaluate {size}")
+                if n != chunks or n == 0:
+                    bad.append(f"evaluate {size}: {n} launches, {chunks} "
+                               f"chunks")
+                out[f"evaluate_{size}"] = dict(launches=n, chunks=chunks,
+                                               wall_s=wall)
+            for label, kw in (("explore_random", dict(strategy="random",
+                                                      seed=DSE_RANDOM_SEED)),
+                              ("explore_search", dict(strategy="search",
+                                                      seed=DSE_SEARCH_SEED))):
+                got, n, wall = counted(
+                    lambda: cli.explore(WIRE_NET, n=WIRE_EXPLORE_N, **kw))
+                want, n_local, _ = counted(
+                    lambda: ses.explore(net, WIRE_EXPLORE_N, **kw))
+                if not _same_summary(got, summarize_search(want)):
+                    bad.append(label)
+                if n != n_local or n == 0:
+                    bad.append(f"{label}: {n} launches, {n_local} local")
+                out[label] = dict(n=WIRE_EXPLORE_N, launches=n,
+                                  front=got["front_size"], wall_s=wall,
+                                  seconds=got["seconds"])
+            pair = [get_cnn(m) for m in WIRE_DEPLOY]
+            got, n, wall = counted(lambda: cli.deploy(
+                list(WIRE_DEPLOY), n=WIRE_DEPLOY_N, seed=DSE_SEARCH_SEED))
+            want, n_local, _ = counted(lambda: ses.deploy(
+                pair, WIRE_DEPLOY_N, seed=DSE_SEARCH_SEED))
+            if not _same_summary(got, summarize_search(want)):
+                bad.append("deploy")
+            if n != n_local or n == 0:
+                bad.append(f"deploy: {n} launches, {n_local} local")
+            out["deploy"] = dict(nets=list(WIRE_DEPLOY), n=WIRE_DEPLOY_N,
+                                 launches=n, front=got["front_size"],
+                                 wall_s=wall)
+            served = srv.requests_served
+    if bad:
+        raise PhaseFailed(f"wire (a): {bad}")
+    out.update(requests_served=served, replies=rp.summary())
+    return out
+
+
+def _wire_trace(device, in_process: dict) -> dict:
+    """(b): ``benchmarks/serve_load.py``'s trace sent over one pipelined
+    ``ServeClient`` connection on its arrival times, with its session
+    settings and warm-up, each reply equal to ``evaluate``; then its 100k
+    random explore over the wire and one deadline-bearing probe beside
+    it.  Phase 12 (e)'s in-process figures from this run beside."""
+    from repro_torch.api import get_board, get_cnn
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serve import EvalServer, ServeClient
+    trace = serve_trace(TRACE_SEED, TRACE_REQUESTS)
+    nets = {n: get_cnn(n) for n in TRACE_NETS}
+    boards = {b: get_board(b) for b in TRACE_BOARDS}
+    lat = {}
+    with _trace_session(device) as ses:
+        warm_s = _trace_warm(ses, trace, nets, boards)
+        with EvalServer(ses) as srv, ServeClient(*srv.address) as cli, \
+                _ReplyProbe() as rp:
+            reset_launches()
+            futs = []
+            t0 = time.perf_counter()
+            for i, e in enumerate(trace):
+                now = time.perf_counter() - t0
+                if e["t"] > now:
+                    time.sleep(e["t"] - now)
+                t_send = time.perf_counter()
+                f = cli.evaluate_async(e["designs"], e["net"],
+                                       board=e["board"],
+                                       priority=e["priority"])
+                f.add_done_callback(
+                    lambda _, i=i, t=t_send:
+                    lat.__setitem__(i, time.perf_counter() - t))
+                futs.append(f)
+            outs = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            n_launch = launches()["parallelism_search"]
+            replies = rp.summary()
+            parted = [i for i, e in enumerate(trace) if not _wire_same(
+                outs[i], ses.evaluate(e["designs"], nets[e["net"]],
+                                      boards[e["board"]]))]
+            if parted:
+                raise PhaseFailed(f"wire (b): requests {parted} part from "
+                                  f"evaluate on the same specs")
+            probe_want = ses.evaluate([WIRE_SPEC], nets["resnet50"],
+                                      boards["zc706"])
+            reset_launches()
+            job = cli.request_async("explore", net="mobilenetv2",
+                                    n=DSE_BUDGET, strategy="random",
+                                    seed=TRACE_SEED)
+            t_probe = time.perf_counter()
+            got = cli.evaluate(WIRE_SPEC, "resnet50", board="zc706",
+                               deadline_s=TRACE_DEADLINE_S,
+                               priority="interactive")
+            probe_s = time.perf_counter() - t_probe
+            running = not job.done()
+            dse = job.result(timeout=900)
+            job_launches = launches()["parallelism_search"]
+    if got != {k: float(v[0]) for k, v in probe_want.items()}:
+        raise PhaseFailed("wire (b): the probe beside the job parts from "
+                          "evaluate")
+    if dse["n_evals"] != DSE_BUDGET or not dse["front_size"]:
+        raise PhaseFailed(f"wire (b): the job scored {dse['n_evals']} "
+                          f"designs, front {dse['front_size']}")
+    if n_launch == 0 or job_launches == 0:
+        raise PhaseFailed("wire (b): no search kernel launched")
+    designs = sum(len(e["designs"]) for e in trace)
+    return dict(source="benchmarks/serve_load.py make_trace",
+                seed=TRACE_SEED, requests=len(trace), designs=designs,
+                warm_s=warm_s, wall_s=wall, designs_per_s=designs / wall,
+                latency=_quantiles(list(lat.values())),
+                latency_by_lane={lane: _quantiles(
+                    [lat[i] for i, e in enumerate(trace)
+                     if e["priority"] == lane])
+                    for lane in ("interactive", "batch")},
+                launches=n_launch, replies=replies,
+                in_process=dict(latency=in_process["latency"],
+                                latency_by_lane=in_process["latency_by_lane"],
+                                designs_per_s=in_process["designs_per_s"]),
+                dse=dict(n=DSE_BUDGET, n_evals=dse["n_evals"],
+                         front=dse["front_size"], seconds=dse["seconds"],
+                         launches=job_launches),
+                interactive_under_dse=dict(
+                    latency_s=probe_s, deadline_s=TRACE_DEADLINE_S,
+                    met=probe_s < TRACE_DEADLINE_S,
+                    dse_running_at_probe=running),
+                bit_equal=True)
+
+
+def _wire_failures(device) -> dict:
+    """(c): the taxonomy over the wire: bad lines, deadlines, admission, a
+    client-side timeout, a kernel fault in the drain and a drained
+    shutdown."""
+    import socket
+    from repro_torch.api import EvalError, Session, get_board, get_cnn
+    from repro_torch.fpga.archs import ARCH_NAMES, make_arch
+    from repro_torch.core.notation import format_spec
+    from repro_torch.kernels.mccm_eval import ops as mccm_ops
+    from repro_torch.serve import EvalServer, ServeClient
+    net = get_cnn(WIRE_NET)
+    specs = [format_spec(make_arch(a, net, n), len(net))
+             for a in ARCH_NAMES for n in TEMPLATE_NS[:2]]
+    codes = {}
+
+    def code_of(call):
+        try:
+            call()
+        except EvalError as e:
+            return e.code
+        return "ok"
+
+    def server(**kw):
+        ses = Session(get_board(WIRE_BOARD), device=str(device), **kw)
+        return ses, EvalServer(ses).start()
+
+    ses, srv = server(linger_s=0.005)
+    with ses, ServeClient(*srv.address) as cli:
+        with socket.create_connection(srv.address, timeout=60) as s:
+            f = s.makefile("rw", encoding="utf-8")
+            f.write("this is not json\n")
+            f.flush()
+            codes["malformed"] = json.loads(f.readline())["error"]["code"]
+            f.write(json.dumps({"id": 1, "op": "ping"}) + "\n")
+            f.flush()
+            codes["malformed_then_ping"] = json.loads(f.readline())["ok"]
+        for label, op, kw in (
+                ("unknown_op", "warp_drive", {}),
+                ("unknown_net", "evaluate", dict(designs=specs[:1],
+                                                 net="nope")),
+                ("unknown_board", "evaluate", dict(designs=specs[:1],
+                                                   net=WIRE_NET,
+                                                   board="nope"))):
+            codes[label] = code_of(lambda: cli.request(op, **kw))
+        codes["then_ping"] = cli.ping() == {"pong": True}
+        srv.stop()
+    ses, srv = server(linger_s=0.05)
+    with ses, ServeClient(*srv.address) as cli:
+        codes["deadline"] = code_of(
+            lambda: cli.evaluate(specs[0], WIRE_NET, deadline_s=0.001))
+        srv.stop()
+    ses, srv = server(linger_s=0.5, max_queue=1)
+    with ses, ServeClient(*srv.address) as cli:
+        first = cli.evaluate_async(specs[0], WIRE_NET)
+        time.sleep(0.1)
+        codes["queue"] = code_of(lambda: cli.evaluate(specs[1], WIRE_NET))
+        codes["queue_first"] = code_of(lambda: first.result(timeout=600))
+        srv.stop()
+    ses, srv = server(linger_s=0.5)
+    with ses, ServeClient(*srv.address) as cli:
+        codes["client_timeout"] = code_of(
+            lambda: cli.evaluate(specs[0], WIRE_NET, timeout_s=0.01))
+        with cli._plock:
+            codes["abandoned"] = not cli._pending
+        codes["after_timeout"] = code_of(
+            lambda: cli.evaluate(specs[0], WIRE_NET, timeout_s=600))
+        srv.stop()
+
+    calls = {"cuda": 0, "plain": 0}
+    real_plain = mccm_ops.parallelism_search_ref
+
+    def hook(site, route):
+        if route == "cuda":
+            calls["cuda"] += 1
+            raise RuntimeError("injected launch failure")
+
+    def plain(*args):
+        calls["plain"] += 1
+        return real_plain(*args)
+
+    prev = mccm_ops.set_fault_hook(hook)
+    mccm_ops.parallelism_search_ref = plain
+    try:
+        ses, srv = server(max_retries=1, linger_s=0.2)
+        with ses, ServeClient(*srv.address) as cli:
+            futs = [cli.evaluate_async([s], WIRE_NET) for s in specs]
+            faults = [code_of(lambda f=f: f.result(timeout=600))
+                      for f in futs]
+            degraded = ses.stats.degraded
+            srv.stop()
+    finally:
+        mccm_ops.set_fault_hook(prev)
+        mccm_ops.parallelism_search_ref = real_plain
+    codes.update(fault=faults, fault_plain_calls=calls["plain"],
+                 fault_kernel_calls=calls["cuda"], degraded=degraded)
+
+    ses, srv = server(linger_s=0.3)
+    with ses:
+        ses.evaluate(specs, net)
+        addr = srv.address
+        with ServeClient(*addr) as cli:
+            futs = [cli.evaluate_async([s], WIRE_NET) for s in specs]
+            time.sleep(0.05)
+            cli.shutdown(drain=True)
+            outs = [f.result(timeout=600) for f in futs]
+        want = [ses.evaluate([s], net) for s in specs]
+        codes["shutdown_delivered"] = all(
+            _wire_same(o, w) for o, w in zip(outs, want))
+        time.sleep(0.3)
+        try:
+            socket.create_connection(addr, timeout=0.5).close()
+            codes["listener_closed"] = False
+        except OSError:
+            codes["listener_closed"] = True
+        srv.stop()
+        srv.stop()
+        codes["session_survives"] = _wire_same(
+            {k: [v] for k, v in
+             ses.submit(specs[0], net).result(timeout=600).items()},
+            ses.evaluate(specs[:1], net))
+    want = dict(malformed=EvalError.INVALID_INPUT, malformed_then_ping=True,
+                unknown_op=EvalError.INVALID_INPUT,
+                unknown_net=EvalError.INVALID_INPUT,
+                unknown_board=EvalError.INVALID_INPUT, then_ping=True,
+                deadline=EvalError.DEADLINE_EXCEEDED,
+                queue=EvalError.QUEUE_FULL, queue_first="ok",
+                client_timeout=EvalError.DEADLINE_EXCEEDED, abandoned=True,
+                after_timeout="ok",
+                fault=[EvalError.BACKEND_FAULT] * len(specs),
+                fault_plain_calls=0, degraded=0, shutdown_delivered=True,
+                listener_closed=True, session_survives=True)
+    bad = {k: (codes[k], v) for k, v in want.items() if codes[k] != v}
+    if bad or codes["fault_kernel_calls"] == 0:
+        raise PhaseFailed(f"wire (c): {bad} {codes['fault_kernel_calls']}")
+    return codes
+
+
+def _island_plan(cfg: dict) -> tuple[list, int]:
+    """Each generation's first row in an island search's evaluation
+    order, then the budget; and its step calls, one an island and
+    sub-round (the island loop's sizes: pop_n a generation and island,
+    the final generation absorbing the remainder in sub-rounds of
+    pop_n)."""
+    I, budget = cfg["n_islands"], cfg["budget"]
+    pop_n = min(cfg["pop_size"], max(budget // I, 1))
+    gens = max(1, budget // (pop_n * I))
+    last = pop_n + (budget - gens * pop_n * I + I - 1) // I
+    steps = I * (gens - 1 + -(-last // pop_n))
+    return [g * pop_n * I for g in range(gens)] + [budget], steps
+
+
+def _islands_golden(device) -> dict:
+    """(d): the island search on the card at golden_islands.npz's two
+    configurations: every design, the fronts, island fronts, migrants and
+    archive sizes exact, points and metrics within RTOL_METRICS."""
+    import numpy as np
+    from repro_torch.api import SearchConfig, get_board, get_cnn
+    from repro_torch.core.dse.search import search
+    from repro_torch.kernels import launches, reset_launches
+    golden = np.load(os.path.join(ROOT, "src", "repro_torch", "data",
+                                  "golden_islands.npz"))
+    cfgs = json.loads(str(golden["config"]))
+    net = get_cnn(cfgs.pop("cnn"))
+    fields = ("seg_end", "seg_pipe", "seg_nce", "inter_pipe")
+    out, worst = {}, {}
+    for run, c in sorted(cfgs.items()):
+        reset_launches()
+        res = search(net, get_board(), SearchConfig(**c), device=str(device))
+        n_launch = launches()["parallelism_search"]
+        same = np.ones(c["budget"], bool)
+        for f, a in zip(fields, res.batch.to_numpy()):
+            eq = golden[f"{run}/{f}"] == a
+            same &= eq.reshape(len(eq), -1).all(1)
+        starts, steps = _island_plan(c)
+        parted = [g for g in range(len(starts) - 1)
+                  if not same[starts[g]:starts[g + 1]].all()]
+        diverged = parted[0] if parted else None
+        hist = json.loads(str(golden[f"{run}/history"]))
+        info = dict(config=c, launches=n_launch, step_calls=steps,
+                    islands_diverged_at=diverged)
+        if diverged is not None:
+            row = starts[diverged] + int(np.argmin(
+                same[starts[diverged]:starts[diverged + 1]]))
+            info["first_parted_row"] = row
+            raise PhaseFailed(f"islands (d) {run}: generation {diverged} "
+                              f"parts from the golden run at row {row}: "
+                              f"{info}")
+        checks = {
+            "front": np.array_equal(res.front_idx, golden[f"{run}/front"]),
+            "island_fronts": len(res.island_fronts) == c["n_islands"]
+            and all(np.array_equal(f, golden[f"{run}/island/{i}"])
+                    for i, f in enumerate(res.island_fronts)),
+            "migrants": [h["migrants"] for h in res.history]
+            == [h["migrants"] for h in hist],
+            "islands": [h["islands"] for h in res.history]
+            == [h["islands"] for h in hist],
+            "best_scalar_idx": res.history[-1]["best_scalar_idx"]
+            == hist[-1]["best_scalar_idx"],
+            "one_launch_a_step": n_launch == steps}
+        if not all(checks.values()):
+            raise PhaseFailed(f"islands (d) {run}: {checks}")
+        _check_metrics({"points": res.points.ravel(), **res.metrics},
+                       {f"{run}/points": golden[f"{run}/points"].ravel(),
+                        **{f"{run}/{k}": golden[f"{run}/metric/{k}"]
+                           for k in res.metrics}},
+                       run, worst)
+        info.update(front=len(res.front_idx),
+                    island_fronts=[len(f) for f in res.island_fronts],
+                    migrants=[h["migrants"] for h in res.history],
+                    seconds=res.seconds)
+        out[run] = info
+    out["rtol"] = RTOL_METRICS
+    out["max_rel_err"] = worst
+    return out
+
+
+def _islands_full(device, serial: dict) -> dict:
+    """(e): the island model at the paper's budget through
+    ``Session.explore``, beside phase 11's serial search from this run;
+    deterministic; then configuration B killed after its second snapshot
+    and resumed, bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.api import (SearchConfig, Session, get_board, get_cnn,
+                                 orient)
+    from repro_torch.core import resilience
+    from repro_torch.core.dse.search import search
+    from repro_torch.kernels import launches, reset_launches
+    net = get_cnn(DSE_CNN)
+    cfg = SearchConfig(n_islands=ISLANDS_FULL, seed=DSE_SEARCH_SEED)
+    runs = []
+    with Session(get_board(), device=str(device)) as ses:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        for _ in range(2):
+            reset_launches()
+            t0 = time.perf_counter()
+            res = ses.explore(net, DSE_BUDGET, strategy="search", config=cfg)
+            runs.append((res, time.perf_counter() - t0,
+                         launches()["parallelism_search"]))
+        peak = torch.cuda.max_memory_allocated(device)
+    (res, wall, n_launch), (again, _, _) = runs
+    pts = orient(res.metrics, DSE_OBJ)
+    fp = pts[res.front]
+    dominated = all((fp <= p).all(1).any()
+                    for f in res.island_fronts for p in pts[f])
+    migrants = sum(h["migrants"] for h in res.history)
+    same = all(np.array_equal(a, b) for a, b in zip(
+        res.batch.to_numpy(), again.batch.to_numpy())) \
+        and all(np.array_equal(res.metrics[k], again.metrics[k])
+                for k in res.metrics) \
+        and np.array_equal(res.front, again.front) \
+        and all(np.array_equal(a, b) for a, b in zip(res.island_fronts,
+                                                      again.island_fronts))
+    checks = dict(n_evals=res.n_evals == DSE_BUDGET,
+                  island_fronts=len(res.island_fronts) == ISLANDS_FULL
+                  and all(len(f) for f in res.island_fronts),
+                  dominated=dominated, migrants=migrants > 0,
+                  deterministic=same, launched=n_launch > 0)
+    if not all(checks.values()):
+        raise PhaseFailed(f"islands (e): {checks}")
+
+    b = json.loads(str(np.load(os.path.join(
+        ROOT, "src", "repro_torch", "data",
+        "golden_islands.npz"))["config"]))["B"]
+    path = os.path.join(OUT_DIR, "islands.ckpt")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    board = get_board()
+    plain = search(net, board, SearchConfig(**b), device=str(device))
+    real, writes = resilience.save_checkpoint, []
+
+    class Killed(BaseException):
+        pass
+
+    def save_twice_then_die(*args, **kwargs):
+        real(*args, **kwargs)
+        writes.append(args[1])
+        if len(writes) == 2:
+            raise Killed
+    resilience.save_checkpoint = save_twice_then_die
+    try:
+        search(net, board, SearchConfig(**b, checkpoint_path=path,
+                                        checkpoint_interval=1),
+               device=str(device))
+        killed = False
+    except Killed:
+        killed = True
+    finally:
+        resilience.save_checkpoint = real
+    resumed = search(net, board, SearchConfig(**b, checkpoint_path=path,
+                                              checkpoint_interval=1,
+                                              resume=True),
+                     device=str(device))
+    os.remove(path)
+    resume_same = killed and writes == ["dse-search-island"] * 2 \
+        and all(np.array_equal(x, y) for x, y in zip(
+            plain.batch.to_numpy(), resumed.batch.to_numpy())) \
+        and np.array_equal(plain.points, resumed.points) \
+        and all(np.array_equal(plain.metrics[k], resumed.metrics[k])
+                for k in plain.metrics) \
+        and np.array_equal(plain.front_idx, resumed.front_idx) \
+        and plain.history == resumed.history \
+        and all(np.array_equal(x, y) for x, y in zip(
+            plain.island_fronts, resumed.island_fronts))
+    if not resume_same:
+        raise PhaseFailed("islands (e): the resumed run parts from the "
+                          "uninterrupted one")
+    return dict(cnn=DSE_CNN, budget=DSE_BUDGET, n_islands=ISLANDS_FULL,
+                pop_size=cfg.pop_size, seed=DSE_SEARCH_SEED,
+                seconds=res.seconds, wall_s=wall,
+                per_design_us=res.per_design_us, launches=n_launch,
+                generations=len(res.timings),
+                breed_s=[t["breed_s"] for t in res.timings],
+                step_s=[t["step_s"] for t in res.timings],
+                front=len(res.front),
+                island_fronts=[len(f) for f in res.island_fronts],
+                migrants=migrants, max_memory_allocated=peak,
+                serial=dict(per_design_us=serial["per_design_us"],
+                            seconds=serial["seconds"],
+                            launches=serial["launches"]
+                            ["parallelism_search"],
+                            generations=serial["generations"]),
+                checks=checks, resume=dict(config=b, writes=len(writes),
+                                           bit_equal=resume_same))
+
+
+def phase_wire_islands(card: str, device, submit: dict, dse: dict) -> dict:
+    """The socket server (``EvalServer``/``ServeClient``) and the serial
+    island model on the card."""
+    import torch
+    t_phase = time.perf_counter()
+    parts_s = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts_s[name] = time.perf_counter() - t0
+        return out
+
+    ops = part("a", _wire_ops, device)
+    trace = part("b", _wire_trace, device, submit["trace"])
+    failures = part("c", _wire_failures, device)
+    golden = part("d", _islands_golden, device)
+    full = part("e", _islands_full, device, dse["runs"]["search"])
+    torch.cuda.synchronize()
+    info = dict(card=card, ops=ops, trace=trace, failures=failures,
+                islands_golden=golden, islands=full, parts_s=parts_s,
+                phase_s=time.perf_counter() - t_phase)
+    emit("wire_islands", **info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3164,11 +3795,12 @@ def main(argv=None) -> int:
                                serve["layer0_max_abs_err"])
     golden_lm = phase_golden_lm(card, device)
     flash_f32["launches"] = golden_lm["batches"]["long"]["flash_launches"]
-    phase_dse(card, device)
-    phase_submit(card, device, search["us_per_design_median"])
+    dse = phase_dse(card, device)
+    submit = phase_submit(card, device, search["us_per_design_median"])
     phase_schedule(card, device, args.seed, args.designs,
                    search["us_per_design_median"])
     phase_multinet(card, device, args.seed)
+    phase_wire_islands(card, device, submit, dse)
     lost = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             or m == "repro" or m.startswith("repro.")]
     if lost:

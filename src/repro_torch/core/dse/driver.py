@@ -45,6 +45,9 @@ class DSEResult:
     timings: list[dict] = field(default_factory=list)
     #: the search's per-generation archive record (empty for random)
     history: list[dict] = field(default_factory=list)
+    #: the island search's per-island front indices into ``batch`` (empty
+    #: for one population and for random)
+    island_fronts: list = field(default_factory=list)
     #: schedule-refined front metrics, front-aligned arrays: set only by
     #: ``Session.explore(refine="schedule")``
     refined: dict | None = None
@@ -99,7 +102,8 @@ def _explore(net, dev, n: int = 100_000, *,
             per_design_us=res.seconds / max(res.n_evals, 1) * 1e6,
             strategy="search", n_evals=res.n_evals,
             objectives=tuple(objectives), front=res.front_idx,
-            timings=res.timings, history=res.history)
+            timings=res.timings, history=res.history,
+            island_fronts=res.island_fronts)
     if strategy != "random":
         raise ValueError(f"unknown strategy {strategy!r}")
 

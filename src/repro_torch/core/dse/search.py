@@ -1,8 +1,8 @@
 """Guided multi-objective search over DesignBatch arrays (paper use case 3).
 
-The port of the JAX package's ``core/dse/search.py``, serial loop.  An
-evolutionary loop mutates and recombines whole *batches* of designs
-between batch-path evaluations, on the fixed-shape segment encoding.
+The port of the JAX package's ``core/dse/search.py``.  An evolutionary
+loop mutates and recombines whole *batches* of designs between batch-path
+evaluations, on the fixed-shape segment encoding.
 
 Breeding is host numpy on ``np.random.default_rng``, operator for operator
 the JAX package's (a copy of its code), so from one seed and the same
@@ -28,8 +28,12 @@ generation the host pulls only the objective points (for the archive), the
 validity mask, the scores and the repaired designs; the metrics stay on
 the device until the end of the search.
 
-The island model (several sub-populations on a mesh) is not ported:
-``n_islands > 1`` raises ``NotImplementedError``.
+The island model (``n_islands > 1``): sub-populations that evolve under
+the same generation step, each on its own ``[seed, island]`` RNG stream,
+with periodic migration of Pareto elites and a final merged front.  The
+islands take turns through the single-device step, as the JAX package runs
+them without a mesh: the same semantics and draws, serial execution.  The
+JAX package's sharded island step (one island a device) is not ported.
 """
 from __future__ import annotations
 
@@ -87,9 +91,12 @@ class SearchConfig:
     elite_frac: float = 0.25          # scalarized top-slice joining parents
     init_family: str = "both"         # sampler for init/immigrants:
                                       # "custom" | "mixed" | "both"
-    # ---- island model: not ported (ROADMAP.md queue 1, item 11) -------
-    n_islands: int | None = None      # None: 1 (the port has no mesh);
-                                      # > 1 raises NotImplementedError
+    # ---- island model (serial islands on one device) ------------------
+    n_islands: int | None = None      # None: 1 (the port has no mesh) --
+                                      # the classic single-population loop
+    migration_interval: int = 4       # generations between elite exchanges
+    migration_elites: int = 8         # per-island elites broadcast at each
+                                      # migration (0 disables migration)
     # ---- checkpoint/resume --------------------------------------------
     checkpoint_path: str | None = None  # snapshot file; None disables
     checkpoint_interval: int = 8      # generations between snapshots
@@ -114,6 +121,8 @@ class SearchResult:
     #: (``breed_s``, 0 for the last) and seconds of the device step with
     #: its pulls (``step_s``)
     timings: list[dict] = field(default_factory=list)
+    island_fronts: list = field(default_factory=list)  # per-island front
+                                      # indices into batch ([] single-pop)
 
 
 # --------------------------------------------------------------------------
@@ -345,8 +354,12 @@ def _weighted_sum(norm: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# checkpoint plumbing
+# checkpoint plumbing (shared by the serial and island loops)
 # --------------------------------------------------------------------------
+#: the checkpoint kinds the serial and the island loop write
+_CKPT_KINDS = ("dse-search", "dse-search-island")
+
+
 def _cfg_fingerprint(cfg, n_layers: int | tuple[int, ...]) -> dict:
     """The search-trajectory-determining identity a checkpoint is bound
     to: every config field except the checkpoint knobs themselves, plus
@@ -380,6 +393,19 @@ def _load_search_checkpoint(cfg, n_layers: int | tuple[int, ...],
             f"configuration/workload; refusing to resume (a resumed run "
             f"must be bit-identical to an uninterrupted one)")
     return snap["state"]
+
+
+def _best_scalar_idx(cfg, hall_ok, all_points, lo_h, hi_h) -> int:
+    """The best single design under one CONSISTENT scalarization (the
+    final normalization span ``lo_h``..``hi_h``, f64 on the host; the
+    configured weights, equal if none)."""
+    w = np.asarray(cfg.weights) if cfg.weights is not None \
+        else np.ones(len(cfg.objectives))
+    w = w / w.sum()
+    final_scores = np.where(
+        hall_ok,
+        ((all_points - lo_h) / np.maximum(hi_h - lo_h, 1e-30)) @ w, np.inf)
+    return int(np.argmin(final_scores))
 
 
 def _host(v) -> np.ndarray:
@@ -465,24 +491,24 @@ def search(net, dev, config: SearchConfig | None = None, tables=None, *,
     if cfg.mode == "scalarized" and cfg.weights is not None \
             and len(cfg.weights) != n_obj:
         raise ValueError("weights must match objectives")
+    # None: one island (the port has no mesh to count devices on)
     n_islands = 1 if cfg.n_islands is None else cfg.n_islands
     if n_islands < 1:
         raise ValueError(f"n_islands must be >= 1, got {n_islands}")
-    if min(n_islands, cfg.budget) > 1:
-        raise NotImplementedError(
-            "the island model (n_islands > 1) is not ported yet: it needs "
-            "the multi-card design axis (ROADMAP.md, queue 1, item 11)")
+    n_islands = min(n_islands, cfg.budget)
     tables = tables if tables is not None \
         else make_tables(net, device=device)
     device = tables.device
     devt = make_device_tables(dev, device=device) \
         if isinstance(dev, DeviceSpec) else dev
-
-    n_layers = tables.L
-    rng = np.random.default_rng(cfg.seed)
     statics = dict(objectives=tuple(cfg.objectives), min_ces=cfg.min_ces,
                    max_ces=cfg.max_ces, tile=tile or DEFAULT_TILE,
                    chunk=chunk or DEFAULT_CHUNK)
+    if n_islands > 1:
+        return _island_search(cfg, tables, devt, statics, n_islands)
+
+    n_layers = tables.L
+    rng = np.random.default_rng(cfg.seed)
 
     # generation sizes: pop_n each, the final one absorbing the remainder
     # so the evaluation count equals the budget EXACTLY.  Every device
@@ -622,17 +648,9 @@ def search(net, dev, config: SearchConfig | None = None, tables=None, *,
     seconds = time.time() - t0
     # one host pull per metric for the whole search (they stayed on device)
     metrics = _merged_metrics(all_metrics)
-    lo_h = lo.cpu().numpy().astype(np.float64)
-    hi_h = hi.cpu().numpy().astype(np.float64)
-    # best single design under one CONSISTENT scalarization (final
-    # normalization span; configured weights, equal if none)
-    w = np.asarray(cfg.weights) if cfg.weights is not None \
-        else np.ones(n_obj)
-    w = w / w.sum()
-    final_scores = np.where(
-        hall_ok,
-        ((all_points - lo_h) / np.maximum(hi_h - lo_h, 1e-30)) @ w, np.inf)
-    best_scalar_idx = int(np.argmin(final_scores))
+    best_scalar_idx = _best_scalar_idx(
+        cfg, hall_ok, all_points, lo.cpu().numpy().astype(np.float64),
+        hi.cpu().numpy().astype(np.float64))
     history.append(dict(gen=gens - 1, evals=total, archive=len(archive),
                         best=dict(zip(cfg.objectives,
                                       archive.points.min(0).tolist()))
@@ -651,4 +669,257 @@ def search(net, dev, config: SearchConfig | None = None, tables=None, *,
         seconds=seconds,
         history=history,
         timings=timings,
+    )
+
+
+# --------------------------------------------------------------------------
+# the island model (serial islands on the tables' device)
+# --------------------------------------------------------------------------
+def _migration_pick(archive: ParetoArchive, k: int) -> np.ndarray:
+    """Up to ``k`` elites from one island's front, spread along the first
+    objective (deterministic -- no RNG, so migration never perturbs the
+    per-island random streams)."""
+    pay = archive.payload
+    if len(pay) <= k:
+        return pay.copy()
+    order = np.argsort(archive.points[:, 0], kind="stable")
+    sel = np.round(np.linspace(0, len(order) - 1, k)).astype(int)
+    return pay[order[sel]]
+
+
+def _island_search(cfg: SearchConfig, tables, devt, statics: dict,
+                   n_islands: int) -> SearchResult:
+    """The island model: ``n_islands`` sub-populations, each evolving
+    under the same generation step (:func:`search_step`), with periodic
+    migration of Pareto elites between islands and a final merged-front
+    reduction.
+
+    The islands take turns through the single-device step on the tables'
+    device, each sub-batch padded to ``pop_n`` rows under the island's own
+    weight and normalization rows: the JAX package's serial island loop
+    (the one it runs without a mesh), so the same semantics and the same
+    draws.  Breeding stays host-side per island (``make_children``), each
+    island on its own ``[seed, island]`` RNG stream, so results are
+    deterministic given (seed, island count)."""
+    from ..batch_eval import _pad_rows
+
+    n_obj = len(cfg.objectives)
+    n_layers = tables.L
+    device = tables.device
+    I = n_islands
+
+    # per-generation island sizes: pop_n each, the final generation
+    # absorbing the remainder so evaluations equal the budget EXACTLY;
+    # every step call is padded to pop_n rows
+    pop_n = min(cfg.pop_size, max(cfg.budget // I, 1))
+    per_gen = pop_n * I
+    gens = max(1, cfg.budget // per_gen)
+    sizes = np.full((gens, I), pop_n, np.int64)
+    rem = cfg.budget - gens * per_gen
+    sizes[-1] += rem // I
+    sizes[-1, :rem % I] += 1
+    total = cfg.budget
+
+    def step_all(subs, w_t, lo, hi):
+        """Island i's sub-batch through the single-device step under its
+        own weight and normalization rows, one island after another."""
+        outs = [search_step(sub, tables, devt, w_t[i], lo[i], hi[i],
+                            **statics) for i, sub in enumerate(subs)]
+        return ([o[:5] for o in outs], torch.stack([o[5] for o in outs]),
+                torch.stack([o[6] for o in outs]))
+
+    hall_end = np.empty((total, NS), np.int32)
+    hall_pipe = np.empty((total, NS), bool)
+    hall_nce = np.empty((total, NS), np.int32)
+    hall_inter = np.empty((total,), bool)
+    all_points = np.empty((total, n_obj))
+    hall_ok = np.zeros((total,), bool)
+    all_metrics: list[dict] = []
+    timings: list[dict] = []
+
+    merged = ParetoArchive(n_obj)
+    islands = [ParetoArchive(n_obj) for _ in range(I)]
+    rngs = [np.random.default_rng([cfg.seed, i]) for i in range(I)]
+    lo = torch.full((I, n_obj), float("inf"), dtype=torch.float32,
+                    device=device)
+    hi = torch.full((I, n_obj), float("-inf"), dtype=torch.float32,
+                    device=device)
+    history: list[dict] = []
+
+    # ---- checkpoint/resume (same contract as the serial loop, with
+    # per-island RNG streams / populations / archives in the state) ----
+    start_gen, base, elapsed0 = 0, 0, 0.0
+    snap = _load_search_checkpoint(cfg, n_layers, "dse-search-island")
+    if snap is None:
+        pops = [_initial_pop(rngs[i], n_layers, cfg, int(sizes[0, i]))
+                for i in range(I)]
+    else:
+        start_gen, base = snap["gen"], snap["base"]
+        rngs = [resilience.rng_from_state(s) for s in snap["rngs"]]
+        pops = [DesignBatch.from_numpy(*p) for p in snap["pops"]]
+        hall_end[:base], hall_pipe[:base] = snap["hall"][0], snap["hall"][1]
+        hall_nce[:base], hall_inter[:base] = snap["hall"][2], snap["hall"][3]
+        all_points[:base] = snap["points"]
+        hall_ok[:base] = snap["ok"]
+        if snap["metrics"]:
+            all_metrics.append(snap["metrics"])
+        for arch, (apts, apay) in zip(islands, snap["islands"]):
+            arch.points, arch.payload = apts.copy(), apay.copy()
+        merged.points = snap["merged"][0].copy()
+        merged.payload = snap["merged"][1].copy()
+        lo = torch.from_numpy(snap["lo"]).to(device)
+        hi = torch.from_numpy(snap["hi"]).to(device)
+        history.extend(snap["history"])
+        elapsed0 = snap["elapsed_s"]
+    ckpt_every = max(1, cfg.checkpoint_interval)
+    t0 = time.time() - elapsed0
+    for gen in range(start_gen, gens):
+        if cfg.checkpoint_path and gen > 0 and gen % ckpt_every == 0:
+            resilience.save_checkpoint(
+                cfg.checkpoint_path, "dse-search-island",
+                {"gen": gen, "base": base,
+                 "rngs": [resilience.rng_state(r) for r in rngs],
+                 "pops": [tuple(p.to_numpy()) for p in pops],
+                 "hall": (hall_end[:base].copy(), hall_pipe[:base].copy(),
+                          hall_nce[:base].copy(), hall_inter[:base].copy()),
+                 "points": all_points[:base].copy(),
+                 "ok": hall_ok[:base].copy(),
+                 "metrics": _merged_metrics(all_metrics),
+                 "islands": [(a.points.copy(), a.payload.copy())
+                             for a in islands],
+                 "merged": (merged.points.copy(), merged.payload.copy()),
+                 "lo": lo.cpu().numpy(), "hi": hi.cpu().numpy(),
+                 "history": list(history),
+                 "elapsed_s": time.time() - t0},
+                meta=_checkpoint_meta(cfg, n_layers))
+        ws = []
+        for i in range(I):
+            if cfg.mode == "scalarized":
+                w = np.asarray(cfg.weights if cfg.weights is not None
+                               else np.ones(n_obj))
+            else:
+                w = rngs[i].random(n_obj) + 0.1   # per-island direction
+            ws.append(w / w.sum())
+        w_t = torch.tensor(np.asarray(ws, np.float32), device=device)
+
+        # sub-rounds: only the final (oversized) generation needs k > 1
+        t_step = time.perf_counter()
+        k = -(-int(sizes[gen].max()) // pop_n)
+        gen_idx = [[] for _ in range(I)]
+        gen_score = [[] for _ in range(I)]
+        for j in range(k):
+            subs, keeps = [], []
+            for i in range(I):
+                s = j * pop_n
+                e = min(int(sizes[gen, i]), s + pop_n)
+                keep = max(e - s, 0)
+                # an island with nothing left passes one padded row
+                rows = slice(s, e) if keep else slice(0, 1)
+                subs.append(_pad_rows(pops[i].take(rows).to(device), pop_n))
+                keeps.append(keep)
+            parts, lo, hi = step_all(subs, w_t, lo, hi)
+            for i in range(I):
+                keep = keeps[i]
+                if keep == 0:
+                    continue
+                design, metrics, pts, ok, score = parts[i]
+                idx = np.arange(base, base + keep)
+                base += keep
+                e_h, p_h, c_h, i_h = (a[:keep].cpu().numpy() for a in (
+                    design.seg_end, design.seg_pipe, design.seg_nce,
+                    design.inter_pipe))
+                hall_end[idx], hall_pipe[idx] = e_h, p_h
+                hall_nce[idx], hall_inter[idx] = c_h, i_h
+                pts_h = pts[:keep].cpu().numpy().astype(np.float64)
+                ok_h = ok[:keep].cpu().numpy()
+                all_points[idx] = pts_h
+                hall_ok[idx] = ok_h
+                all_metrics.append({kk: vv[:keep]
+                                    for kk, vv in metrics.items()})
+                gen_idx[i].append(idx)
+                gen_score[i].append(
+                    score[:keep].cpu().numpy().astype(np.float64))
+                islands[i].update(pts_h[ok_h], idx[ok_h])
+                merged.update(pts_h[ok_h], idx[ok_h])
+        step_s = time.perf_counter() - t_step
+
+        if gen == gens - 1:
+            timings.append(dict(gen=gen, breed_s=0.0, step_s=step_s))
+            break
+
+        # ---- migration: every island's elite slice to every island ----
+        t_breed = time.perf_counter()
+        migrate = (cfg.migration_elites > 0 and cfg.migration_interval > 0
+                   and (gen + 1) % cfg.migration_interval == 0)
+        migrants = np.empty(0, np.int64)
+        if migrate:
+            picks = [_migration_pick(islands[i], cfg.migration_elites)
+                     for i in range(I)]
+            migrants = np.unique(np.concatenate(picks))
+
+        # ---- per-island breeding: front + elite slice (+ migrants) ----
+        for i in range(I):
+            idx_i = np.concatenate(gen_idx[i])
+            score_i = np.concatenate(gen_score[i])
+            n_elite = max(1, int(len(idx_i) * cfg.elite_frac))
+            elite = idx_i[np.argsort(score_i, kind="stable")[:n_elite]]
+            pool = [islands[i].payload, elite]
+            if migrate:
+                pool.append(migrants)
+            pool = np.unique(np.concatenate(pool))
+            parents = DesignBatch.from_numpy(
+                hall_end[pool], hall_pipe[pool], hall_nce[pool],
+                hall_inter[pool])
+            nxt = int(sizes[gen + 1, i])
+            n_imm = int(nxt * cfg.immigrant_frac)
+            children = make_children(rngs[i], parents, n_layers, cfg,
+                                     nxt - n_imm)
+            imm = _initial_pop(rngs[i], n_layers, cfg, n_imm) \
+                if n_imm else None
+            pops[i] = concat_batches([children, imm]) \
+                if imm is not None else children
+        timings.append(dict(gen=gen, breed_s=time.perf_counter() - t_breed,
+                            step_s=step_s))
+
+        history.append(dict(gen=gen, evals=base, archive=len(merged),
+                            islands=[len(a) for a in islands],
+                            migrants=int(len(migrants)),
+                            best=dict(zip(cfg.objectives,
+                                          merged.points.min(0).tolist()))
+                            if len(merged) else {}))
+        if len(migrants):
+            telemetry.count("dse.migrations", int(len(migrants)))
+        _gen_telemetry("dse", gen, base,
+                       merged.points if len(merged) else None,
+                       {"islands": len(islands),
+                        "migrants": int(len(migrants))})
+
+    seconds = time.time() - t0
+    metrics = _merged_metrics(all_metrics)
+    best_scalar_idx = _best_scalar_idx(
+        cfg, hall_ok, all_points,
+        lo.cpu().numpy().astype(np.float64).min(0),
+        hi.cpu().numpy().astype(np.float64).max(0))
+    history.append(dict(gen=gens - 1, evals=total, archive=len(merged),
+                        islands=[len(a) for a in islands],
+                        migrants=0,
+                        best=dict(zip(cfg.objectives,
+                                      merged.points.min(0).tolist()))
+                        if len(merged) else {},
+                        best_scalar_idx=best_scalar_idx))
+    _gen_telemetry("dse", gens - 1, total,
+                   merged.points if len(merged) else None,
+                   {"islands": len(islands), "migrants": 0})
+    return SearchResult(
+        batch=DesignBatch.from_numpy(hall_end, hall_pipe, hall_nce,
+                                     hall_inter),
+        metrics=metrics,
+        points=all_points,
+        front_idx=np.sort(merged.payload.copy()),
+        objectives=cfg.objectives,
+        n_evals=total,
+        seconds=seconds,
+        history=history,
+        timings=timings,
+        island_fronts=[np.sort(a.payload.copy()) for a in islands],
     )

@@ -995,3 +995,51 @@ def test_faulted_kernel_under_deploy_is_backend_fault_on_card(cuda):
         mccm_ops.set_fault_hook(prev)
     assert e.value.code == EvalError.BACKEND_FAULT
     assert calls == {"cuda": 1} and ses.stats.degraded == 0
+
+
+def test_server_on_card_reply_equals_evaluate(cuda):
+    """The socket server on a card session: a list and a scalar evaluate
+    over loopback equal local ``evaluate`` on the card bit for bit (f32
+    through JSON), one search launch a chunk."""
+    from repro_torch.core.notation import format_spec
+    from repro_torch.serve import EvalServer, ServeClient
+    net = get_cnn("mobilenetv2")
+    notation = [format_spec(make_arch(a, net, n), len(net))
+                for a in ARCH_NAMES for n in (2, 5, 9)]
+    with Session(get_board("zc706"), device=str(cuda),
+                 linger_s=0.005) as ses:
+        want = ses.evaluate(notation, net)
+        with EvalServer(ses) as srv, ServeClient(*srv.address) as cli:
+            reset_launches()
+            got = cli.evaluate(notation, "mobilenetv2", timeout_s=300)
+            assert launches()["parallelism_search"] == 1
+            one = cli.evaluate(notation[0], "mobilenetv2", timeout_s=300)
+    for k, w in want.items():
+        np.testing.assert_array_equal(np.asarray(got[k], w.dtype), w,
+                                      err_msg=k)
+        assert one[k] == float(w[0]), k
+
+
+def test_island_search_on_card_equals_cpu(cuda):
+    """The serial island model on the card against the same search on the
+    CPU (golden configuration B: 3 islands, the final generation in two
+    sub-rounds): the same designs, fronts, island fronts, migrants and
+    archive sizes, the metrics within 1e-5; one search launch a step."""
+    from repro_torch.core.dse.search import SearchConfig, search
+    cfg = SearchConfig(n_islands=3, pop_size=40, budget=530,
+                       migration_interval=1, migration_elites=3, seed=5)
+    net, board = get_cnn("mobilenetv2"), get_board()
+    reset_launches()
+    got = search(net, board, cfg, device=str(cuda))
+    n_launch = launches()["parallelism_search"]
+    want = search(net, board, cfg, device="cpu")
+    assert n_launch == 3 * 3 + 3 * 2          # 3 generations + 2 sub-rounds
+    for g, w in zip(got.batch.to_numpy(), want.batch.to_numpy()):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got.front_idx, want.front_idx)
+    for g, w in zip(got.island_fronts, want.island_fronts):
+        np.testing.assert_array_equal(g, w)
+    assert [(h["islands"], h["migrants"]) for h in got.history] == \
+        [(h["islands"], h["migrants"]) for h in want.history]
+    for k, w in want.metrics.items():
+        np.testing.assert_allclose(got.metrics[k], w, rtol=1e-5, err_msg=k)

@@ -389,9 +389,10 @@ def test_explore_refine_and_islands():
     with pytest.raises(EvalError) as e:
         ses.explore(net, n=8, refine="bogus")
     assert e.value.code == EvalError.INVALID_INPUT
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ses.explore(net, n=64, strategy="search",
-                    config=SearchConfig(pop_size=32, n_islands=2))
+    isl = ses.explore(net, n=64, strategy="search",
+                      config=SearchConfig(pop_size=32, n_islands=2))
+    assert isl.n_evals == 64 and len(isl.island_fronts) == 2
+    assert all(len(h["islands"]) == 2 for h in isl.history)
     with pytest.raises(ValueError, match="strategy"):
         ses.explore(net, n=8, strategy="grid")
     assert ses.stats.explore_calls == 3

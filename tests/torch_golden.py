@@ -5,16 +5,17 @@ The machine with the card has no JAX, so the files are committed:
 ``src/repro_torch/data/golden_mccm.npz`` (the MCCM paths),
 ``src/repro_torch/data/golden_lm.npz`` (the LM serving path),
 ``src/repro_torch/data/golden_dse.npz`` (the DSE path),
-``src/repro_torch/data/golden_schedule.npz`` (the schedule layer) and
-``src/repro_torch/data/golden_multinet.npz`` (multinet co-scheduling).
+``src/repro_torch/data/golden_schedule.npz`` (the schedule layer),
+``src/repro_torch/data/golden_multinet.npz`` (multinet co-scheduling) and
+``src/repro_torch/data/golden_islands.npz`` (the island search).
 Regenerate them after a change to the JAX package's model with::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py
 
 ``tests/test_torch_session.py``, ``tests/test_torch_lm.py``,
-``tests/test_torch_dse.py``, ``tests/test_torch_schedule.py`` and
-``tests/test_torch_multinet.py`` check that the committed files still equal
-what this computes.
+``tests/test_torch_dse.py``, ``tests/test_torch_schedule.py``,
+``tests/test_torch_multinet.py`` and ``tests/test_torch_islands.py`` check
+that the committed files still equal what this computes.
 
 Contents: for every CNN x board, the 12 baseline templates (3 archs x
 n in {2, 5, 9, 11}) under ``tmpl/<cnn>/<board>/<metric>``, and 256
@@ -62,6 +63,14 @@ the seeded inputs (``in/<design field>``, ``in/pes``, ``in/buf``,
 evaluated designs in evaluation order, the raw share genomes
 (``shares/<gene>``), the ``front`` indices, the front rows' metrics
 (``front/<metric>``) and the ``objectives`` as JSON.
+
+``golden_islands.npz``: the JAX package's ``search()`` of MobileNetV2 on
+the default board, on the CPU, in its serial island model at the two
+configurations of ``ISLAND_RUNS`` (``config`` holds them as JSON).  Per
+run under ``<run>/``: every evaluated design in evaluation order, its
+oriented ``points``, every metric (``metric/<name>``), the merged
+``front`` indices, each island's front (``island/<i>``) and the
+``history`` as JSON.
 """
 from __future__ import annotations
 
@@ -377,6 +386,39 @@ def compute_golden_multinet() -> dict[str, np.ndarray]:
     return out
 
 
+GOLDEN_ISLANDS = os.path.join(DATA, "golden_islands.npz")
+#: A: tests/test_shard.py's island configuration; B: three islands whose
+#: final generation (57/57/56 rows) runs in two sub-rounds of pop 40
+ISLAND_CNN = "mobilenetv2"
+ISLAND_RUNS = {
+    "A": dict(n_islands=4, pop_size=64, budget=1300, migration_interval=2,
+              migration_elites=4, seed=3),
+    "B": dict(n_islands=3, pop_size=40, budget=530, migration_interval=1,
+              migration_elites=3, seed=5)}
+
+
+def compute_golden_islands() -> dict[str, np.ndarray]:
+    """The JAX package's island search (see the module docstring)."""
+    from repro.cnn.registry import get_cnn
+    from repro.core.dse.search import SearchConfig, search
+    from repro.fpga.boards import get_board
+
+    out = {"config": np.array(json.dumps({"cnn": ISLAND_CNN,
+                                          **ISLAND_RUNS}))}
+    for run, kw in ISLAND_RUNS.items():
+        res = search(get_cnn(ISLAND_CNN), get_board(), SearchConfig(**kw))
+        for k, v in zip(DESIGN_FIELDS, res.batch.to_numpy()):
+            out[f"{run}/{k}"] = np.asarray(v)
+        out[f"{run}/points"] = np.asarray(res.points)
+        for k, v in res.metrics.items():
+            out[f"{run}/metric/{k}"] = np.asarray(v)
+        out[f"{run}/front"] = np.asarray(res.front_idx, np.int64)
+        for i, f in enumerate(res.island_fronts):
+            out[f"{run}/island/{i}"] = np.asarray(f, np.int64)
+        out[f"{run}/history"] = np.array(json.dumps(res.history))
+    return out
+
+
 if __name__ == "__main__":
     os.makedirs(DATA, exist_ok=True)
     np.savez_compressed(GOLDEN, **compute_golden())
@@ -391,3 +433,6 @@ if __name__ == "__main__":
     np.savez_compressed(GOLDEN_MULTINET, **compute_golden_multinet())
     print(f"wrote {GOLDEN_MULTINET} "
           f"({os.path.getsize(GOLDEN_MULTINET)} bytes)")
+    np.savez_compressed(GOLDEN_ISLANDS, **compute_golden_islands())
+    print(f"wrote {GOLDEN_ISLANDS} "
+          f"({os.path.getsize(GOLDEN_ISLANDS)} bytes)")
