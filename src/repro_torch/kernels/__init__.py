@@ -3,7 +3,8 @@
 ``mccm_eval`` holds the fused ⟨pf, ph, pw⟩ parallelism search of the batch
 path and the Eq. 1 latency sweep; ``conv_ce`` runs one layer as a compute
 engine, a tiled direct convolution whose launch grid is Eq. 1;
-``flash_attn`` is the attention of the LM serving path's prefill.  A kernel is
+``flash_attn`` is the LM serving path's attention past 2048 positions
+(prefill, and the enc-dec's cross-attention in every decode step).  A kernel is
 built with ``nvcc`` at its first launch (``_nvcc.load``), never at import.
 
 Every kernel wrapper adds one to its entry of the launch count below where

@@ -1,13 +1,16 @@
-"""Serving entry point: batched generation on a dense ``--arch`` with random
-weights from seed 0, on the card unless ``--device cpu``.
+"""Serving entry point: batched generation on any ``--arch`` (every
+family: dense, MoE, SSM, hybrid, enc-dec, VLM) with random weights from
+seed 0, on the card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --reduced --batch 4 --new-tokens 16 --device cpu
 
-Without ``--device cpu`` it needs a visible CUDA card and raises without
-one; it never falls back to the CPU.  On the card, prefill's attention runs
-the hand-written ``flash_fwd`` kernel whenever the prompt is longer than
-2048 tokens (``--prompt-len``).
+The VLM gets stub patch embeddings and the enc-dec 64 stub frames, drawn
+from the prompts' generator after them, as the JAX package's launcher
+draws them.  Without ``--device cpu`` it needs a visible CUDA card and
+raises without one; it never falls back to the CPU.  On the card,
+attention runs the hand-written ``flash_fwd`` kernel wherever it is
+longer than 2048 tokens (``--prompt-len``).
 """
 from __future__ import annotations
 
@@ -46,7 +49,16 @@ def main(argv=None) -> int:
     prompts = [rng.integers(1, cfg.vocab_size,
                             rng.integers(4, args.prompt_len + 1)).tolist()
                for _ in range(args.batch)]
-    res = engine.generate(model, prompts, max_new_tokens=args.new_tokens)
+    extra = None
+    if cfg.family == "vlm":
+        extra = {"patches": rng.standard_normal(
+            (args.batch, cfg.n_patches, cfg.frontend_dim), dtype=np.float32)}
+    if cfg.family == "encdec":
+        S_enc = 64
+        extra = {"frames": rng.standard_normal(
+            (args.batch, S_enc, cfg.frontend_dim), dtype=np.float32)}
+    res = engine.generate(model, prompts, max_new_tokens=args.new_tokens,
+                          extra_inputs=extra)
     for i, toks in enumerate(res.tokens):
         print(f"req {i}: prompt {len(prompts[i])} toks -> {toks[:12]}"
               f"{'...' if len(toks) > 12 else ''}")

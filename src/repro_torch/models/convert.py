@@ -1,12 +1,16 @@
 """Carry the JAX package's LM parameters across to the port.
 
-The JAX package keeps a dense transformer's params as nested dicts of
-arrays, every per-layer leaf stacked on a leading ``n_layers`` axis
-(``models/transformer.py::init``).  :func:`from_jax` takes that tree with
-numpy arrays (or anything ``np.asarray`` takes) as leaves and builds the
-port's :class:`~repro_torch.models.transformer.TransformerLM` from it on a
-given device (``cuda`` unless the caller asks for another), so that both
-packages compute with the same weights.
+The JAX package keeps a model's params as nested dicts of arrays, every
+per-layer leaf stacked on a leading layer axis (``n_layers`` for the
+transformer's ``layers``; ``n_enc_layers``/``n_dec_layers`` for the
+enc-dec stacks; ``tail`` for the SSM LM's ungrouped blocks; and
+``(g, attn_every)``, doubly, for the hybrid's ``groups``).
+:func:`from_jax` takes that tree with numpy arrays (or anything
+``np.asarray`` takes) as leaves, checks every leaf against the shapes the
+config needs (:func:`param_shapes`: a missing, extra or misshapen leaf,
+a short layer stack among them, raises), and builds the port's model of
+the config's family from it on a given device (``cuda`` unless the caller
+asks for another), so that both packages compute with the same weights.
 :func:`flatten` and :func:`unflatten` map the tree to and from flat
 ``"a/b/c"`` keys, as an ``.npz`` file holds it.
 """
@@ -18,12 +22,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from .encdec import EncDecLM
 from .layers import Params
 from .runtime import resolve_device
-from .transformer import Block, TransformerLM, _dense_only
-
-#: the params of one decoder block, by submodule
-BLOCK_KEYS = ("ln1", "attn", "ln2", "mlp")
+from .ssm_lm import SSMLM, _group_split
+from .transformer import Block, TransformerLM
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor:
@@ -37,33 +40,146 @@ def to_tensor(a, device="cuda") -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def _bag(tree: Mapping, device, layer: int | None = None) -> Params:
-    return Params(**{k: to_tensor(v if layer is None else np.asarray(v)[layer],
-                                  device) for k, v in tree.items()})
+# --------------------------------------------------------------------------
+# the shapes a config's params take, as the JAX package's init makes them
+# --------------------------------------------------------------------------
+def _stacked(tree: dict, lead: tuple) -> dict:
+    return {k: _stacked(v, lead) if isinstance(v, dict) else lead + v
+            for k, v in tree.items()}
 
 
-def from_jax(params: Mapping, cfg, device="cuda") -> TransformerLM:
+def param_shapes(cfg) -> dict:
+    """The nested dict of leaf shapes of ``cfg``'s params in the JAX
+    package's layout."""
+    d, hd, F = cfg.d_model, cfg.head_dim, cfg.frontend_dim
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+
+    def norm(n=d):
+        return {"scale": (n,)}
+
+    def attn():
+        p = {"wq": (d, nq), "wk": (d, nkv), "wv": (d, nkv), "wo": (nq, d)}
+        if cfg.qkv_bias:
+            p.update(bq=(nq,), bk=(nkv,), bv=(nkv,))
+        return p
+
+    def mlp():
+        f = cfg.d_ff
+        if cfg.mlp_act == "swiglu":
+            return {"wg": (d, f), "wu": (d, f), "wd": (f, d)}
+        return {"wu": (d, f), "bu": (f,), "wd": (f, d), "bd": (d,)}
+
+    def moe():
+        e, f = cfg.n_experts, cfg.moe_d_ff
+        p = {"router": (d, e), "wg": (e, d, f), "wu": (e, d, f),
+             "wd": (e, f, d)}
+        if cfg.n_shared_experts:
+            fs = f * cfg.n_shared_experts
+            p["shared"] = {"wg": (d, fs), "wu": (d, fs), "wd": (fs, d)}
+        return p
+
+    def mamba_block():
+        di, H = cfg.d_inner, cfg.n_ssm_heads
+        gn = cfg.n_ssm_groups * cfg.ssm_state
+        return {"ln": norm(), "mixer": {
+            "in_proj": (d, 2 * di + 2 * gn + H),
+            "conv_w": (cfg.ssm_conv, di + 2 * gn), "conv_b": (di + 2 * gn,),
+            "A_log": (H,), "dt_bias": (H,), "D": (H,), "norm": norm(di),
+            "out_proj": (di, d)}}
+
+    embed = {"table": (cfg.padded_vocab, d)}
+    if cfg.pos_emb == "abs":
+        embed["pos"] = (cfg.max_abs_positions, d)
+    tree = {"embed": embed, "final_norm": norm()}
+    if not cfg.tie_embeddings:
+        tree["head"] = {"w": (d, cfg.padded_vocab)}
+    if cfg.family in ("ssm", "hybrid"):
+        g, tail = _group_split(cfg)
+        if g:
+            tree["groups"] = _stacked(mamba_block(), (g, cfg.attn_every))
+            tree["shared"] = {"ln1": norm(), "attn": attn(), "ln2": norm(),
+                              "mlp": mlp()}
+        if tail:
+            tree["tail"] = _stacked(mamba_block(), (tail,))
+    elif cfg.family == "encdec":
+        enc = {"ln1": norm(), "attn": attn(), "ln2": norm(), "mlp": mlp()}
+        dec = {"ln1": norm(), "attn": attn(), "lnx": norm(), "xattn": attn(),
+               "ln2": norm(), "mlp": mlp()}
+        tree.update(adapter={"w": (F, d)}, enc_pos=(cfg.max_abs_positions, d),
+                    enc_layers=_stacked(enc, (cfg.n_enc_layers,)),
+                    enc_norm=norm(),
+                    dec_layers=_stacked(dec, (cfg.n_dec_layers,)))
+    else:
+        block = {"ln1": norm(), "attn": attn(), "ln2": norm()}
+        block.update({"moe": moe()} if cfg.n_experts else {"mlp": mlp()})
+        tree["layers"] = _stacked(block, (cfg.n_layers,))
+        if cfg.family == "vlm":
+            tree["projector"] = {"w": (F, d), "b": (d,)}
+    return tree
+
+
+def _check(params: Mapping, cfg) -> None:
+    want = {k: tuple(v) for k, v in flatten(param_shapes(cfg)).items()}
+    got = {k: np.shape(v) for k, v in flatten(params).items()}
+    missing, extra = sorted(want.keys() - got), sorted(got.keys() - want)
+    if missing or extra:
+        raise ValueError(f"{cfg.name}: the params lack {missing} and hold "
+                         f"{extra} beyond the config's")
+    for k, shape in want.items():
+        if got[k] != shape:
+            raise ValueError(f"{k} has shape {got[k]}, {cfg.name} needs "
+                             f"{shape}")
+
+
+# --------------------------------------------------------------------------
+# the port's model from the checked tree
+# --------------------------------------------------------------------------
+def _bag(tree: Mapping, device, index: tuple = ()) -> Params:
+    """A (nested) dict -> a (nested) :class:`Params`, each leaf taken at
+    ``index`` of its leading axes."""
+    return Params(**{k: _bag(v, device, index) if isinstance(v, Mapping)
+                     else to_tensor(np.asarray(v)[index], device)
+                     for k, v in tree.items()})
+
+
+def _blocks(stacked: Mapping, n: int, device, cls=nn.ModuleDict,
+            index: tuple = ()) -> nn.ModuleList:
+    """The n blocks of a stacked tree, block i at ``index + (i,)``."""
+    return nn.ModuleList(
+        cls({name: _bag(sub, device, index + (i,))
+             for name, sub in stacked.items()}) for i in range(n))
+
+
+def from_jax(params: Mapping, cfg, device="cuda") -> nn.Module:
     """The port's model holding the JAX package's ``params`` for ``cfg``,
     on ``device``."""
-    _dense_only(cfg)
     device = resolve_device(device, "from_jax")
-    stacked = params["layers"]
-    if sorted(stacked) != sorted(BLOCK_KEYS):
-        raise ValueError(f"layers hold {sorted(stacked)}, expected "
-                         f"{sorted(BLOCK_KEYS)}")
-    for name, sub in stacked.items():
-        for k, v in sub.items():
-            if np.shape(v)[0] != cfg.n_layers:
-                raise ValueError(f"layers/{name}/{k} has {np.shape(v)[0]} "
-                                 f"layers, {cfg.name} has {cfg.n_layers}")
-    mods = {"embed": _bag(params["embed"], device),
-            "layers": nn.ModuleList(
-                Block({name: _bag(stacked[name], device, i)
-                       for name in BLOCK_KEYS})
-                for i in range(cfg.n_layers)),
-            "final_norm": _bag(params["final_norm"], device)}
-    if "head" in params:
-        mods["head"] = _bag(params["head"], device)
+    _check(params, cfg)
+    mods = {name: _bag(params[name], device)
+            for name in ("embed", "final_norm", "head") if name in params}
+    if cfg.family in ("ssm", "hybrid"):
+        g, tail = _group_split(cfg)
+        if g:
+            mods["groups"] = nn.ModuleList(
+                _blocks(params["groups"], cfg.attn_every, device,
+                        index=(gi,)) for gi in range(g))
+            mods["shared"] = nn.ModuleDict(
+                {k: _bag(v, device) for k, v in params["shared"].items()})
+        if tail:
+            mods["tail"] = _blocks(params["tail"], tail, device)
+        return SSMLM(mods)
+    if cfg.family == "encdec":
+        return EncDecLM(
+            **mods, adapter=_bag(params["adapter"], device),
+            enc_pos=to_tensor(params["enc_pos"], device),
+            enc_layers=_blocks(params["enc_layers"], cfg.n_enc_layers,
+                               device),
+            enc_norm=_bag(params["enc_norm"], device),
+            dec_layers=_blocks(params["dec_layers"], cfg.n_dec_layers,
+                               device))
+    mods["layers"] = _blocks(params["layers"], cfg.n_layers, device, Block)
+    if "projector" in params:
+        mods["projector"] = _bag(params["projector"], device)
     return TransformerLM(mods)
 
 

@@ -17,8 +17,8 @@ half.  Conventions kept from there:
 * Sliding-window attention (h2o-danube) masks both paths.
 
 Not ported yet: the chunked path's custom VJP and backward (training),
-``cross_attention_fwd`` (enc-dec), and the tensor-parallel head padding and
-sharding hints (a ``Runtime`` with a mesh raises).
+and the tensor-parallel head padding and sharding hints (a ``Runtime``
+with a mesh raises).
 """
 from __future__ import annotations
 
@@ -33,19 +33,27 @@ from ..kernels.flash_attn.ref import attention_mask
 
 
 class Params(nn.Module):
-    """A named bag of parameter tensors, indexed like the JAX package's
-    param dicts.  Inference only: no tensor requires a gradient."""
+    """A named bag of parameter tensors and nested bags (or other
+    modules), indexed like the JAX package's param dicts: ``p["wq"]`` is a
+    tensor, ``p["shared"]["wg"]`` a tensor of a nested bag.  Inference
+    only: no tensor requires a gradient."""
 
-    def __init__(self, **tensors: torch.Tensor):
+    def __init__(self, **items):
         super().__init__()
-        for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+        for name, t in items.items():
+            if isinstance(t, nn.Module):
+                self.add_module(name, t)
+            else:
+                self.register_parameter(name,
+                                        nn.Parameter(t, requires_grad=False))
 
-    def __getitem__(self, name: str) -> torch.Tensor:
-        return self._parameters[name]
+    def __getitem__(self, name: str):
+        if name in self._parameters:
+            return self._parameters[name]
+        return self._modules[name]
 
     def __contains__(self, name: str) -> bool:
-        return name in self._parameters
+        return name in self._parameters or name in self._modules
 
 
 # --------------------------------------------------------------------------
@@ -248,6 +256,24 @@ def attention_decode(params: Params, x, cfg, cache_k, cache_v,
     return out, cache_k, cache_v
 
 
+def cross_attention_fwd(params: Params, x, enc_out, cfg):
+    """Decoder cross-attention: queries from x (B,Sq,D), keys and values
+    from enc_out (B,Sk,D), no mask.  Past 2048 positions on either side it
+    takes the chunked path (the kernel on a CUDA tensor), else dense."""
+    B, Sq, _ = x.shape
+    Sk = enc_out.shape[1]
+    q = (x @ params["wq"]).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+    k = (enc_out @ params["wk"]).reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ params["wv"]).reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qkv_bias:
+        q = q + params["bq"].reshape(1, 1, cfg.n_heads, cfg.head_dim)
+        k = k + params["bk"].reshape(1, 1, cfg.n_kv_heads, cfg.head_dim)
+        v = v + params["bv"].reshape(1, 1, cfg.n_kv_heads, cfg.head_dim)
+    attn = chunked_attention if max(Sq, Sk) > 2048 else dense_attention
+    out = attn(q, k, v, causal=False, window=None)
+    return out.reshape(B, Sq, cfg.n_heads * cfg.head_dim) @ params["wo"]
+
+
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
@@ -299,6 +325,12 @@ def unembed(params_emb: Params, params_head: Params | None, x, cfg):
     if params_head is None:
         return x.float() @ params_emb["table"].float().T
     return x.float() @ params_head["w"].float()
+
+
+def lm_head(model) -> Params | None:
+    """A model's separate LM head, or None where it is tied to the
+    embedding table."""
+    return model["head"] if "head" in model else None
 
 
 def init_lm_head(gen: torch.Generator, cfg) -> Params | None:

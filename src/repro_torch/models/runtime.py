@@ -2,9 +2,12 @@
 
 The PyTorch port of the JAX package's ``models/runtime.py``, trimmed to
 one device: ``ModelConfig`` says *what* the network is; ``Runtime`` says
-which attention path prefill takes.  The mesh, the tensor- and
-expert-parallel axes and the other sharding fields are not ported yet
-(``ROADMAP.md`` queue 1, item 11): a ``Runtime`` given a mesh raises.
+which attention path prefill takes, how the MoE layer dispatches (on one
+device: ``local``) and the SSD scan's chunk.  The mesh, the tensor- and
+expert-parallel axes, the expert-parallel MoE dispatches and the other
+sharding fields are not ported yet (``ROADMAP.md`` queue 1, item 11): a
+``Runtime`` given a mesh, or ``moe_impl`` ``"ep"`` or ``"ep_a2a"``,
+raises.  Remat and the loss chunk are training and wait for it.
 """
 from __future__ import annotations
 
@@ -14,21 +17,34 @@ from typing import Any
 import torch
 
 ATTN_MODES = ("dense", "chunked", "auto")
+MOE_IMPLS = ("local", "ep", "ep_a2a")
 
 
 @dataclass(frozen=True)
 class Runtime:
     attn_mode: str = "auto"             # dense | chunked | auto
     mesh: Any = None                    # sharding: not ported yet
+    moe_impl: str = "local"             # local (ep | ep_a2a: not ported yet)
+    ssd_chunk: int = 256                # tokens a chunk of the SSD scan
 
     def __post_init__(self):
         if self.attn_mode not in ATTN_MODES:
             raise ValueError(f"attn_mode must be one of {ATTN_MODES}, got "
                              f"{self.attn_mode!r}")
+        if self.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got "
+                             f"{self.moe_impl!r}")
+        if self.ssd_chunk < 1:
+            raise ValueError(f"ssd_chunk must be >= 1, got {self.ssd_chunk}")
         if self.mesh is not None:
             raise NotImplementedError(
                 "Runtime(mesh=...): sharded execution is not ported yet "
                 "(ROADMAP.md queue 1, item 11)")
+        if self.moe_impl != "local":
+            raise NotImplementedError(
+                f"Runtime(moe_impl={self.moe_impl!r}): the expert-parallel "
+                f"MoE dispatch is not ported yet (ROADMAP.md queue 1, item "
+                f"11)")
 
 
 def resolve_device(device, who: str) -> torch.device:

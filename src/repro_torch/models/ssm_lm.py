@@ -1,0 +1,238 @@
+"""Mamba2 LM (attention-free) and Zamba2-style hybrid LM, for inference.
+
+The PyTorch port of the JAX package's ``models/ssm_lm.py``.  Zamba2
+layout: ``n_layers`` Mamba2 blocks; after every ``attn_every``-th block
+one *shared* (weight-tied) attention+MLP block is applied.  The JAX
+package scans the stack in groups; here the model holds ``groups``, an
+``nn.ModuleList`` of ``g`` groups of ``attn_every`` blocks, walked by
+Python loops, the one ``shared`` block, and the ``tail`` blocks that fill
+no group (``models/convert.py`` unstacks the JAX package's doubly
+stacked params into it).  The attention-free Mamba2 LM has no groups: all
+its blocks are the tail.
+
+API (used by ``models/registry.py``): ``init``, ``forward``,
+``init_cache``, ``prefill`` and ``decode_step``, as
+``models/transformer.py``.  Not ported yet: ``loss`` (training) and
+remat.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import layers as L
+from .runtime import resolve_device
+from .ssm import init_mamba, init_mamba_cache, mamba_fwd, mamba_step
+
+
+class SSMLM(nn.ModuleDict):
+    """embed, final_norm, [groups, shared,] [tail,] [head]."""
+
+    def lm_head(self) -> L.Params | None:
+        return L.lm_head(self)
+
+
+# --------------------------------------------------------------------------
+# blocks
+# --------------------------------------------------------------------------
+def init_mamba_block(gen: torch.Generator, cfg) -> nn.ModuleDict:
+    return nn.ModuleDict({"ln": L.init_rmsnorm(gen, cfg.d_model,
+                                               cfg.torch_dtype),
+                          "mixer": init_mamba(gen, cfg)})
+
+
+def mamba_block_fwd(p, x, cfg, rt):
+    return x + mamba_fwd(p["mixer"], L.rms_norm(x, p["ln"], cfg.norm_eps),
+                         cfg, chunk=rt.ssd_chunk)
+
+
+def init_shared_attn_block(gen: torch.Generator, cfg) -> nn.ModuleDict:
+    return nn.ModuleDict({
+        "ln1": L.init_rmsnorm(gen, cfg.d_model, cfg.torch_dtype),
+        "attn": L.init_attention(gen, cfg),
+        "ln2": L.init_rmsnorm(gen, cfg.d_model, cfg.torch_dtype),
+        "mlp": L.init_mlp(gen, cfg)})
+
+
+def _shared_mlp(p, x, cfg):
+    return x + L.mlp_fwd(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+
+
+def shared_attn_fwd(p, x, cfg, rt, *, return_kv: bool = False):
+    """The shared block on x; with ``return_kv`` also its roped keys and
+    values for the KV cache."""
+    out = L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                          cfg, mode=rt.attn_mode, return_kv=return_kv)
+    att, kv = (out[0], out[1:]) if return_kv else (out, None)
+    x = _shared_mlp(p, x + att, cfg)
+    return (x, kv) if return_kv else x
+
+
+def _group_split(cfg) -> tuple[int, int]:
+    """(#full groups, #tail layers) for the hybrid layout."""
+    if not cfg.attn_every:
+        return 0, cfg.n_layers
+    g = cfg.n_layers // cfg.attn_every
+    return g, cfg.n_layers - g * cfg.attn_every
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+@torch.no_grad()
+def init(gen: torch.Generator, cfg) -> SSMLM:
+    """Random weights from ``gen``, on ``gen``'s device, in ``cfg.dtype``
+    (``A_log``, ``dt_bias`` and ``D`` f32).  The JAX package's draws
+    differ: carry its params across with ``models/convert.py``."""
+    mods = {"embed": L.init_embedding(gen, cfg),
+            "final_norm": L.init_rmsnorm(gen, cfg.d_model, cfg.torch_dtype)}
+    g, tail = _group_split(cfg)
+    if g:
+        mods["groups"] = nn.ModuleList(
+            nn.ModuleList(init_mamba_block(gen, cfg)
+                          for _ in range(cfg.attn_every)) for _ in range(g))
+        mods["shared"] = init_shared_attn_block(gen, cfg)
+    if tail:
+        mods["tail"] = nn.ModuleList(init_mamba_block(gen, cfg)
+                                     for _ in range(tail))
+    head = L.init_lm_head(gen, cfg)
+    if head is not None:
+        mods["head"] = head
+    return SSMLM(mods)
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+def _backbone(model, x, cfg, rt):
+    for group in model["groups"] if "groups" in model else ():
+        for blk in group:
+            x = mamba_block_fwd(blk, x, cfg, rt)
+        x = shared_attn_fwd(model["shared"], x, cfg, rt)
+    for blk in model["tail"] if "tail" in model else ():
+        x = mamba_block_fwd(blk, x, cfg, rt)
+    return x
+
+
+@torch.no_grad()
+def forward(model, tokens, cfg, rt, *, embeds=None):
+    """tokens (B,S) int -> (logits (B,S',V) fp32, aux = 0), ``embeds``
+    (B,P,D) ahead of the tokens."""
+    x = L.embed(model["embed"], tokens, cfg)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    x = _backbone(model, x, cfg, rt)
+    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+    return (L.unembed(model["embed"], model.lm_head(), x, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
+def init_cache(cfg, batch: int, max_len: int, rt, dtype=None,
+               device="cuda"):
+    """An empty cache on ``device`` (``cuda`` unless the caller asks for
+    another), in the JAX package's layout: per Mamba block the last K-1
+    pre-conv activations (in ``dtype``) and the (H, P, N) state (f32),
+    stacked (g, attn_every, ...) under ``groups`` and (tail, ...) under
+    ``tail``; the shared block's keys and values, one KV cache a call,
+    (g, batch, max_len, n_kv_heads, head_dim); len 0."""
+    device = resolve_device(device, "init_cache")
+    dtype = dtype or cfg.torch_dtype
+    g, tail = _group_split(cfg)
+    one = init_mamba_cache(cfg, batch, dtype, device)
+    cache = {"len": 0}
+    if g:
+        cache["groups"] = {k: a.new_zeros((g, cfg.attn_every) + a.shape)
+                           for k, a in one.items()}
+        shape = (g, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        cache["shared_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["shared_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if tail:
+        cache["tail"] = {k: a.new_zeros((tail,) + a.shape)
+                         for k, a in one.items()}
+    return cache
+
+
+def _step_blocks(blocks, x, states, cfg):
+    """Each block's recurrent step in turn; its new state is written into
+    ``states`` (the stacked cache tensors) in place."""
+    for j, blk in enumerate(blocks):
+        h = L.rms_norm(x, blk["ln"], cfg.norm_eps)
+        y, nc = mamba_step(blk["mixer"], h, {k: v[j] for k, v in
+                                             states.items()}, cfg)
+        for k, v in nc.items():
+            states[k][j] = v
+        x = x + y
+    return x
+
+
+@torch.no_grad()
+def decode_step(model, cache, tokens, cfg, rt):
+    """tokens (B,1) -> (logits (B,1,V), cache).  O(1) state for the Mamba
+    blocks; the shared attention block reads its KV cache of that call.
+    The cache's tensors are updated in place; the returned dict holds them
+    with ``len`` + 1."""
+    pos = cache["len"]
+    x = model["embed"]["table"][tokens]
+    if "groups" in model:
+        sp = model["shared"]
+        for gi, group in enumerate(model["groups"]):
+            x = _step_blocks(group, x, {k: v[gi] for k, v in
+                                        cache["groups"].items()}, cfg)
+            h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
+            att, _, _ = L.attention_decode(sp["attn"], h, cfg,
+                                           cache["shared_k"][gi],
+                                           cache["shared_v"][gi], pos)
+            x = _shared_mlp(sp, x + att, cfg)
+    if "tail" in model:
+        x = _step_blocks(model["tail"], x, cache["tail"], cfg)
+    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+    logits = L.unembed(model["embed"], model.lm_head(), x, cfg)
+    return logits, {**cache, "len": pos + 1}
+
+
+def _prefill_blocks(blocks, x, cfg, rt):
+    """Each block on the prompt; its decode state, stacked."""
+    states = []
+    for blk in blocks:
+        h = L.rms_norm(x, blk["ln"], cfg.norm_eps)
+        y, st = mamba_fwd(blk["mixer"], h, cfg, chunk=rt.ssd_chunk,
+                          return_state=True)
+        x = x + y
+        states.append(st)
+    return x, {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+@torch.no_grad()
+def prefill(model, tokens, cfg, rt, *, max_len: int | None = None):
+    """Prompt pass -> (last logits, cache).  The chunked SSD gives each
+    block's final recurrent state and the conv cache is the last K-1
+    pre-conv activations, so the cache is exact.  The shared block's
+    attention is chunked past 2048 tokens under ``auto``."""
+    x = model["embed"]["table"][tokens]
+    B, S = tokens.shape
+    cache = {"len": S}
+    if "groups" in model:
+        sts, ks, vs = [], [], []
+        for group in model["groups"]:
+            x, st = _prefill_blocks(group, x, cfg, rt)
+            x, (k, v) = shared_attn_fwd(model["shared"], x, cfg, rt,
+                                        return_kv=True)
+            sts.append(st)
+            ks.append(k)
+            vs.append(v)
+        cache["groups"] = {k: torch.stack([st[k] for st in sts])
+                           for k in sts[0]}
+        n = max(S, max_len or 0)
+        shape = (len(ks), B, n, cfg.n_kv_heads, cfg.head_dim)
+        for name, kv in (("shared_k", ks), ("shared_v", vs)):
+            cache[name] = kv[0].new_zeros(shape)
+            for gi, t in enumerate(kv):
+                cache[name][gi, :, :S] = t
+    if "tail" in model:
+        x, cache["tail"] = _prefill_blocks(model["tail"], x, cfg, rt)
+    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+    logits = L.unembed(model["embed"], model.lm_head(), x[:, -1:], cfg)
+    return logits, cache

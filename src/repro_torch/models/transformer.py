@@ -1,10 +1,11 @@
-"""Decoder-only transformer LM, dense family, for inference.
+"""Decoder-only transformer LM (dense and MoE families), for inference.
 
 The PyTorch port of the JAX package's ``models/transformer.py``.  There the
 layers are scanned over params stacked on a leading ``n_layers`` axis; here
 the model is an ``nn.ModuleDict`` holding an ``nn.ModuleList`` of
 :class:`Block`\\ s, walked by a Python loop (``models/convert.py`` unstacks
-the JAX package's params into it).
+the JAX package's params into it).  A block's feed-forward is a dense MLP
+or, where the config has experts, the MoE layer (``models/moe.py``).
 
 API (used by ``models/registry.py``):
     init(gen, cfg)                          -> model
@@ -13,8 +14,10 @@ API (used by ``models/registry.py``):
     init_cache(cfg, batch, max_len, rt)     -> cache
     decode_step(model, cache, tokens, cfg, rt) -> (logits, cache)
 
-Not ported yet: the MoE family (``ROADMAP.md`` queue 1, item 13), ``loss``
-and ``chunked_xent`` (training), remat and the sharding constraints.
+``forward`` and ``prefill`` take ``embeds``: precomputed embeddings put
+ahead of the tokens' (the VLM's projected patches).  Not ported yet:
+``loss`` and ``chunked_xent`` (training), remat and the sharding
+constraints.
 """
 from __future__ import annotations
 
@@ -22,29 +25,34 @@ import torch
 from torch import nn
 
 from . import layers as L
+from . import moe as M
 from .runtime import resolve_device
-
-def _dense_only(cfg) -> None:
-    if cfg.n_experts or cfg.family != "dense":
-        kind = "MoE" if cfg.n_experts else cfg.family
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind} family is not ported yet (ROADMAP.md "
-            f"queue 1, item 13: the LM stack)")
 
 
 # --------------------------------------------------------------------------
 # one decoder block
 # --------------------------------------------------------------------------
 class Block(nn.ModuleDict):
-    """ln1, attn, ln2, mlp: one decoder block's params."""
+    """ln1, attn, ln2, and mlp or (MoE) moe: one decoder block's params."""
 
 
 def init_block(gen: torch.Generator, cfg) -> Block:
-    _dense_only(cfg)
-    return Block({"ln1": L.init_rmsnorm(gen, cfg.d_model, cfg.torch_dtype),
-                  "attn": L.init_attention(gen, cfg),
-                  "ln2": L.init_rmsnorm(gen, cfg.d_model, cfg.torch_dtype),
-                  "mlp": L.init_mlp(gen, cfg)})
+    p = {"ln1": L.init_rmsnorm(gen, cfg.d_model, cfg.torch_dtype),
+         "attn": L.init_attention(gen, cfg),
+         "ln2": L.init_rmsnorm(gen, cfg.d_model, cfg.torch_dtype)}
+    if cfg.n_experts:
+        p["moe"] = M.init_moe(gen, cfg)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg)
+    return Block(p)
+
+
+def _ffn(p: Block, h, cfg, rt):
+    """The block's feed-forward on h: (y, aux)."""
+    if cfg.n_experts:
+        return M.moe_fwd(p["moe"], h, cfg, rt)
+    return (L.mlp_fwd(p["mlp"], h, cfg),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def block_fwd(p: Block, x, cfg, rt, *, return_kv: bool = False):
@@ -55,8 +63,7 @@ def block_fwd(p: Block, x, cfg, rt, *, return_kv: bool = False):
     attn_out, kv = (out[0], out[1:]) if return_kv else (out, None)
     x = x + attn_out
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    y = L.mlp_fwd(p["mlp"], h, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    y, aux = _ffn(p, h, cfg, rt)
     x = x + y
     return (x, aux, kv) if return_kv else (x, aux)
 
@@ -68,17 +75,18 @@ def block_decode(p: Block, x, cfg, rt, cache_k, cache_v, cache_len: int):
                                           cache_k, cache_v, cache_len)
     x = x + attn_out
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_fwd(p["mlp"], h, cfg), nk, nv
+    return x + _ffn(p, h, cfg, rt)[0], nk, nv
 
 
 # --------------------------------------------------------------------------
 # full model
 # --------------------------------------------------------------------------
 class TransformerLM(nn.ModuleDict):
-    """embed, layers (one :class:`Block` each), final_norm[, head]."""
+    """embed, layers (one :class:`Block` each), final_norm[, head]; the
+    VLM adds its projector."""
 
     def lm_head(self) -> L.Params | None:
-        return self["head"] if "head" in self else None
+        return L.lm_head(self)
 
 
 @torch.no_grad()
@@ -86,7 +94,6 @@ def init(gen: torch.Generator, cfg) -> TransformerLM:
     """Random weights from ``gen``, on ``gen``'s device, in ``cfg.dtype``.
     The JAX package's ``jax.random`` draws differ: to compute what it
     computes, carry its params across with ``models/convert.py``."""
-    _dense_only(cfg)
     mods = {"embed": L.init_embedding(gen, cfg),
             "layers": nn.ModuleList(init_block(gen, cfg)
                                     for _ in range(cfg.n_layers)),
@@ -110,10 +117,18 @@ def _blocks(model, x, cfg, rt, *, return_kv: bool = False):
     return x, aux, kvs
 
 
-@torch.no_grad()
-def forward(model, tokens, cfg, rt):
-    """tokens (B,S) int -> (logits (B,S,V) fp32, aux)."""
+def _embed(model, tokens, cfg, embeds):
     x = L.embed(model["embed"], tokens, cfg)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+@torch.no_grad()
+def forward(model, tokens, cfg, rt, *, embeds=None):
+    """tokens (B,S) int -> (logits (B,S',V) fp32, aux), S' = S plus the
+    positions of ``embeds`` (B,P,D), which go ahead of the tokens."""
+    x = _embed(model, tokens, cfg, embeds)
     x, aux, _ = _blocks(model, x, cfg, rt)
     x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
     return L.unembed(model["embed"], model.lm_head(), x, cfg), aux
@@ -136,12 +151,14 @@ def init_cache(cfg, batch: int, max_len: int, rt, dtype=None,
 
 
 @torch.no_grad()
-def prefill(model, tokens, cfg, rt, *, max_len: int | None = None):
-    """Run the prompt, return (last-position logits, filled cache).
+def prefill(model, tokens, cfg, rt, *, embeds=None,
+            max_len: int | None = None):
+    """Run the prompt (``embeds`` ahead of the tokens), return
+    (last-position logits, filled cache).
 
     ``max_len`` pads the KV cache's sequence axis so ``decode_step`` can
     append up to ``max_len - prompt_len`` generated tokens."""
-    x = L.embed(model["embed"], tokens, cfg)
+    x = _embed(model, tokens, cfg, embeds)
     x, _, kvs = _blocks(model, x, cfg, rt, return_kv=True)
     x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
     logits = L.unembed(model["embed"], model.lm_head(), x[:, -1:, :], cfg)

@@ -3,9 +3,10 @@
 The PyTorch port of the JAX package's ``serve/engine.py``:
 
 * ``prefill`` runs the whole (padded) prompt batch once and builds the KV
-  cache with headroom ``max_new_tokens``;
-* ``decode`` runs single-token steps, each writing its position into the
-  cache in place;
+  (or SSM-state) cache with headroom ``max_new_tokens``; the VLM's patches
+  and the enc-dec's frames come in ``extra_inputs``;
+* ``decode`` runs single-token steps, each writing its position (or the
+  new recurrent state) into the cache in place;
 * sampling: greedy (argmax, first index on ties) or temperature, drawn from
   a ``torch.Generator`` seeded with ``seed`` (its draws are not
   ``jax.random``'s); stop tokens honoured per slot;
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..models.convert import to_tensor
 from ..models.registry import get_model
 from ..models.runtime import Runtime, resolve_device
 
@@ -69,13 +71,21 @@ class ServeEngine:
 
     def generate(self, model, prompts: list[list[int]], *,
                  max_new_tokens: int = 32,
-                 stop_token: int | None = None) -> GenerationResult:
+                 stop_token: int | None = None,
+                 extra_inputs: dict | None = None) -> GenerationResult:
+        """Greedy or sampled generation for ``prompts``.  ``extra_inputs``
+        (numpy arrays or tensors, e.g. ``{"patches": ...}`` for the VLM,
+        ``{"frames": ...}`` for the enc-dec) go to the engine's device and
+        into prefill's batch beside the tokens."""
         B = len(prompts)
         Lp = max(len(p) for p in prompts)
         toks = np.zeros((B, Lp), np.int64)
         for i, p in enumerate(prompts):          # right-align (causal LM)
             toks[i, Lp - len(p):] = p
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        for k, v in (extra_inputs or {}).items():
+            batch[k] = (v.to(self.device) if isinstance(v, torch.Tensor)
+                        else to_tensor(v, self.device))
         max_len = Lp + max_new_tokens + 1
 
         self._sync()

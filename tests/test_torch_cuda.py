@@ -646,6 +646,113 @@ def test_serve_engine_on_card_equals_cpu(cuda):
     assert got == want
 
 
+# the LM families' attention shapes: non-causal at Sq = Sk (an encoder),
+# Sq 512 over 4096 keys (cross-attention at prefill) and Sq 1 over 4096
+# (cross-attention in every decode step), Whisper's 8 heads of 64
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk", [(2, 4096, 4096), (4, 512, 4096),
+                                     (4, 1, 4096)])
+def test_flash_non_causal_family_shapes_on_card(cuda, dtype, B, Sq, Sk):
+    _flash_case(cuda, dtype, B, Sq, Sk, 8, 8, 64, False, None, 0)
+
+
+def test_moe_layer_on_card_equals_cpu(cuda):
+    """One MoE layer at Granite-3.0-1B-A400M's width (d 1024, 32 experts
+    of 512, top-8) in f32 on 2 x 300 tokens: the card routes every token
+    to the CPU's experts and drops the same assignments; the output meets
+    the CPU's within 1e-5 of its largest |value| (cuBLAS and the CPU sum
+    the experts' products in other orders)."""
+    from repro_torch.models import moe
+    from repro_torch.models.runtime import Runtime
+    cfg = get_config("granite-moe-1b-a400m").replace(dtype="float32")
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(2, 300, cfg.d_model, generator=torch.Generator(
+        ).manual_seed(1))
+    want, aux = moe.moe_fwd(p, x, cfg, Runtime())
+    e_cpu = moe._route(x.reshape(-1, cfg.d_model), p["router"], cfg)[0]
+    p.to(cuda)
+    got, aux_card = moe.moe_fwd(p, x.to(cuda), cfg, Runtime())
+    e_card = moe._route(x.to(cuda).reshape(-1, cfg.d_model), p["router"],
+                        cfg)[0]
+    assert torch.equal(e_card.cpu(), e_cpu)
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * max(1.0, scale)
+    assert abs(float(aux_card) - float(aux)) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-1b-a400m",
+                                  "kimi-k2-1t-a32b", "mamba2-370m",
+                                  "zamba2-1.2b", "whisper-base",
+                                  "internvl2-2b"])
+def test_decode_step_reads_nothing_back_on_card(cuda, arch):
+    """A decode step of every family only enqueues work: no op in it waits
+    for the card (``set_sync_debug_mode("error")`` raises on one), so the
+    host runs ahead of the device.  The MoE's rank within an expert once
+    used ``bincount``, which reads its max back to the host a layer."""
+    from repro_torch.models import get_model
+    from repro_torch.models.runtime import Runtime
+    cfg = get_config(arch).reduced()
+    api = get_model(cfg)
+    model = api.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(1, cfg.vocab_size, (2, 40), device=cuda)
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(2, 64, cfg.frontend_dim, device=cuda)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(2, cfg.n_patches, cfg.frontend_dim,
+                                       device=cuda)
+    _, cache = api.prefill(model, batch, Runtime(), max_len=44)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            logits, cache = api.decode_step(model, cache, toks[:, -1:],
+                                            Runtime())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-370m",
+                                  "zamba2-1.2b", "whisper-base",
+                                  "internvl2-2b"])
+def test_family_serve_on_card_equals_cpu(cuda, arch):
+    """Each family's reduced config in f32 on a prompt past 2048 positions
+    (Whisper: 2100 frames): greedy tokens on the card (the flash kernel
+    where the attention is chunked) equal the CPU route's, with the
+    launches ``chip_smoke.flash_launches`` counts."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.serve.engine import ServeEngine
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    over = {"max_abs_positions": 2560} if arch == "whisper-base" else {}
+    cfg = get_config(arch).reduced().replace(dtype="float32", **over)
+    cpu = ServeEngine(cfg, device="cpu")
+    model = cpu.api.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    lens = (300, 40) if cfg.family == "encdec" else (2100, 40)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = rng.standard_normal((2, 2100, cfg.frontend_dim),
+                                              dtype=np.float32)
+    if cfg.family == "vlm":
+        extra["patches"] = rng.standard_normal(
+            (2, cfg.n_patches, cfg.frontend_dim), dtype=np.float32)
+    want = cpu.generate(model, prompts, max_new_tokens=8,
+                        extra_inputs=extra).tokens
+    reset_launches()
+    got = ServeEngine(cfg, device=str(cuda)).generate(
+        model.to(cuda), prompts, max_new_tokens=8, extra_inputs=extra)
+    n_pre, n_dec = chip_smoke.flash_launches(cfg, max(lens), 2100)
+    assert launches()["flash_fwd"] == n_pre + 8 * n_dec
+    assert got.tokens == want
+
+
 def test_explore_on_card_equals_cpu(cuda):
     """The card's small explore, random and search, against the CPU plain
     path: the same designs and front, the metrics within 1e-5; the search

@@ -43,6 +43,7 @@ from repro_torch.serve.engine import ServeEngine
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_golden import GOLDEN_LM, compute_golden_lm  # noqa: E402
+from torch_lm_cases import one_torch_thread  # noqa: E402,F401  (autouse)
 
 ARCHS = ("llama3.2-1b", "qwen1.5-0.5b", "h2o-danube-1.8b")
 F32_ATOL = 1e-5
@@ -245,17 +246,36 @@ def test_port_walk_reaches_the_lm_subpackages():
                 "kernels.flash_attn"):
         assert f"repro_torch.{sub}" in names
     assert {"repro_torch.models.convert", "repro_torch.serve.engine",
-            "repro_torch.launch.serve"} <= names
+            "repro_torch.launch.serve", "repro_torch.models.moe",
+            "repro_torch.models.ssm", "repro_torch.models.ssm_lm",
+            "repro_torch.models.encdec", "repro_torch.models.vlm"} <= names
 
 
 def test_unported_parts_raise():
+    """What still raises: the sharded runtime and the expert-parallel MoE
+    dispatches (ROADMAP.md queue 1, item 11).  Every family serves
+    (tests/test_torch_moe.py, test_torch_ssm.py, test_torch_encdec_vlm.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Runtime(mesh=object())
+    for impl in ("ep", "ep_a2a"):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            Runtime(moe_impl=impl)
     with pytest.raises(ValueError, match="attn_mode"):
         Runtime(attn_mode="flash")
-    for arch in ("granite-moe-1b-a400m", "mamba2-370m", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(get_config(arch).reduced())
+    with pytest.raises(ValueError, match="moe_impl"):
+        Runtime(moe_impl="dense")
+    with pytest.raises(ValueError, match="ssd_chunk"):
+        Runtime(ssd_chunk=0)
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_get_model_serves_every_config(arch):
+    """get_model takes all ten configs; the API has the JAX package's
+    shape (enc-dec has no ``forward``, as there)."""
+    cfg = get_config(arch)
+    api = get_model(cfg)
+    assert api.cfg is cfg
+    assert (api.forward is None) == (cfg.family == "encdec")
 
 
 def test_convert_carries_every_param():

@@ -4,6 +4,8 @@ against on the card, computed by the JAX package on the CPU.
 The machine with the card has no JAX, so the files are committed:
 ``src/repro_torch/data/golden_mccm.npz`` (the MCCM paths),
 ``src/repro_torch/data/golden_lm.npz`` (the LM serving path),
+``src/repro_torch/data/golden_lm_families.npz`` (the LM families past
+dense),
 ``src/repro_torch/data/golden_dse.npz`` (the DSE path),
 ``src/repro_torch/data/golden_schedule.npz`` (the schedule layer),
 ``src/repro_torch/data/golden_multinet.npz`` (multinet co-scheduling) and
@@ -14,8 +16,10 @@ Regenerate them after a change to the JAX package's model with::
 
 ``tests/test_torch_session.py``, ``tests/test_torch_lm.py``,
 ``tests/test_torch_dse.py``, ``tests/test_torch_schedule.py``,
-``tests/test_torch_multinet.py`` and ``tests/test_torch_islands.py`` check
-that the committed files still equal what this computes.
+``tests/test_torch_multinet.py``, ``tests/test_torch_islands.py``,
+``tests/test_torch_moe.py``, ``tests/test_torch_ssm.py`` and
+``tests/test_torch_encdec_vlm.py`` check that the committed files still
+equal what this computes.
 
 Contents: for every CNN x board, the 12 baseline templates (3 archs x
 n in {2, 5, 9, 11}) under ``tmpl/<cnn>/<board>/<metric>``, and 256
@@ -35,6 +39,22 @@ prompt past 2048 tokens, so prefill takes the chunked path) and ``short``
 (the dense path).  Per batch: ``n_prompts``, ``prompt/<i>``, the
 ``new_tokens`` greedy ``tokens`` (n_prompts, new_tokens), and prefill's
 ``last_logits`` (n_prompts, padded vocab).
+
+``golden_lm_families.npz``: per arch of ``FAMILY_ARCHS`` (MoE with drops,
+MoE with a shared expert, Mamba2, the Zamba2 hybrid, Whisper, InternVL2),
+under ``<arch>/``: the reduced config's overrides beside ``reduced()`` and
+``dtype="float32"`` as JSON (``overrides``; Whisper's 2560 positions let
+2100 frames through), ``new_tokens``, the params of ``init(jax.random.key(0))`` under
+``params/<path>``, and two batches (``FAMILY_BATCHES``: ``long`` past 2048
+positions somewhere, so prefill takes the chunked path; ``short``, dense):
+``n_prompts``, ``prompt/<i>``, the stub ``frames`` (enc-dec, values k/4 in
+float16, exact in f32) or ``patches`` (VLM, f32), the ``new_tokens``
+greedy ``tokens`` and prefill's ``last_logits``.  The tokens are the JAX
+package's ``ServeEngine.generate``'s, except the VLM's: its engine sizes
+the cache without the patches, so its last steps overwrite the cache's
+last slot; the VLM's tokens are the same greedy loop over the JAX
+package's ``prefill`` (cache sized for patches and text) and
+``decode_step``.
 
 ``golden_dse.npz``: the JAX package's DSE of MobileNetV2 on the default
 board, on the CPU, at the two configurations of ``DSE_RUNS``: a random
@@ -83,6 +103,7 @@ DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src", "repro_torch", "data")
 GOLDEN = os.path.join(DATA, "golden_mccm.npz")
 GOLDEN_LM = os.path.join(DATA, "golden_lm.npz")
+GOLDEN_LM_FAMILIES = os.path.join(DATA, "golden_lm_families.npz")
 GOLDEN_DSE = os.path.join(DATA, "golden_dse.npz")
 GOLDEN_SCHEDULE = os.path.join(DATA, "golden_schedule.npz")
 
@@ -185,6 +206,109 @@ def compute_golden_lm() -> dict[str, np.ndarray]:
         out[f"{batch}/tokens"] = np.array(res.tokens, np.int32)
         out[f"{batch}/last_logits"] = np.asarray(logits[:, -1], np.float32)
     return out
+
+
+#: the LM families' golden runs: each arch's overrides of its reduced f32
+#: config, the prompt lengths of its batches (random tokens from seed 0),
+#: the enc-dec's frames a batch, and the greedy new tokens
+FAMILY_ARCHS = {"granite-moe-1b-a400m": {}, "kimi-k2-1t-a32b": {},
+                "mamba2-370m": {}, "zamba2-1.2b": {},
+                "whisper-base": {"max_abs_positions": 2560},
+                "internvl2-2b": {}}
+FAMILY_BATCHES = {"long": (2100, 300), "short": (9, 23, 16)}
+#: Whisper's decoder prompts stay short; its long batch is the 2100 frames
+ENCDEC_BATCHES = {"long": (300,), "short": (9, 23, 16)}
+ENCDEC_FRAMES = {"long": 2100, "short": 64}
+FAMILY_NEW_TOKENS = 8
+
+
+def family_cfg(get_config, arch: str, overrides: dict):
+    """The golden run's config of ``arch``, from either package's
+    ``get_config``."""
+    return get_config(arch).reduced().replace(dtype="float32", **overrides)
+
+
+def family_batches(cfg) -> dict:
+    return ENCDEC_BATCHES if cfg.family == "encdec" else FAMILY_BATCHES
+
+
+def jax_greedy(api, params, batch: dict, rt, max_len: int, new: int,
+               vocab: int) -> tuple[list, np.ndarray]:
+    """The JAX package's ``ServeEngine`` greedy loop over its model's
+    ``prefill`` and ``decode_step`` with a cache of ``max_len`` positions:
+    the first token from prefill, then a decode step after each.  Returns
+    the tokens and prefill's last logits."""
+    import jax
+    import jax.numpy as jnp
+    prefill = jax.jit(lambda p, b: api.prefill(p, b, rt, max_len=max_len))
+    decode = jax.jit(lambda p, c, t: api.decode_step(p, c, t, rt))
+    logits, cache = prefill(params, batch)
+    last = np.asarray(logits[:, -1], np.float32)
+    tok = jnp.argmax(logits[:, -1, :vocab], -1).astype(jnp.int32)
+    out = []
+    for _ in range(new):
+        out.append(np.asarray(tok))
+        logits, cache = decode(params, cache, tok[:, None])
+        tok = jnp.argmax(logits[:, -1, :vocab], -1).astype(jnp.int32)
+    return np.stack(out, 1).tolist(), last
+
+
+def compute_golden_lm_family(arch: str) -> dict[str, np.ndarray]:
+    """One arch's entries of ``golden_lm_families.npz`` (see the module
+    docstring), keys under ``<arch>/``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.serve.engine import ServeEngine
+    from repro_torch.models.convert import flatten
+
+    overrides = FAMILY_ARCHS[arch]
+    cfg = family_cfg(get_config, arch, overrides)
+    engine = ServeEngine(cfg)
+    params = engine.api.init(jax.random.key(0))
+    out = {"overrides": np.array(json.dumps(overrides)),
+           "new_tokens": np.array(FAMILY_NEW_TOKENS),
+           **flatten(params, "params/")}
+    rng = np.random.default_rng(0)
+    for batch, lens in family_batches(cfg).items():
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                   for n in lens]
+        B, Lp = len(lens), max(lens)
+        extra = {}
+        if cfg.family == "encdec":
+            shape = (B, ENCDEC_FRAMES[batch], cfg.frontend_dim)
+            extra["frames"] = (rng.integers(-4, 4, shape) / 4).astype(
+                np.float16)
+        if cfg.family == "vlm":
+            extra["patches"] = rng.standard_normal(
+                (B, cfg.n_patches, cfg.frontend_dim), dtype=np.float32)
+        jextra = {k: jnp.asarray(v, jnp.float32) for k, v in extra.items()}
+        toks = np.zeros((B, Lp), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, Lp - len(p):] = p
+        inputs = {"tokens": jnp.asarray(toks), **jextra}
+        max_len = Lp + FAMILY_NEW_TOKENS + 1
+        if cfg.family == "vlm":
+            tokens, logits = jax_greedy(
+                engine.api, params, inputs, engine.rt,
+                cfg.n_patches + max_len, FAMILY_NEW_TOKENS, cfg.vocab_size)
+        else:
+            tokens = engine.generate(
+                params, [p.tolist() for p in prompts],
+                max_new_tokens=FAMILY_NEW_TOKENS,
+                extra_inputs=jextra or None).tokens
+            # the engine's own compiled prefill, on the same inputs
+            logits = np.asarray(engine._prefill(params, inputs, max_len)[0]
+                                [:, -1], np.float32)
+        pre = f"{batch}/"
+        out[pre + "n_prompts"] = np.array(B)
+        for i, p in enumerate(prompts):
+            out[f"{pre}prompt/{i}"] = p
+        for k, v in extra.items():
+            out[pre + k] = v
+        out[pre + "tokens"] = np.array(tokens, np.int32)
+        out[pre + "last_logits"] = logits
+    return {f"{arch}/{k}": v for k, v in out.items()}
 
 
 #: the DSE golden runs: MobileNetV2 on the default board
@@ -425,6 +549,12 @@ if __name__ == "__main__":
     print(f"wrote {GOLDEN} ({os.path.getsize(GOLDEN)} bytes)")
     np.savez_compressed(GOLDEN_LM, **compute_golden_lm())
     print(f"wrote {GOLDEN_LM} ({os.path.getsize(GOLDEN_LM)} bytes)")
+    families = {}
+    for arch in FAMILY_ARCHS:
+        families.update(compute_golden_lm_family(arch))
+    np.savez_compressed(GOLDEN_LM_FAMILIES, **families)
+    print(f"wrote {GOLDEN_LM_FAMILIES} "
+          f"({os.path.getsize(GOLDEN_LM_FAMILIES)} bytes)")
     np.savez_compressed(GOLDEN_DSE, **compute_golden_dse())
     print(f"wrote {GOLDEN_DSE} ({os.path.getsize(GOLDEN_DSE)} bytes)")
     np.savez_compressed(GOLDEN_SCHEDULE, **compute_golden_schedule())
