@@ -1,5 +1,5 @@
 """Drive the PyTorch port's MCCM and LM serving paths on one NVIDIA card,
-every LM family included, and check them.
+every LM family included, and its training path, and check them.
 
     python3 chip_smoke.py [--seed N] [--designs N]
 
@@ -195,7 +195,29 @@ Phases, each printing one JSON line:
    JAX package on the CPU: the reduced MoE with drops, MoE with a shared
    expert, Mamba2, Zamba2, Whisper with 2100 frames and InternVL2, in
    f32): greedy tokens equal, prefill's last logits within the stated
-   tolerance, launches as ``flash_launches`` counts.
+   tolerance, launches as ``flash_launches`` counts;
+17. training: (a) Llama-3.2-1B at full width in bf16, random weights
+   from ``--seed``, through the launcher's pieces (``default_plan`` of
+   ``train_4k``: per-layer remat, the loss in chunks of 512; its AdamW;
+   ``init_state``, ``make_train_step``, the ``Pipeline``) on
+   ``synth_batch`` at B 4 x S 4096 (``train_4k``'s length, its global
+   batch of 256 cut to 4): one warm-up step and 3 timed ones (host clock
+   ending in a synchronize), each step's loss and grad norm finite,
+   ``flash_fwd`` launched twice a layer a step (the forward and remat's
+   recompute) with 0 input copies, tokens/s, peak memory, one
+   ``accum=2`` step at B 8, and one step under the profiler (busy share,
+   top kernels, the flash backward's and the vocab-long GEMMs' shares);
+   (b) ``src/repro_torch/data/golden_train.npz`` (the JAX package's
+   losses and gradients of the reduced families in f32, on the CPU): each
+   loss within 1e-5, each gradient leaf within 5e-5 of its scale,
+   ``flash_fwd`` launches as ``train_flash_launches`` counts (Llama,
+   Zamba2, Whisper and InternVL2 take the chunked path: the f32 kernel
+   forward and the Function's backward); (c) the flash-attention
+   Function at Llama's attention shape (B 1, S 4096, 32/8 heads of 64,
+   causal) in f32 and bf16, its gradients against autograd through the
+   plain dense attention in f32, its forward+backward ms beside the dense
+   reference's and ``scaled_dot_product_attention``'s (timed only; the
+   port never calls it).
 
 Then the ``kernels`` line (one entry per kernel source: ``flash_fwd``'s
 bf16 source with its launches in phase 9 and its largest error over
@@ -393,6 +415,28 @@ ENCDEC_SERVE_FRAMES, ENCDEC_SERVE_LENS = 4096, (8, 512)
 #: phase 16 (b): the golden file of the reduced families in f32
 GOLDEN_LM_FAMILIES = os.path.join(ROOT, "src", "repro_torch", "data",
                                   "golden_lm_families.npz")
+#: phase 17 (a): Llama-3.2-1B trained in bf16 at the JAX package's
+#: ``train_4k`` length, its global batch of 256 cut to 4 (and 8 for the
+#: ``accum=2`` step); one warm-up step and 3 timed ones; the launcher's
+#: optimizer (peak lr 3e-3, 20 warm-up steps of 100) and plan (per-layer
+#: remat, the loss in chunks of 512)
+TRAIN_ARCH, TRAIN_S, TRAIN_B, TRAIN_ACCUM_B = "llama3.2-1b", 4096, 4, 8
+TRAIN_TIMED_STEPS = 3
+#: phase 17 (b): the JAX package's training losses and gradients of the
+#: reduced families in f32; the loss within 1e-5, each gradient leaf
+#: within 5e-5 of its own scale (its largest |value|, no floor) and
+#: relatively, as tests/test_torch_train_models.py holds the CPU
+GOLDEN_TRAIN = os.path.join(ROOT, "src", "repro_torch", "data",
+                            "golden_train.npz")
+TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL = 1e-5, 5e-5
+#: phase 17 (c): the flash-attention Function at Llama's attention shape
+#: (B 1, S 4096, 32 / 8 heads of 64, causal); its gradients held to
+#: autograd through the plain dense attention in f32, each within this
+#: fraction of the reference's largest |value| (f32: the two sum in other
+#: orders; bf16: q·scale, p and ds rounded to bf16 and the inputs' own
+#: bf16 rounding of the gradients)
+FN_B, FN_S, FN_H, FN_HKV, FN_D = 1, 4096, 32, 8, 64
+FN_TOL = {"float32": 2e-5, "bfloat16": 1.5e-2}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -4081,6 +4125,353 @@ def phase_families(card: str, device, seed: int) -> dict:
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 17
+# --------------------------------------------------------------------------
+def train_flash_launches(cfg, rt, S: int, S_enc: int = 0) -> int:
+    """``flash_fwd`` launches of one forward of ``cfg``'s loss under ``rt``
+    (once more under remat's recompute) at sequence length ``S`` (the
+    enc-dec: ``S_enc`` frames, ``S`` decoder tokens): a chunked call a
+    layer (the hybrid: a call of its shared block; the enc-dec: an
+    encoder layer and a decoder layer's self-attention, and its
+    cross-attention past 2048 positions), where ``rt.attn_mode`` is
+    ``chunked`` or ``auto`` past 2048 positions."""
+    def chunked(n):
+        return rt.attn_mode == "chunked" or (rt.attn_mode == "auto"
+                                             and n > 2048)
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return (cfg.n_layers // cfg.attn_every) * chunked(S)
+    if cfg.family == "encdec":
+        return (cfg.n_enc_layers * chunked(S_enc)
+                + cfg.n_dec_layers * (chunked(S) + (max(S, S_enc) > 2048)))
+    if cfg.family == "vlm":
+        S += cfg.n_patches
+    return cfg.n_layers * chunked(S)
+
+
+def _train_profile(fn, name: str, vocab: int, top: int = 10) -> dict:
+    """One training step under torch.profiler (shapes recorded): the
+    device's busy time, the shares of it of ``flash_fwd``, of the flash
+    backward (the kernels launched under ``FlashAttentionBackward``), of
+    the GEMMs with a vocab-long dim (the f32 unembedding, forward,
+    recompute and backward) and of every op with a vocab-long dim (those
+    GEMMs, the table's f32 widening and its gradient's cast), the top
+    kernels, and the full table in chiprun_out/profile_<name>.txt."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
+        f.write(rows.table(sort_by="self_device_time_total", row_limit=50))
+    if busy_us == 0:
+        return {"device_time": "not measured", "wall_s_profiled": wall}
+    flash_us = sum(e.self_device_time_total for e in kernels
+                   if "flash_fwd" in e.key)
+    bwd_us = max([e.device_time_total for e in rows
+                  if e.device_type == DeviceType.CPU
+                  and "FlashAttentionBackward" in e.key] or [0])
+    vocab_gemm_us = vocab_us = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type != DeviceType.CPU or not any(
+                vocab in shp for shp in (e.input_shapes or [])
+                if isinstance(shp, (list, tuple))):
+            continue
+        vocab_us += e.self_device_time_total
+        if e.key in ("aten::mm", "aten::addmm", "aten::bmm"):
+            vocab_gemm_us += e.self_device_time_total
+    return {"wall_s_profiled": wall, "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "flash_fwd_share_of_busy": flash_us / busy_us,
+            "flash_backward_share_of_busy": bwd_us / busy_us,
+            "vocab_gemm_share_of_busy": vocab_gemm_us / busy_us,
+            "vocab_ops_share_of_busy": vocab_us / busy_us,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [
+                {"kernel": e.key[:80], "device_ms":
+                 e.self_device_time_total / 1e3, "calls": e.count}
+                for e in sorted(kernels,
+                                key=lambda e: -e.self_device_time_total)[
+                                    :top]]}
+
+
+def _train_full(device, seed: int) -> dict:
+    """Phase 17 (a): Llama-3.2-1B trained at full width through the
+    launcher's pieces (plan, optimizer, ``init_state``,
+    ``make_train_step``, the ``Pipeline``)."""
+    import math
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import Pipeline, synth_batch, to_device
+    from repro_torch.kernels import copies, launches, reset_launches
+    from repro_torch.launch.plans import default_plan
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("train_4k_cut", "train", TRAIN_S, TRAIN_B)
+    plan = default_plan(cfg, SHAPES["train_4k"])
+    opt = make_optimizer("adamw", peak_lr=3e-3, warmup=20, total_steps=100,
+                         state_dtype=plan.opt_state_dtype,
+                         factored=plan.opt_factored,
+                         momentum=plan.opt_momentum)
+    api, rt = get_model(cfg), plan.runtime()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = init_state(api, opt, torch.Generator(device=device).manual_seed(
+        seed), device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.model.parameters())
+    step = make_train_step(api, rt, opt, device=device)
+    pipe = Pipeline(cfg, shape, device=device, seed=seed)
+    # a chunked call a layer in the forward, and again in remat's recompute
+    want = train_flash_launches(cfg, rt, TRAIN_S) * (2 if rt.remat else 1)
+    try:
+        _, batch = next(pipe)
+        state, m = step(state, batch)                          # warm-up
+        torch.cuda.synchronize()
+        warm = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+        steps = []
+        for _ in range(TRAIN_TIMED_STEPS):
+            _, batch = next(pipe)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            steps.append(dict(step_s=dt, tokens_per_s=TRAIN_B * TRAIN_S / dt,
+                              loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]),
+                              flash_fwd=launches()["flash_fwd"],
+                              copies=copies()["flash_fwd"]))
+        peak = torch.cuda.max_memory_allocated(device)
+        profile = _train_profile(lambda: step(state, batch), "train_step",
+                                 cfg.padded_vocab)
+    finally:
+        pipe.close()
+    bad = [s for s in steps if not (math.isfinite(s["loss"])
+                                    and math.isfinite(s["grad_norm"]))]
+    if bad or not math.isfinite(warm["loss"]):
+        raise PhaseFailed(f"non-finite loss or grad_norm: {steps}")
+    if any(s["flash_fwd"] != want or s["copies"] for s in steps):
+        raise PhaseFailed(f"flash_fwd launches a step "
+                          f"{[s['flash_fwd'] for s in steps]} (want {want}),"
+                          f" copies {[s['copies'] for s in steps]} (want 0)")
+    # one accum=2 step at twice the batch
+    step2 = make_train_step(api, rt, opt, accum=2, device=device)
+    big = to_device(synth_batch(cfg, shape, TRAIN_TIMED_STEPS + 2, seed=seed,
+                                batch_override=TRAIN_ACCUM_B), device)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, m2 = step2(state, big)
+    torch.cuda.synchronize()
+    accum = dict(batch=TRAIN_ACCUM_B, accum=2,
+                 step_s=time.perf_counter() - t0,
+                 loss=float(m2["loss"]), grad_norm=float(m2["grad_norm"]),
+                 flash_fwd=launches()["flash_fwd"])
+    accum["tokens_per_s"] = TRAIN_ACCUM_B * TRAIN_S / accum["step_s"]
+    if not (math.isfinite(accum["loss"]) and math.isfinite(
+            accum["grad_norm"])) or accum["flash_fwd"] != 2 * want:
+        raise PhaseFailed(f"accum=2 step: {accum} (want {2 * want} "
+                          f"flash_fwd launches)")
+    peak = max(peak, torch.cuda.max_memory_allocated(device))
+    med = statistics.median(s["step_s"] for s in steps)
+    if "device_busy_s" in profile:
+        # the profiler's own cost doubles a step's wall: its busy time
+        # against an unprofiled step says how busy the device is
+        profile["device_busy_over_step_s"] = profile["device_busy_s"] / med
+    out = dict(arch=cfg.name, dtype=cfg.dtype, params=n_params, seed=seed,
+               batch=TRAIN_B, seq=TRAIN_S,
+               cut="train_4k's global batch 256 cut to 4 (8 for accum=2)",
+               plan=dict(remat=plan.remat, remat_group=plan.remat_group,
+                         loss_chunk=plan.loss_chunk, accum=plan.accum,
+                         opt_state_dtype=plan.opt_state_dtype),
+               init_s=init_s, warmup=warm, steps=steps,
+               step_s_median=med, tokens_per_s_median=TRAIN_B * TRAIN_S / med,
+               flash_fwd_per_step_want=want, accum_step=accum,
+               max_memory_allocated=peak, profile=profile)
+    del state, step, step2, batch, big
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_golden_case(arch: str, device) -> dict:
+    """Phase 17 (b) for one arch of ``golden_train.npz``: the port's loss
+    and gradients on the JAX package's params (read from the golden file
+    the entry names), batch and runtime, against its values; on the card
+    also the ``flash_fwd`` launches of the loss's forward."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.convert import flatten, from_jax, to_jax, \
+        unflatten
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.runtime import Runtime
+
+    pre = arch + "/"
+    with np.load(GOLDEN_TRAIN) as z:
+        g = {k[len(pre):]: z[k] for k in z.files if k.startswith(pre)}
+    with np.load(os.path.join(os.path.dirname(GOLDEN_TRAIN),
+                              str(g["params_file"]))) as z:
+        params = unflatten({k: z[k] for k in z.files},
+                           str(g["params_prefix"]))
+    cfg = get_config(arch).reduced().replace(
+        dtype="float32", **json.loads(str(g["overrides"])))
+    rt = Runtime(**json.loads(str(g["runtime"])))
+    model = from_jax(params, cfg, device=device).requires_grad_(True)
+    batch = {k[len("batch/"):]: torch.from_numpy(np.asarray(v)).to(device)
+             for k, v in g.items() if k.startswith("batch/")}
+    reset_launches()
+    loss, metrics = get_model(cfg).loss(model, batch, rt)
+    n_flash = launches()["flash_fwd"]
+    names, ps = zip(*model.named_parameters())
+    grads = flatten(to_jax(dict(zip(names, torch.autograd.grad(
+        loss, ps, allow_unused=True, materialize_grads=True)))))
+    want = {k[len("grads/"):]: v for k, v in g.items()
+            if k.startswith("grads/")}
+    if sorted(grads) != sorted(want):
+        raise PhaseFailed(f"golden train {arch}: gradient leaves "
+                          f"{sorted(grads.keys() ^ want.keys())} differ")
+    # each leaf against its own scale (its largest |value|, no floor)
+    excess, err, worst = -np.inf, -1.0, None
+    for k, w in want.items():
+        scale = float(np.abs(w).max(initial=0.0))
+        d = np.abs(grads[k] - w)
+        if float(d.max(initial=0.0)) / scale > err:
+            err = float(d.max(initial=0.0)) / scale
+            worst = dict(leaf=k, scale=scale, err=float(d.max()))
+        excess = max(excess, float((d - TRAIN_GRAD_RTOL * np.abs(w)
+                                    - TRAIN_GRAD_RTOL * scale).max(
+                                        initial=-np.inf)))
+    S_dec = batch["tokens"].shape[1]
+    S_enc = batch["frames"].shape[1] if "frames" in batch else 0
+    return dict(loss=loss.item(), loss_abs_err=abs(
+        loss.item() - float(g["loss"])),
+        nll_abs_err=abs(metrics["nll"].item() - float(g["nll"])),
+        grad_leaves=len(want), grad_max_err_of_scale=err,
+        grad_worst_leaf=worst, grad_excess=excess, runtime=json.loads(str(g["runtime"])),
+        flash_launches=n_flash,
+        flash_launches_want=train_flash_launches(cfg, rt, S_dec, S_enc))
+
+
+def _train_golden(device) -> dict:
+    """Phase 17 (b): every arch of ``golden_train.npz`` on the card."""
+    import numpy as np
+    with np.load(GOLDEN_TRAIN) as z:
+        archs = list(dict.fromkeys(k.split("/")[0] for k in z.files))
+    out = {}
+    for arch in archs:
+        r = _train_golden_case(arch, device)
+        if r["loss_abs_err"] > TRAIN_LOSS_ATOL or r["grad_excess"] > 0 \
+                or r["flash_launches"] != r["flash_launches_want"]:
+            raise PhaseFailed(f"golden train {arch}: {r} (loss within "
+                              f"{TRAIN_LOSS_ATOL}, gradients within "
+                              f"{TRAIN_GRAD_RTOL} of each leaf's scale)")
+        out[arch] = r
+    return out
+
+
+def _fn_case(device, dtype, seed: int) -> dict:
+    """Phase 17 (c) in one dtype: the Function's gradients against
+    autograd through the plain dense attention in f32 on the same inputs,
+    and the forward+backward ms of both and of SDPA."""
+    import torch
+    import torch.nn.functional as nnf
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+    q = rnd(FN_B, FN_S, FN_H, FN_D).requires_grad_(True)
+    k = rnd(FN_B, FN_S, FN_HKV, FN_D).requires_grad_(True)
+    v = rnd(FN_B, FN_S, FN_HKV, FN_D).requires_grad_(True)
+    dout = rnd(FN_B, FN_S, FN_H, FN_D)
+
+    def fn_grads():
+        out = L.chunked_attention(q, k, v, causal=True, window=None)
+        return torch.autograd.grad(out, (q, k, v), dout)
+
+    def dense_grads():
+        qf, kf, vf = (t.detach().float().requires_grad_(True)
+                      for t in (q, k, v))
+        out = L.dense_attention(qf, kf, vf, causal=True, window=None)
+        return torch.autograd.grad(out, (qf, kf, vf), dout.float())
+    reset_launches()
+    got = fn_grads()
+    torch.cuda.synchronize()
+    n_flash = launches()["flash_fwd"]
+    want = dense_grads()
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.dtype != dtype or g.shape != w.shape \
+                or not bool(torch.isfinite(g).all()):
+            raise PhaseFailed(f"Function {dtype} {name}: {g.dtype} "
+                              f"{tuple(g.shape)} or non-finite")
+        scale = float(w.abs().max())
+        errs[name] = float((g.float() - w).abs().max()) / scale
+    del want
+    tol = FN_TOL[str(dtype).removeprefix("torch.")]
+    if max(errs.values()) > tol or n_flash != 1:
+        raise PhaseFailed(f"Function {dtype}: errors {errs} of the dense "
+                          f"reference's scale (> {tol}) or {n_flash} "
+                          f"flash_fwd launches (want 1)")
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v))
+    dt_ = dout.transpose(1, 2)
+
+    def sdpa():
+        out = nnf.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dt_)
+    return dict(dtype=str(dtype), max_err_of_scale=errs, tolerance=tol,
+                fwd_bwd_ms=cuda_ms(fn_grads, 3),
+                dense_fwd_bwd_ms=cuda_ms(dense_grads, 2),
+                library_fwd_bwd_ms=cuda_ms(sdpa, 10))
+
+
+def phase_train(card: str, device, seed: int) -> dict:
+    """Phase 17: training on the card: (a) Llama-3.2-1B at full width,
+    (b) the reduced families against ``golden_train.npz``, (c) the
+    flash-attention Function at Llama's attention shape."""
+    import torch
+    t_phase = time.perf_counter()
+    full = _train_full(device, seed)
+    t_golden = time.perf_counter()
+    golden = _train_golden(device)
+    t_fn = time.perf_counter()
+    fn = {str(dt).removeprefix("torch."): _fn_case(device, dt, seed)
+          for dt in (torch.float32, torch.bfloat16)}
+    info = dict(card=card, full=full, golden=golden,
+                golden_tolerance=dict(loss_atol=TRAIN_LOSS_ATOL,
+                                      grad_rtol_of_scale=TRAIN_GRAD_RTOL),
+                function=dict(B=FN_B, S=FN_S, H=FN_H, Hkv=FN_HKV, D=FN_D,
+                              causal=True, cases=fn),
+                full_s=t_golden - t_phase, golden_s=t_fn - t_golden,
+                function_s=time.perf_counter() - t_fn,
+                phase_s=time.perf_counter() - t_phase)
+    emit("train", **info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4119,6 +4510,7 @@ def main(argv=None) -> int:
     phase_multinet(card, device, args.seed)
     phase_wire_islands(card, device, submit, dse)
     families = phase_families(card, device, args.seed)
+    phase_train(card, device, args.seed)
     flash["max_abs_err"] = max([flash["max_abs_err"]] + [
         c["max_abs_err"] for f in families["serve"].values()
         for c in f["kernel_vs_plain"].values()])

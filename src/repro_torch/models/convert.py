@@ -13,6 +13,14 @@ the config's family from it on a given device (``cuda`` unless the caller
 asks for another), so that both packages compute with the same weights.
 :func:`flatten` and :func:`unflatten` map the tree to and from flat
 ``"a/b/c"`` keys, as an ``.npz`` file holds it.
+
+The other direction, for training: a port parameter's name
+(``layers.3.attn.wq``, ``groups.1.0.mixer.in_proj``) is its JAX path with
+the indices of its stacked axes among the components (:func:`jax_path`).
+:func:`to_jax` stacks named tensors (the parameters, or their gradients)
+back into the JAX layout as numpy arrays, :func:`stacked_shapes` gives
+each name its leaf's shape there, and :func:`opt_state_from_jax` takes
+the JAX package's AdamW state apart into the port's, name by name.
 """
 from __future__ import annotations
 
@@ -207,3 +215,81 @@ def unflatten(flat: Mapping, prefix: str = "") -> dict:
             node = node.setdefault(p, {})
         node[leaf] = np.asarray(v)
     return out
+
+
+# --------------------------------------------------------------------------
+# the port's names in the JAX layout
+# --------------------------------------------------------------------------
+def jax_path(name: str) -> tuple[str, tuple[int, ...]]:
+    """A port parameter's name -> (its leaf's path in the JAX layout, its
+    index on the leaf's stacked axes): ``"layers.3.attn.wq"`` ->
+    ``("layers/attn/wq", (3,))``, ``"groups.1.0.ln.scale"`` ->
+    ``("groups/ln/scale", (1, 0))``, ``"embed.table"`` ->
+    ``("embed/table", ())``."""
+    parts = name.split(".")
+    return ("/".join(p for p in parts if not p.isdigit()),
+            tuple(int(p) for p in parts if p.isdigit()))
+
+
+def _stacks(names) -> dict[str, tuple[int, ...]]:
+    """Each JAX path's stacked axes' lengths, from the names on it."""
+    lead: dict[str, tuple[int, ...]] = {}
+    for name in names:
+        path, idx = jax_path(name)
+        old = lead.get(path, (0,) * len(idx))
+        lead[path] = tuple(max(a, i + 1) for a, i in zip(old, idx))
+    return lead
+
+
+def stacked_shapes(shapes: Mapping[str, tuple]) -> dict[str, tuple]:
+    """{name: shape} of the port's tensors -> {name: the shape of the JAX
+    layout's leaf it is a slice of} (the stacked axes ahead)."""
+    lead = _stacks(shapes)
+    return {n: lead[jax_path(n)[0]] + tuple(s) for n, s in shapes.items()}
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bf16 widened to f32 (exact:
+    numpy has no bfloat16 of its own)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def to_jax(named: Mapping[str, torch.Tensor]) -> dict:
+    """Named tensors (``model.named_parameters()``, or gradients keyed so)
+    -> the JAX layout's nested dict of numpy arrays, the per-layer ones
+    stacked on their leading axes: the inverse of :func:`from_jax`'s
+    unstacking."""
+    named = dict(named)
+    lead = _stacks(named)
+    flat: dict[str, np.ndarray] = {}
+    for name, t in named.items():
+        path, idx = jax_path(name)
+        a = to_numpy(t)
+        if not idx:
+            flat[path] = a
+            continue
+        if path not in flat:
+            flat[path] = np.zeros(lead[path] + a.shape, a.dtype)
+        flat[path][idx] = a
+    return unflatten(flat)
+
+
+def opt_state_from_jax(state: Mapping, names, device="cuda") -> dict:
+    """The JAX package's AdamW state ``{"mu": tree of {"m", "v" | "v_row",
+    "v_col"}, "count"}`` -> the port's (``train.optimizer.AdamW.init``'s
+    layout: ``{"mu": {name: {...}}, "count"}``) for the parameters
+    ``names``, each leaf the slice of its stacked one, on ``device``."""
+    device = resolve_device(device, "opt_state_from_jax")
+    flat = flatten(state["mu"])
+    mu = {}
+    for name in names:
+        path, idx = jax_path(name)
+        mu[name] = {k[len(path) + 1:]: to_tensor(np.asarray(v)[idx], device)
+                    for k, v in flat.items()
+                    if k.startswith(path + "/")
+                    and "/" not in k[len(path) + 1:]}
+    return {"mu": mu, "count": to_tensor(np.asarray(state["count"]),
+                                         device)}

@@ -1,5 +1,4 @@
-"""Whisper-style encoder-decoder (audio backbone; conv frontend stubbed),
-for inference.
+"""Whisper-style encoder-decoder (audio backbone; conv frontend stubbed).
 
 The PyTorch port of the JAX package's ``models/encdec.py``.  The modality
 frontend is a stub: the caller hands *precomputed frame embeddings*
@@ -11,8 +10,9 @@ passes 2048 (``layers.cross_attention_fwd``), decode steps included.
 
 As in the JAX package, every decode step recomputes the cross-attention's
 keys and values from the cached encoder output: there is no cross-KV
-cache.  Not ported yet: ``decode_train`` and ``loss`` (training) and
-remat.
+cache.  ``encode`` serves without autograd; ``encode_fwd``,
+``decode_train`` and ``loss`` run with it, each layer checkpointed under
+the runtime's remat.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from torch import nn
 
 from . import layers as L
 from .runtime import resolve_device
+from .transformer import cross_entropy
 
 
 class EncDecLM(L.Params):
@@ -67,6 +68,14 @@ def _cross_and_mlp(p, x, enc_out, cfg):
     return x + L.mlp_fwd(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
 
 
+def _dec_block_fwd(p, x, enc_out, cfg, rt):
+    """A full-sequence decoder block: causal self-attention (chunked past
+    2048 positions under ``auto``), then :func:`_cross_and_mlp`."""
+    x = x + L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                            cfg, causal=True, mode=rt.attn_mode)
+    return _cross_and_mlp(p, x, enc_out, cfg)
+
+
 # --------------------------------------------------------------------------
 # model
 # --------------------------------------------------------------------------
@@ -95,16 +104,43 @@ def init(gen: torch.Generator, cfg) -> EncDecLM:
     return EncDecLM(**mods)
 
 
+def encode_fwd(model, frames, cfg, rt):
+    """:func:`encode` with autograd wherever the caller records it."""
+    S = frames.shape[1]
+    x = frames.to(cfg.torch_dtype) @ model["adapter"]["w"]
+    x = x + model["enc_pos"][:S]
+    x = L.run_layers(model["enc_layers"],
+                     lambda p, x: _enc_block_fwd(p, x, cfg, rt), x, rt.remat)
+    return L.rms_norm(x, model["enc_norm"], cfg.norm_eps)
+
+
 @torch.no_grad()
 def encode(model, frames, cfg, rt):
     """frames: (B, S_enc, frontend_dim) precomputed stub embeddings ->
     the encoder output (B, S_enc, d_model)."""
-    S = frames.shape[1]
-    x = frames.to(cfg.torch_dtype) @ model["adapter"]["w"]
-    x = x + model["enc_pos"][:S]
-    for p in model["enc_layers"]:
-        x = _enc_block_fwd(p, x, cfg, rt)
-    return L.rms_norm(x, model["enc_norm"], cfg.norm_eps)
+    return encode_fwd(model, frames, cfg, rt)
+
+
+def decode_train(model, enc_out, tokens, cfg, rt):
+    """The decoder over a whole token sequence (B,S_dec), teacher-forced,
+    cross-attending enc_out -> logits (B,S_dec,V) fp32."""
+    x = L.embed(model["embed"], tokens, cfg)
+    x = L.run_layers(model["dec_layers"],
+                     lambda p, x: _dec_block_fwd(p, x, enc_out, cfg, rt), x,
+                     rt.remat)
+    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+    return L.unembed(model["embed"], model.lm_head(), x, cfg)
+
+
+def loss(model, batch, cfg, rt):
+    """batch: {frames (B,S_enc,F), tokens (B,S_dec), labels (B,S_dec)
+    [, mask]} -> (nll, metrics {nll, aux = 0})."""
+    enc_out = encode_fwd(model, batch["frames"], cfg, rt)
+    logits = decode_train(model, enc_out, batch["tokens"], cfg, rt)
+    nll = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return nll, {"nll": nll,
+                 "aux": torch.zeros((), dtype=torch.float32,
+                                    device=nll.device)}
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Transformer layer primitives for inference: plain functions on tensors.
+"""Transformer layer primitives: plain functions on tensors.
 
-The PyTorch port of the JAX package's ``models/layers.py``, its inference
-half.  Conventions kept from there:
+The PyTorch port of the JAX package's ``models/layers.py``.  Conventions
+kept from there:
 
 * Parameters sit in :class:`Params` bags named as the JAX package's param
   dicts (``p["wq"]``, ``"wg" in p``), in its layouts: a projection is
@@ -13,12 +13,13 @@ half.  Conventions kept from there:
 * Attention is GQA with RoPE on two paths: ``dense`` materialises the
   (B, H, Sq, Sk) scores in plain torch; ``chunked`` is the flash-attention
   recurrence, which on a CUDA tensor is the hand-written kernel
-  (``kernels/flash_attn``) and on a CPU tensor its plain twin.
+  (``kernels/flash_attn``) and on a CPU tensor its plain twin.  Its
+  gradient is :class:`FlashAttention`'s backward, the JAX package's
+  FlashAttention-2 VJP as blockwise torch tensor code.
 * Sliding-window attention (h2o-danube) masks both paths.
 
-Not ported yet: the chunked path's custom VJP and backward (training),
-and the tensor-parallel head padding and sharding hints (a ``Runtime``
-with a mesh raises).
+Not ported yet: the tensor-parallel head padding and sharding hints (a
+``Runtime`` with a mesh raises).
 """
 from __future__ import annotations
 
@@ -26,17 +27,20 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..kernels.flash_attn import flash_attention
-from ..kernels.flash_attn.ref import attention_mask
+from ..kernels.flash_attn.ref import attention_mask, kv_range
 
 
 class Params(nn.Module):
     """A named bag of parameter tensors and nested bags (or other
     modules), indexed like the JAX package's param dicts: ``p["wq"]`` is a
-    tensor, ``p["shared"]["wg"]`` a tensor of a nested bag.  Inference
-    only: no tensor requires a gradient."""
+    tensor, ``p["shared"]["wg"]`` a tensor of a nested bag.  Its tensors
+    are made requiring no gradient, for serving; ``requires_grad_(True)``
+    on the model (``train.train_step.init_state`` calls it) makes them
+    trainable."""
 
     def __init__(self, **items):
         super().__init__()
@@ -54,6 +58,41 @@ class Params(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def checkpoint(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward, as
+    ``jax.checkpoint``: autograd keeps only the inputs.  Where no gradient
+    is being recorded it is ``fn(*args)``.  The model code draws no random
+    numbers, so no RNG state is kept for the recompute."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
+def _run(layers, step, x):
+    for p in layers:
+        x = step(p, x)
+    return x
+
+
+def run_layers(layers, step, x, remat: bool, group: int = 1):
+    """``x = step(p, x)`` for each layer p in order (``x`` a tensor or a
+    tuple of them).  With ``remat`` (and a gradient being recorded, see
+    :func:`checkpoint`) each layer is checkpointed or, with
+    ``group`` > 1, each run of ``group`` layers (its input saved once, its
+    interior recomputed once in the backward), the layers that fill no run
+    checkpointed one by one: the JAX package's grouped remat
+    (``transformer._scan_blocks``)."""
+    layers = list(layers)
+    if not remat:
+        return _run(layers, step, x)
+    n = len(layers) // group * group if group > 1 else 0
+    spans = [layers[i:i + group] for i in range(0, n, group)]
+    for span in spans + [[p] for p in layers[n:]]:
+        x = checkpoint(lambda x, span=span: _run(span, step, x), x)
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -170,21 +209,163 @@ def dense_attention(q, k, v, *, causal: bool, window: int | None,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def chunked_attention(q, k, v, *, causal: bool, window: int | None,
-                      q_offset: int = 0, scale: float | None = None):
-    """Flash-style online-softmax attention, O(S·tile) working set.
+def _all_visible(q0: int, q1: int, k0: int, k1: int, causal: bool,
+                 window: int | None, q_offset: int) -> bool:
+    """Whether every query of [q0, q1) may see every key of [k0, k1)."""
+    if causal and k1 - 1 > q0 + q_offset:
+        return False
+    return window is None or k0 > q1 - 1 + q_offset - window
 
-    In the JAX package, the pure-jnp twin of its Pallas kernel; here the
-    name the model code calls for :func:`flash_attention` itself: on a
-    CUDA tensor the hand-written ``flash_fwd`` kernel, on a CPU tensor its
-    plain recurrence (``flash_fwd_ref``).  Both compute the Pallas
-    kernel's function, which keeps p and q·scale in f32: in bf16 the JAX
-    twin rounds both to bf16, so the two part by a bf16 rounding.  Forward
-    only.  The JAX version's ``q_blk``/``kv_blk`` have no counterpart: the
-    kernel's tiles are fixed.
+
+def flash_bwd(q, k, v, out, dout, *, causal: bool, window: int | None,
+              q_offset: int = 0, scale: float | None = None,
+              q_blk: int = 512, kv_blk: int = 1024):
+    """The gradients (dq, dk, dv) of flash attention, blockwise.
+
+    A port of the JAX package's FlashAttention-2 backward
+    (``models/layers.py::_flash_vjp_bwd``) as torch tensor code.  q and
+    dout (B, Sq, H, D), k/v (B, Sk, Hkv, D), out the forward's result.
+    Neither kernel returns the rows' log-sum-exp, so a first pass over each
+    query block's key blocks recomputes it in f32 from the rounded q·scale
+    and k, as the JAX forward computes it; a second pass recomputes the
+    scores and takes ``p = exp(s - lse)``, masked, then ``dv``, ``dp``,
+    ``ds = p·(dp - D)·scale`` with ``D = rowsum(dout·out)``, ``dq`` and
+    ``dk``.  The cast points are the JAX code's: q·scale rounded to q's
+    dtype, p to dout's before dv, ds to q's before dq and dk; every
+    product is an f32 product of the widened operands and the sums run in
+    f32, dq over key blocks and dk/dv over query blocks in order.  GQA:
+    the queries of a KV head are taken together, so dk and dv come back
+    (B, Sk, Hkv, D), summed over each group of H / Hkv query heads in f32
+    (the JAX package rounds each repeated head's before it adds them).
+    Key blocks that the mask leaves empty for a query block are skipped,
+    the work the JAX package's triangular schedule saves; blocks wholly
+    inside the mask are not masked.  Returns the gradients in the inputs'
+    dtypes.
     """
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           scale=scale, q_offset=q_offset)
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    dev = q.device
+
+    def grouped(t):                         # (B,S,H,D) -> (B,Hkv,rep,S,D)
+        return t.permute(0, 2, 1, 3).reshape(B, Hkv, rep, t.shape[1], D)
+
+    # q·scale rounded to q's dtype, by the scale in q's dtype, as the JAX
+    # code's weakly typed product
+    scale_q = float(torch.tensor(scale, dtype=q.dtype))
+    qs = (grouped(q).float() * scale_q).to(q.dtype)
+    qg, dog, og = grouped(q), grouped(dout), grouped(out)
+    kf = k.permute(0, 2, 1, 3).float()                   # (B,Hkv,Sk,D)
+    vf = v.permute(0, 2, 1, 3).float()
+    dq = torch.empty(B, Hkv, rep, Sq, D, dtype=torch.float32, device=dev)
+    dk = torch.zeros(B, Hkv, Sk, D, dtype=torch.float32, device=dev)
+    dv = torch.zeros(B, Hkv, Sk, D, dtype=torch.float32, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    for q0 in range(0, Sq, q_blk):
+        q1 = min(q0 + q_blk, Sq)
+        n = (q1 - q0) * rep
+
+        def rows(t):                        # (B,Hkv,rep·n_q,D) f32
+            return t[:, :, :, q0:q1].float().reshape(B, Hkv, n, D)
+        qs_i, q_i, do_i = rows(qs), rows(qg), rows(dog)
+        drow = (do_i * rows(og)).sum(-1)                 # (B,Hkv,rep·n_q)
+        q_abs = torch.arange(q0, q1, device=dev) + q_offset
+        lo, hi = kv_range(q1 - q0, Sk, causal=causal, window=window,
+                          q_offset=q0 + q_offset)
+        blocks = []
+        for k0 in range(lo // kv_blk * kv_blk, hi, kv_blk):
+            k1 = min(k0 + kv_blk, Sk)
+            msk = None
+            if not _all_visible(q0, q1, k0, k1, causal, window, q_offset):
+                msk = attention_mask(q_abs, k_pos[k0:k1], Sk, causal,
+                                     window).repeat(rep, 1)
+            blocks.append((k0, k1, msk))
+
+        def scores(k0, k1, msk):
+            s = qs_i @ kf[:, :, k0:k1].transpose(-1, -2)
+            return s if msk is None else torch.where(msk, s, -torch.inf)
+        # pass 1: each row's log-sum-exp (0 where a row sees no key)
+        m = torch.full((B, Hkv, n), -torch.inf, device=dev)
+        l = torch.zeros(B, Hkv, n, device=dev)
+        for k0, k1, msk in blocks:
+            s = scores(k0, k1, msk)
+            m_new = torch.maximum(m, s.amax(-1))
+            m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+            p = torch.exp(s - m_safe[..., None])
+            if msk is not None:
+                p = torch.where(msk, p, 0.0)
+            alpha = torch.where(torch.isneginf(m), 0.0,
+                                torch.exp(m - m_safe))
+            l = l * alpha + p.sum(-1)
+            m = m_new
+        lse = torch.where(l > 0.0, m + torch.log(l.clamp_min(1e-37)), 0.0)
+        # pass 2: the gradients
+        dq_i = torch.zeros(B, Hkv, n, D, device=dev)
+        for k0, k1, msk in blocks:
+            p = torch.exp(scores(k0, k1, msk) - lse[..., None])
+            if msk is not None:
+                p = torch.where(msk, p, 0.0)
+            pc = p.to(dout.dtype).float()
+            dv[:, :, k0:k1] += pc.transpose(-1, -2) @ do_i
+            dp = do_i @ vf[:, :, k0:k1].transpose(-1, -2)
+            ds = (p * (dp - drow[..., None]) * scale).to(q.dtype).float()
+            dq_i += ds @ kf[:, :, k0:k1]
+            dk[:, :, k0:k1] += ds.transpose(-1, -2) @ q_i
+        dq[:, :, :, q0:q1] = dq_i.view(B, Hkv, rep, q1 - q0, D)
+    dq = dq.reshape(B, H, Sq, D).permute(0, 2, 1, 3).to(q.dtype)
+    return (dq, dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd: the forward is
+    :func:`flash_attention` (the hand-written ``flash_fwd`` kernel on a
+    CUDA tensor, its plain twin on a CPU tensor), the backward
+    :func:`flash_bwd`.  Saves q, k, v and the output, O(S) beside the
+    O(S²) scores that autograd through a plain recurrence would keep."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale, q_blk,
+                kv_blk):
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              scale=scale, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        scale=scale, q_blk=q_blk, kv_blk=kv_blk)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return (*flash_bwd(q, k, v, out, dout, **ctx.opts),
+                None, None, None, None, None, None)
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int | None,
+                      q_offset: int = 0, scale: float | None = None,
+                      q_blk: int = 512, kv_blk: int = 1024):
+    """Flash-style online-softmax attention, O(S·tile) working set,
+    forward and backward.
+
+    In the JAX package, the pure-jnp twin of its Pallas kernel with a
+    custom VJP; here :class:`FlashAttention`: the forward is
+    :func:`flash_attention` itself (on a CUDA tensor the hand-written
+    ``flash_fwd`` kernel, on a CPU tensor its plain recurrence
+    ``flash_fwd_ref``), the backward the JAX VJP as torch code.  The
+    forward computes the Pallas kernel's function, which keeps p and
+    q·scale in f32: in bf16 the JAX twin rounds both to bf16, so the two
+    part by a bf16 rounding.  ``q_blk``/``kv_blk`` block the backward only
+    (the kernel's tiles are fixed), with the JAX package's defaults and
+    its rule: square blocks for causal self-attention.
+    """
+    Sq, Sk = q.shape[1], k.shape[1]
+    q_blk, kv_blk = min(q_blk, Sq), min(kv_blk, Sk)
+    if causal and window is None and q_offset == 0 and Sq == Sk:
+        kv_blk = q_blk
+    return FlashAttention.apply(q, k, v, causal, window, q_offset, scale,
+                                max(q_blk, 1), max(kv_blk, 1))
 
 
 def resolve_mode(mode: str, S: int) -> str:

@@ -3,10 +3,10 @@ wrapping the family module.
 
 The PyTorch port of the JAX package's ``models/registry.py``, for every
 family: dense and MoE (``transformer``), SSM and hybrid (``ssm_lm``),
-enc-dec (``encdec``) and VLM (``vlm``).  ``loss`` waits for the training
-slice; ``input_specs``, ``cache_specs`` and ``param_specs`` are XLA
-dry-run helpers and wait for ``launch/``'s dry-runs (``ROADMAP.md`` queue
-1, item 13).
+enc-dec (``encdec``) and VLM (``vlm``), serving and training
+(``loss(model, batch, rt) -> (loss, metrics)``).  ``input_specs``,
+``cache_specs`` and ``param_specs`` are XLA dry-run helpers and wait for
+``launch/``'s dry-runs (``ROADMAP.md`` queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ TOKEN_ONLY = ("dense", "moe", "ssm", "hybrid")
 class ModelApi:
     cfg: ModelConfig
     init: Callable
+    loss: Callable
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
@@ -49,6 +50,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     return ModelApi(
         cfg=cfg,
         init=lambda gen: m.init(gen, cfg),
+        loss=lambda model, batch, rt: m.loss(model, batch, cfg, rt),
         init_cache=lambda batch, max_len, rt, **kw: m.init_cache(
             cfg, batch, max_len, rt, **kw),
         prefill=_prefill,

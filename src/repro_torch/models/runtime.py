@@ -3,11 +3,11 @@
 The PyTorch port of the JAX package's ``models/runtime.py``, trimmed to
 one device: ``ModelConfig`` says *what* the network is; ``Runtime`` says
 which attention path prefill takes, how the MoE layer dispatches (on one
-device: ``local``) and the SSD scan's chunk.  The mesh, the tensor- and
-expert-parallel axes, the expert-parallel MoE dispatches and the other
-sharding fields are not ported yet (``ROADMAP.md`` queue 1, item 11): a
-``Runtime`` given a mesh, or ``moe_impl`` ``"ep"`` or ``"ep_a2a"``,
-raises.  Remat and the loss chunk are training and wait for it.
+device: ``local``), the SSD scan's chunk, and for training the remat
+policy and the loss chunk.  The mesh, the tensor- and expert-parallel
+axes, the expert-parallel MoE dispatches and the other sharding fields
+are not ported yet (``ROADMAP.md`` queue 1, item 11): a ``Runtime``
+given a mesh, or ``moe_impl`` ``"ep"`` or ``"ep_a2a"``, raises.
 """
 from __future__ import annotations
 
@@ -26,6 +26,10 @@ class Runtime:
     mesh: Any = None                    # sharding: not ported yet
     moe_impl: str = "local"             # local (ep | ep_a2a: not ported yet)
     ssd_chunk: int = 256                # tokens a chunk of the SSD scan
+    remat: bool = False                 # recompute each layer in backward
+    remat_group: int = 1                # layers per remat block (g>1: save
+                                        # only every g-th residual)
+    loss_chunk: int = 0                 # 0 = unchunked cross-entropy
 
     def __post_init__(self):
         if self.attn_mode not in ATTN_MODES:
@@ -36,6 +40,12 @@ class Runtime:
                              f"{self.moe_impl!r}")
         if self.ssd_chunk < 1:
             raise ValueError(f"ssd_chunk must be >= 1, got {self.ssd_chunk}")
+        if self.remat_group < 1:
+            raise ValueError(f"remat_group must be >= 1, got "
+                             f"{self.remat_group}")
+        if self.loss_chunk < 0:
+            raise ValueError(f"loss_chunk must be >= 0, got "
+                             f"{self.loss_chunk}")
         if self.mesh is not None:
             raise NotImplementedError(
                 "Runtime(mesh=...): sharded execution is not ported yet "

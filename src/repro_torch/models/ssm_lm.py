@@ -12,8 +12,11 @@ its blocks are the tail.
 
 API (used by ``models/registry.py``): ``init``, ``forward``,
 ``init_cache``, ``prefill`` and ``decode_step``, as
-``models/transformer.py``.  Not ported yet: ``loss`` (training) and
-remat.
+``models/transformer.py``, and ``loss``, which runs the backbone with
+autograd under the runtime's remat, as the JAX package's ``_backbone``:
+each Mamba block checkpointed, and each group (its blocks and the shared
+block) checkpointed around them; the tail by groups of ``remat_group``
+blocks where that divides it, else block by block.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 from torch import nn
 
 from . import layers as L
+from . import transformer as T
 from .runtime import resolve_device
 from .ssm import init_mamba, init_mamba_cache, mamba_fwd, mamba_step
 
@@ -105,26 +109,49 @@ def init(gen: torch.Generator, cfg) -> SSMLM:
 # forward
 # --------------------------------------------------------------------------
 def _backbone(model, x, cfg, rt):
-    for group in model["groups"] if "groups" in model else ():
-        for blk in group:
-            x = mamba_block_fwd(blk, x, cfg, rt)
-        x = shared_attn_fwd(model["shared"], x, cfg, rt)
-    for blk in model["tail"] if "tail" in model else ():
-        x = mamba_block_fwd(blk, x, cfg, rt)
+    def mamba(blk, x):
+        return mamba_block_fwd(blk, x, cfg, rt)
+
+    def group_fwd(group, x):
+        return shared_attn_fwd(model["shared"],
+                               L.run_layers(group, mamba, x, rt.remat),
+                               cfg, rt)
+
+    if "groups" in model:
+        x = L.run_layers(model["groups"], group_fwd, x, rt.remat)
+    if "tail" in model:
+        # grouped where the group divides the tail, else a block at a time
+        n, g = len(model["tail"]), rt.remat_group
+        x = L.run_layers(model["tail"], mamba, x, rt.remat,
+                         g if n % g == 0 else 1)
     return x
+
+
+def _hidden(model, tokens, cfg, rt, embeds=None):
+    x = L.embed(model["embed"], tokens, cfg)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    return L.rms_norm(_backbone(model, x, cfg, rt), model["final_norm"],
+                      cfg.norm_eps)
 
 
 @torch.no_grad()
 def forward(model, tokens, cfg, rt, *, embeds=None):
     """tokens (B,S) int -> (logits (B,S',V) fp32, aux = 0), ``embeds``
     (B,P,D) ahead of the tokens."""
-    x = L.embed(model["embed"], tokens, cfg)
-    if embeds is not None:
-        x = torch.cat([embeds.to(x.dtype), x], dim=1)
-    x = _backbone(model, x, cfg, rt)
-    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+    x = _hidden(model, tokens, cfg, rt, embeds)
     return (L.unembed(model["embed"], model.lm_head(), x, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def loss(model, batch, cfg, rt):
+    """batch: {tokens (B,S), labels (B,S)[, mask]} -> (nll, metrics
+    {nll, aux = 0}); the NLL chunked where ``rt.loss_chunk`` is set."""
+    x = _hidden(model, batch["tokens"], cfg, rt)
+    nll = T.nll_of(model, x, batch["labels"], cfg, rt, batch.get("mask"))
+    return nll, {"nll": nll,
+                 "aux": torch.zeros((), dtype=torch.float32,
+                                    device=x.device)}
 
 
 # --------------------------------------------------------------------------

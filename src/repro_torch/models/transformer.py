@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM (dense and MoE families), for inference.
+"""Decoder-only transformer LM (dense and MoE families).
 
 The PyTorch port of the JAX package's ``models/transformer.py``.  There the
 layers are scanned over params stacked on a leading ``n_layers`` axis; here
@@ -10,14 +10,17 @@ or, where the config has experts, the MoE layer (``models/moe.py``).
 API (used by ``models/registry.py``):
     init(gen, cfg)                          -> model
     forward(model, tokens, cfg, rt)         -> (logits, aux)
+    loss(model, batch, cfg, rt)             -> (loss, metrics)
     prefill(model, tokens, cfg, rt)         -> (last_logits, cache)
     init_cache(cfg, batch, max_len, rt)     -> cache
     decode_step(model, cache, tokens, cfg, rt) -> (logits, cache)
 
 ``forward`` and ``prefill`` take ``embeds``: precomputed embeddings put
-ahead of the tokens' (the VLM's projected patches).  Not ported yet:
-``loss`` and ``chunked_xent`` (training), remat and the sharding
-constraints.
+ahead of the tokens' (the VLM's projected patches).  ``forward``,
+``prefill`` and ``decode_step`` run without autograd; ``loss`` runs the
+same layers with it, under the runtime's remat (``torch.utils.checkpoint``
+a layer, or a group of ``remat_group`` layers) and, with a ``loss_chunk``,
+the chunked cross-entropy.  Not ported yet: the sharding constraints.
 """
 from __future__ import annotations
 
@@ -105,16 +108,27 @@ def init(gen: torch.Generator, cfg) -> TransformerLM:
 
 
 def _blocks(model, x, cfg, rt, *, return_kv: bool = False):
+    """The decoder stack on x -> (x, aux summed over layers, [(k, v)] a
+    layer with ``return_kv``).  With ``rt.remat`` and a gradient being
+    recorded, each layer is checkpointed, or each group of
+    ``rt.remat_group`` layers with the layers that fill no group
+    checkpointed one by one (``layers.run_layers``), as the JAX package's
+    ``_scan_blocks``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    kvs = []
-    for p in model["layers"]:
-        if return_kv:
+    if return_kv:
+        kvs = []
+        for p in model["layers"]:
             x, a, kv = block_fwd(p, x, cfg, rt, return_kv=True)
             kvs.append(kv)
-        else:
-            x, a = block_fwd(p, x, cfg, rt)
-        aux = aux + a
-    return x, aux, kvs
+            aux = aux + a
+        return x, aux, kvs
+
+    def step(p, carry):
+        x, a = block_fwd(p, carry[0], cfg, rt)
+        return x, carry[1] + a
+    x, aux = L.run_layers(model["layers"], step, (x, aux), rt.remat,
+                          rt.remat_group)
+    return x, aux, []
 
 
 def _embed(model, tokens, cfg, embeds):
@@ -124,14 +138,88 @@ def _embed(model, tokens, cfg, embeds):
     return x
 
 
+def _hidden(model, tokens, cfg, rt, embeds=None):
+    """The final-normed hidden states (B,S',D) and aux, with autograd
+    wherever the caller records it."""
+    x = _embed(model, tokens, cfg, embeds)
+    x, aux, _ = _blocks(model, x, cfg, rt)
+    return L.rms_norm(x, model["final_norm"], cfg.norm_eps), aux
+
+
+def logits_fwd(model, tokens, cfg, rt, *, embeds=None):
+    """:func:`forward` with autograd wherever the caller records it."""
+    x, aux = _hidden(model, tokens, cfg, rt, embeds)
+    return L.unembed(model["embed"], model.lm_head(), x, cfg), aux
+
+
 @torch.no_grad()
 def forward(model, tokens, cfg, rt, *, embeds=None):
     """tokens (B,S) int -> (logits (B,S',V) fp32, aux), S' = S plus the
     positions of ``embeds`` (B,P,D), which go ahead of the tokens."""
-    x = _embed(model, tokens, cfg, embeds)
-    x, aux, _ = _blocks(model, x, cfg, rt)
-    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
-    return L.unembed(model["embed"], model.lm_head(), x, cfg), aux
+    return logits_fwd(model, tokens, cfg, rt, embeds=embeds)
+
+
+# --------------------------------------------------------------------------
+# training: losses
+# --------------------------------------------------------------------------
+def cross_entropy(logits, labels, mask=None):
+    """Mean token NLL in fp32. logits (B,S,V), labels (B,S) int."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll.float()
+    if mask is None:
+        return nll.mean()
+    m = mask.float()
+    return (nll * m).sum() / m.sum().clamp_min(1.0)
+
+
+def _xent_chunk(x, labels, mask, emb, head, cfg):
+    """One chunk's summed NLL and its count of unmasked tokens."""
+    logits = L.unembed(emb, head, x, cfg)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    m = mask.float()
+    return ((lse - ll.float()) * m).sum(), m.sum()
+
+
+def chunked_xent(x, model, labels, cfg, rt, mask=None):
+    """Cross-entropy without materialising (B,S,V): the sequence in chunks
+    of ``rt.loss_chunk`` positions, each chunk's logits recomputed in the
+    backward (checkpointed), so peak logits memory is B·chunk·V, not
+    B·S·V.  The JAX package pads S to a multiple of the chunk with masked
+    positions; here the last chunk is shorter, which adds the same
+    terms."""
+    S = x.shape[1]
+    c = rt.loss_chunk
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.bool, device=x.device)
+    emb, head = model["embed"], model.lm_head()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, c):
+        t, n = L.checkpoint(
+            lambda xi, li, mi: _xent_chunk(xi, li, mi, emb, head, cfg),
+            x[:, c0:c0 + c], labels[:, c0:c0 + c], mask[:, c0:c0 + c])
+        tot, cnt = tot + t, cnt + n
+    return tot / cnt.clamp_min(1.0)
+
+
+def nll_of(model, x, labels, cfg, rt, mask=None):
+    """The NLL of final-normed hidden states x against labels: chunked
+    where ``rt.loss_chunk`` is set, else over the full logits."""
+    if rt.loss_chunk:
+        return chunked_xent(x, model, labels, cfg, rt, mask)
+    logits = L.unembed(model["embed"], model.lm_head(), x, cfg)
+    return cross_entropy(logits, labels, mask)
+
+
+def loss(model, batch, cfg, rt):
+    """batch: {tokens (B,S), labels (B,S)[, mask]} -> (scalar, metrics
+    {nll, aux}); the MoE's load-balance loss enters as
+    ``aux_loss_coef·aux``."""
+    x, aux = _hidden(model, batch["tokens"], cfg, rt)
+    nll = nll_of(model, x, batch["labels"], cfg, rt, batch.get("mask"))
+    return nll + cfg.aux_loss_coef * aux, {"nll": nll, "aux": aux}
 
 
 # --------------------------------------------------------------------------

@@ -1,11 +1,12 @@
-"""InternVL2-style VLM: stubbed ViT frontend + LM backbone, for inference.
+"""InternVL2-style VLM: stubbed ViT frontend + LM backbone.
 
 The PyTorch port of the JAX package's ``models/vlm.py``.  The vision
 frontend is a stub: the caller hands *precomputed patch embeddings*
 (B, n_patches, frontend_dim), and a learned projector maps them into the
 backbone's embedding space, ahead of the text tokens.  The backbone is
 ``models/transformer.py``'s; its cache holds the patches' positions and
-the text's.  Not ported yet: ``loss`` (training).
+the text's.  ``loss`` is the cross-entropy of the text positions' logits,
+past the patches.
 
 ``prefill``'s ``max_len`` counts text positions, as ``ServeEngine`` passes
 it (prompt + new tokens + 1), and the cache adds the P patch positions.
@@ -41,6 +42,16 @@ def forward(model, batch, cfg, rt):
     """batch {patches (B,P,F), tokens (B,S)} -> (logits (B,P+S,V), aux)."""
     return T.forward(model, batch["tokens"], cfg, rt,
                      embeds=_project(model, batch["patches"], cfg))
+
+
+def loss(model, batch, cfg, rt):
+    """batch: {patches (B,P,F), tokens (B,S_text), labels (B,S_text)
+    [, mask]} -> (nll + aux_loss_coef·aux, metrics {nll, aux})."""
+    logits, aux = T.logits_fwd(model, batch["tokens"], cfg, rt,
+                               embeds=_project(model, batch["patches"], cfg))
+    nll = T.cross_entropy(logits[:, batch["patches"].shape[1]:],
+                          batch["labels"], batch.get("mask"))
+    return nll + cfg.aux_loss_coef * aux, {"nll": nll, "aux": aux}
 
 
 def init_cache(cfg, batch: int, max_len: int, rt, dtype=None,

@@ -1,0 +1,167 @@
+"""Fault-tolerant checkpointing of a training state.
+
+The PyTorch port of the JAX package's ``train/checkpoint.py``, with its
+layout (one directory per step)::
+
+    <dir>/step_00000100/
+        manifest.json      # the state's structure, shapes, dtypes, extra
+        arrays.npz         # flat {path -> ndarray}
+        COMMIT             # written last: a checkpoint without it is partial
+
+A checkpoint is written into a ``.tmp_ckpt_*`` directory and renamed into
+place once its ``COMMIT`` is written, then the oldest are pruned to
+``keep``.  ``restore(dir, target)`` reads the latest *committed* step
+(partial writes of a killed process are skipped) into ``target``'s
+tensors, on their device.  bf16 tensors are stored as their raw uint16
+bits (npz has no bfloat16), so a restore is bit-exact.
+
+A :class:`~repro_torch.train.train_step.TrainState` flattens to
+``params/<name>`` (its model's parameters by name), ``opt/mu/<name>/<m |
+v | v_row | v_col>``, ``opt/count`` and ``step``; a dict of tensors to its
+keys joined by ``/``.  The elastic re-placement of the JAX package
+(``restore(shardings=...)``) needs the mesh and waits for it
+(``ROADMAP.md`` queue 1, item 11).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tempfile
+from typing import Any
+
+import numpy as np
+import torch
+
+_SEP = "/"
+
+
+def _leaves(tree: Any, prefix: str = "") -> dict[str, Any]:
+    """{path: leaf} of a TrainState, a dict or a tensor/int."""
+    from .train_step import TrainState
+    if isinstance(tree, TrainState):
+        return {**_leaves(dict(tree.model.named_parameters()),
+                          prefix + "params" + _SEP),
+                **_leaves(tree.opt, prefix + "opt" + _SEP),
+                prefix + "step": tree.step}
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}{k}{_SEP}"))
+        return out
+    return {prefix.rstrip(_SEP): tree}
+
+
+def _to_array(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            # npz cannot hold bfloat16; store the raw bits
+            return t.view(torch.uint16).numpy()
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def _flatten(state) -> dict[str, np.ndarray]:
+    return {k: _to_array(v) for k, v in _leaves(state).items()}
+
+
+def save(directory: str, step: int, state, *, extra: dict | None = None,
+         keep: int = 3) -> str:
+    """Atomically write a committed checkpoint; prune old ones."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
+    try:
+        flat = _flatten(state)
+        np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+        manifest = {
+            "step": step,
+            "treedef": type(state).__name__,
+            "keys": sorted(flat),
+            "shapes": {k: list(v.shape) for k, v in flat.items()},
+            "dtypes": {k: _dtype_name(v) for k, v in _leaves(state).items()},
+            "extra": extra or {},
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        with open(os.path.join(tmp, "COMMIT"), "w") as f:
+            f.write("ok")
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    _prune(directory, keep)
+    return final
+
+
+def _dtype_name(leaf) -> str:
+    if isinstance(leaf, torch.Tensor):
+        return str(leaf.dtype).removeprefix("torch.")
+    return str(np.asarray(leaf).dtype)
+
+
+def _prune(directory: str, keep: int):
+    steps = committed_steps(directory)
+    for s in steps[:-keep]:
+        shutil.rmtree(os.path.join(directory, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
+def committed_steps(directory: str) -> list[int]:
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for name in os.listdir(directory):
+        if name.startswith("step_") and os.path.exists(
+                os.path.join(directory, name, "COMMIT")):
+            out.append(int(name.split("_")[1]))
+    return sorted(out)
+
+
+def latest_step(directory: str) -> int | None:
+    steps = committed_steps(directory)
+    return steps[-1] if steps else None
+
+
+def restore(directory: str, target, *, step: int | None = None):
+    """Read a committed checkpoint (the latest unless ``step``) into
+    ``target`` (a TrainState or a dict of tensors of the saved
+    structure): every tensor is written in place, on its own device, bit
+    for bit; a missing leaf or a shape that differs raises.  Returns the
+    target, with a TrainState's ``step`` set."""
+    from .train_step import TrainState
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in {directory}")
+    path = os.path.join(directory, f"step_{step:08d}")
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        flat = {k: z[k] for k in z.files}
+    with torch.no_grad():
+        for key, leaf in _leaves(target).items():
+            if key not in flat:
+                raise KeyError(f"checkpoint {path} missing leaf {key!r}")
+            arr = flat[key]
+            if not isinstance(leaf, torch.Tensor):
+                continue
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
+                                 f"target {tuple(leaf.shape)}")
+            src = torch.from_numpy(np.array(arr))      # 0-d stays 0-d
+            if leaf.dtype == torch.bfloat16 and arr.dtype == np.uint16:
+                src = src.view(torch.bfloat16)      # bit-exact restore
+            leaf.copy_(src.to(leaf.dtype))
+    if isinstance(target, TrainState):
+        target.step = int(flat["step"])
+    return target
+
+
+def manifest(directory: str, step: int | None = None) -> dict:
+    if step is None:
+        step = latest_step(directory)
+    with open(os.path.join(directory, f"step_{step:08d}",
+                           "manifest.json")) as f:
+        return json.load(f)

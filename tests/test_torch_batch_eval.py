@@ -26,6 +26,8 @@ from repro_torch.cnn.registry import get_cnn
 from repro_torch.core import batch_eval as tbe
 from repro_torch.core.dse.encoding import DesignBatch
 from repro_torch.fpga.boards import get_board
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 RTOL = 1e-5
 

@@ -3,8 +3,9 @@ latency sweep, the CE convolution, flash attention) against its plain
 PyTorch version, the Session's main path through the search kernel, the
 schedule layer's plane and artifacts against the CPU's, multinet
 (``joint_evaluate``, ``Session.deploy`` and the search kernel on slice
-boards) against the CPU's, and the LM serving path through the flash
-kernel.
+boards) against the CPU's, the LM serving path through the flash
+kernel, and training: a reduced Llama step and the flash-attention
+Function's gradients against the CPU's.
 
 Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
 no card is visible (the decision is made in the fixture, never at import).
@@ -751,6 +752,145 @@ def test_family_serve_on_card_equals_cpu(cuda, arch):
     n_pre, n_dec = chip_smoke.flash_launches(cfg, max(lens), 2100)
     assert launches()["flash_fwd"] == n_pre + 8 * n_dec
     assert got.tokens == want
+
+
+def _train_setup(device, model=None):
+    from repro_torch.models import get_model
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import init_state, make_train_step
+    cfg = get_config("llama3.2-1b").reduced().replace(dtype="float32")
+    api = get_model(cfg)
+    opt = make_optimizer("adamw", peak_lr=3e-3, warmup=0, total_steps=100)
+    rt = Runtime(attn_mode="chunked", remat=True, loss_chunk=12)
+    if model is None:
+        model = api.init(torch.Generator().manual_seed(0))
+    state = init_state(api, opt, model=model.to(device), device=device)
+    return cfg, api, rt, state, make_train_step(api, rt, opt, device=device)
+
+
+def test_train_step_on_card_equals_cpu(cuda):
+    """Reduced Llama in f32 (the chunked path: the f32 kernel forward,
+    the Function's backward, remat, a loss chunk of 12), from one shared
+    state after a CPU step: the loss's gradients on the card within 5e-5
+    of each leaf's own scale (its largest |value|) of the CPU's; AdamW's update of the CPU's
+    gradients on the card within 1e-6 of the CPU's; then a whole step on
+    each: the loss within 1e-5, the grad norm within rtol 1e-5 and every
+    param within 1e-2·lr of the CPU's (lr 3e-3).  cuBLAS and the CPU sum
+    the same products in other orders, and AdamW's m/sqrt(v) turns a
+    relative difference of a gradient element near 0 into the same
+    relative difference of its update, up to lr: measured 1.5e-3·lr on
+    an H100."""
+    import copy
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.configs.base import ShapeSpec
+    cfg, api, rt, cpu, cpu_step = _train_setup(torch.device("cpu"))
+    shape = ShapeSpec("t", "train", 32, 4)
+    cpu, _ = cpu_step(cpu, synth_batch(cfg, shape, 0))
+    card_model = copy.deepcopy(cpu.model)
+    _, _, _, card, card_step = _train_setup(cuda, card_model)
+
+    def state_on(dev, opt):
+        return {"mu": {n: {k: t.clone().to(dev) for k, t in st.items()}
+                       for n, st in opt["mu"].items()},
+                "count": opt["count"].clone().to(dev)}
+    card.opt = state_on(cuda, cpu.opt)
+    batch = synth_batch(cfg, shape, 1)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    grads = {}
+    for model, dev in ((cpu.model, "cpu"), (card.model, cuda)):
+        loss, _ = api.loss(model, {k: v.to(dev) for k, v in tb.items()}, rt)
+        names, ps = zip(*model.named_parameters())
+        grads[str(dev)] = dict(zip(names, torch.autograd.grad(loss, ps)))
+    want_g, got_g = grads["cpu"], grads[str(cuda)]
+    for n, w in want_g.items():
+        scale = float(w.abs().max())
+        assert float((got_g[n].cpu() - w).abs().max()) <= 5e-5 * scale, n
+    from repro_torch.train.optimizer import make_optimizer
+    opt = make_optimizer("adamw", peak_lr=3e-3, warmup=0, total_steps=100)
+    params = dict(cpu.model.named_parameters())
+    # copies of the parameters and the state, updated in place
+    want_p = {n: p.detach().clone() for n, p in params.items()}
+    want_n = opt.update_(want_g, state_on("cpu", cpu.opt), want_p)
+    got_p = {n: p.detach().to(cuda) for n, p in params.items()}
+    got_n = opt.update_({n: g.to(cuda) for n, g in want_g.items()},
+                        state_on(cuda, cpu.opt), got_p)
+    assert abs(got_n.item() - want_n.item()) <= 1e-6 * want_n.item()
+    for n, w in want_p.items():
+        assert float((got_p[n].cpu() - w).abs().max()) <= 1e-6, n
+    reset_launches()
+    card, m_card = card_step(card, batch)
+    # a chunked call a layer, again in remat's recompute
+    assert launches()["flash_fwd"] == 2 * cfg.n_layers
+    cpu, m_cpu = cpu_step(cpu, batch)
+    assert abs(m_card["loss"].item() - m_cpu["loss"].item()) <= 1e-5
+    assert abs(m_card["grad_norm"].item() - m_cpu["grad_norm"].item()) <= \
+        1e-5 * m_cpu["grad_norm"].item()
+    for (n, a), b in zip(card.model.named_parameters(),
+                         cpu.model.parameters()):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= \
+            1e-2 * 3e-3, n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,Sq,Sk", [(True, 2100, 2100),
+                                          (False, 300, 2100)])
+def test_flash_function_grads_on_card_equal_cpu(cuda, dtype, causal, Sq,
+                                                Sk):
+    """The flash-attention Function's gradients (GQA 8/2, head dim 64, the
+    JAX package's default blocks) on the card against its CPU run on the
+    same inputs: within 1e-5 of the CPU's largest |gradient| in f32, 1e-2
+    in bf16 (the kernel's output may part from the plain forward's by one
+    bf16 ulp, and each of p and ds is rounded to bf16)."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, dout = (torch.randn(2, S, h, 64, generator=gen).to(dtype)
+                     for S, h in ((Sq, 8), (Sk, 2), (Sk, 2), (Sq, 8)))
+
+    def grads(dev):
+        x = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = L.chunked_attention(*x, causal=causal, window=None)
+        return torch.autograd.grad(out, x, dout.to(dev))
+    want = grads("cpu")
+    reset_launches()
+    got = grads(cuda)
+    assert launches()["flash_fwd"] == 1
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        err = float((g.cpu().float() - w.float()).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-370m",
+                                  "zamba2-1.2b", "whisper-base"])
+def test_train_loss_backward_reads_nothing_back_on_card(cuda, arch):
+    """The loss and its backward of the families written for serving (the
+    MoE dispatch's index writes, the SSD scan's chunk loop, the encoder)
+    only enqueue work: ``set_sync_debug_mode("error")`` raises on an op
+    that waits for the card."""
+    from repro_torch.models import get_model
+    from repro_torch.models.runtime import Runtime
+    cfg = get_config(arch).reduced()
+    api = get_model(cfg)
+    model = api.init(torch.Generator(device=cuda).manual_seed(0))
+    model.requires_grad_(True)
+    toks = torch.randint(1, cfg.vocab_size, (2, 33), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(2, 64, cfg.frontend_dim, device=cuda)
+    rt = Runtime(attn_mode="chunked", remat=True, loss_chunk=12)
+    api.loss(model, batch, rt)[0].backward()              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = api.loss(model, batch, rt)
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(p.grad is None or bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
 
 
 def test_explore_on_card_equals_cpu(cuda):

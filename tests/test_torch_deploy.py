@@ -29,6 +29,7 @@ from repro_torch.core import resilience as tres
 from repro_torch.core.multinet import joint_evaluate, joint_search
 
 from torch_golden import DESIGN_FIELDS, GOLDEN_MULTINET, MULTINET_DEPLOY
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-5
 NETS, BOARD = ("resnet50", "mobilenetv2"), "zc706"
@@ -44,17 +45,6 @@ HYBRID3 = (("resnet50", "mobilenetv2", "densenet121"),
                 weights=(1.0, 2.0, 1.0)))
 EXACT = ("pes_split", "buf_split", "assign")
 
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The loop interleaves host numpy with small tensor ops: one torch
-    thread per test (results do not depend on the count)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _deploy(ses, get, names, arm, extra, budget=BUDGET, pop=POP, cfg=None):

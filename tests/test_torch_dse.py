@@ -39,6 +39,7 @@ from repro_torch.core.dse import search as tsearch_fn
 
 from torch_golden import DESIGN_FIELDS, DSE_RUNS, GOLDEN_DSE, \
     compute_golden_dse
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # the packages re-export `search` and `pareto` FUNCTIONS over the
 # submodule names
@@ -51,18 +52,6 @@ NET, BOARD = "mobilenetv2", "zc706"
 OBJ = ("latency_s", "buffer_bytes")
 RTOL = 1e-5
 
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The search loop interleaves host numpy with small tensor ops: with
-    other test processes busy, torch's spinning intra-op threads starve
-    it.  One thread per test here; results do not depend on the count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _assert_designs(got, want, label: str) -> None:

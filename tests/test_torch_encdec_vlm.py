@@ -35,7 +35,7 @@ from torch_golden import jax_greedy
 from torch_lm_cases import (F32_ATOL, close, close_tree, counted_flash,
                             every_leaf_carried, golden_is_current, pair,
                             port_meets_golden, tokens)
-from torch_lm_cases import one_torch_thread  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 WHISPER = ("whisper-base", "float32", (("max_abs_positions", 2560),))
 VLM = "internvl2-2b"

@@ -30,6 +30,7 @@ from repro_torch.core import telemetry as tel
 
 from torch_golden import DESIGN_FIELDS, GOLDEN_ISLANDS, ISLAND_CNN, \
     ISLAND_RUNS, compute_golden_islands
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # the packages re-export the `search` FUNCTION over the submodule name
 jsearch = importlib.import_module("repro.core.dse.search")
@@ -48,18 +49,6 @@ CFG_SCALAR = dict(n_islands=2, pop_size=16, budget=97, mode="scalarized",
 CFG_KILL = dict(n_islands=2, pop_size=16, budget=160, seed=3,
                 migration_interval=2, migration_elites=4)
 
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The loop interleaves host numpy with small tensor ops: one torch
-    thread, so busy neighbour processes do not starve it.  Results do not
-    depend on the count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _port(**kw):

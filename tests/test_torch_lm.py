@@ -43,7 +43,7 @@ from repro_torch.serve.engine import ServeEngine
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_golden import GOLDEN_LM, compute_golden_lm  # noqa: E402
-from torch_lm_cases import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 ARCHS = ("llama3.2-1b", "qwen1.5-0.5b", "h2o-danube-1.8b")
 F32_ATOL = 1e-5
@@ -252,20 +252,30 @@ def test_port_walk_reaches_the_lm_subpackages():
 
 
 def test_unported_parts_raise():
-    """What still raises: the sharded runtime and the expert-parallel MoE
-    dispatches (ROADMAP.md queue 1, item 11).  Every family serves
-    (tests/test_torch_moe.py, test_torch_ssm.py, test_torch_encdec_vlm.py)."""
+    """What still raises: the sharded runtime, the expert-parallel MoE
+    dispatches and the train launcher's data- and tensor-parallel and
+    compressed modes (ROADMAP.md queue 1, item 11).  Every family serves
+    (tests/test_torch_moe.py, test_torch_ssm.py, test_torch_encdec_vlm.py)
+    and trains (tests/test_torch_train.py, test_torch_train_models.py)."""
+    from repro_torch.launch import train as launch_train
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Runtime(mesh=object())
     for impl in ("ep", "ep_a2a"):
         with pytest.raises(NotImplementedError, match="item 11"):
             Runtime(moe_impl=impl)
+    for flags in (["--dp", "2"], ["--tp", "2"], ["--compress"]):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            launch_train.main(["--reduced", "--device", "cpu", *flags])
     with pytest.raises(ValueError, match="attn_mode"):
         Runtime(attn_mode="flash")
     with pytest.raises(ValueError, match="moe_impl"):
         Runtime(moe_impl="dense")
     with pytest.raises(ValueError, match="ssd_chunk"):
         Runtime(ssd_chunk=0)
+    with pytest.raises(ValueError, match="remat_group"):
+        Runtime(remat_group=0)
+    with pytest.raises(ValueError, match="loss_chunk"):
+        Runtime(loss_chunk=-1)
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)

@@ -30,7 +30,7 @@ from repro_torch.serve.engine import ServeEngine
 from torch_lm_cases import (F32_ATOL, close, close_scaled, close_tree,
                             every_leaf_carried, golden_is_current, pair,
                             port_meets_golden, tokens)
-from torch_lm_cases import one_torch_thread  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
 

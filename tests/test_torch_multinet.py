@@ -37,6 +37,8 @@ from hypo_fallback import given, settings, st
 from torch_golden import (DESIGN_FIELDS, GOLDEN_MULTINET, MULTINET_EVAL,
                           compute_golden_multinet, multinet_inputs,
                           multinet_mode_kw)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 RTOL = 1e-5
 MAX_M = tmn.DEFAULT_MAX_M

@@ -58,6 +58,8 @@ from repro_torch.schedule import build_artifact, device_plane, schedule_specs
 from torch_golden import (GOLDEN_SCHEDULE, SCHEDULE_LAYER_FIELDS,
                           TEMPLATE_NS, compute_golden_schedule,
                           schedule_groups)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 BOARD = "zc706"
 SPEC = "{L1-Last:CE1-CE4}"

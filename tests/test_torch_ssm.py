@@ -32,7 +32,7 @@ from torch_lm_cases import (BF16_ATOL, F32_ATOL, close, close_scaled,
                             close_tree, every_leaf_carried,
                             golden_is_current, pair, port_meets_golden,
                             tokens)
-from torch_lm_cases import one_torch_thread  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ("mamba2-370m", "zamba2-1.2b")
 

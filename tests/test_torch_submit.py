@@ -26,6 +26,7 @@ from unittest import mock
 
 import numpy as np
 import pytest
+import torch
 from hypo_fallback import given, settings, st
 
 import repro.api as japi
@@ -47,6 +48,8 @@ from repro_torch.core.notation import parse
 from repro_torch.fpga.archs import ARCH_NAMES, make_arch
 from repro_torch.fpga.boards import get_board
 from test_torch_telemetry import _names, both_enabled  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 NET, BOARD = "mobilenetv2", "zc706"
 TIMEOUT = 120

@@ -9,7 +9,9 @@ dense),
 ``src/repro_torch/data/golden_dse.npz`` (the DSE path),
 ``src/repro_torch/data/golden_schedule.npz`` (the schedule layer),
 ``src/repro_torch/data/golden_multinet.npz`` (multinet co-scheduling) and
-``src/repro_torch/data/golden_islands.npz`` (the island search).
+``src/repro_torch/data/golden_islands.npz`` (the island search) and
+``src/repro_torch/data/golden_train.npz`` (the training losses and
+gradients).
 Regenerate them after a change to the JAX package's model with::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py
@@ -18,8 +20,8 @@ Regenerate them after a change to the JAX package's model with::
 ``tests/test_torch_dse.py``, ``tests/test_torch_schedule.py``,
 ``tests/test_torch_multinet.py``, ``tests/test_torch_islands.py``,
 ``tests/test_torch_moe.py``, ``tests/test_torch_ssm.py`` and
-``tests/test_torch_encdec_vlm.py`` check that the committed files still
-equal what this computes.
+``tests/test_torch_encdec_vlm.py`` and ``tests/test_torch_train_models.py``
+check that the committed files still equal what this computes.
 
 Contents: for every CNN x board, the 12 baseline templates (3 archs x
 n in {2, 5, 9, 11}) under ``tmpl/<cnn>/<board>/<metric>``, and 256
@@ -91,6 +93,18 @@ run under ``<run>/``: every evaluated design in evaluation order, its
 oriented ``points``, every metric (``metric/<name>``), the merged
 ``front`` indices, each island's front (``island/<i>``) and the
 ``history`` as JSON.
+
+``golden_train.npz``: per arch of ``TRAIN_ARCHS`` (the reduced f32
+Llama, Granite MoE, Mamba2, Zamba2, Whisper and InternVL2), under
+``<arch>/``: ``params_file`` and ``params_prefix``, where the params of
+``init(jax.random.key(0))`` already stand (``golden_lm.npz`` or
+``golden_lm_families.npz``, not stored twice), the config's
+``overrides`` (JSON, as there), the ``runtime`` of the loss (JSON: the
+Llama, Zamba2, Whisper and InternVL2 cases take the chunked attention
+path), the ``synth_batch`` of step 0 at ``TRAIN_SHAPE`` (``batch/<k>``),
+and ``jax.value_and_grad(api.loss)``'s ``loss``, its metrics
+(``nll``, ``aux``) and every gradient leaf in the JAX layout
+(``grads/<path>``, per-layer leaves stacked).
 """
 from __future__ import annotations
 
@@ -543,6 +557,74 @@ def compute_golden_islands() -> dict[str, np.ndarray]:
     return out
 
 
+GOLDEN_TRAIN = os.path.join(DATA, "golden_train.npz")
+#: the training golden runs: per arch, the golden file and key prefix of
+#: its params, its overrides (those of that file) and the runtime's
+#: attention path
+TRAIN_ARCHS = {
+    "llama3.2-1b": ("golden_lm.npz", "params/", {}, "chunked"),
+    "granite-moe-1b-a400m": ("golden_lm_families.npz",
+                             "granite-moe-1b-a400m/params/", {}, "auto"),
+    "mamba2-370m": ("golden_lm_families.npz", "mamba2-370m/params/", {},
+                    "auto"),
+    "zamba2-1.2b": ("golden_lm_families.npz", "zamba2-1.2b/params/", {},
+                    "chunked"),
+    "whisper-base": ("golden_lm_families.npz", "whisper-base/params/",
+                     FAMILY_ARCHS["whisper-base"], "chunked"),
+    "internvl2-2b": ("golden_lm_families.npz", "internvl2-2b/params/", {},
+                     "chunked"),
+}
+#: (seq_len, batch) of the training golden batches: Whisper's 64 frames
+#: (8 decoder tokens); InternVL2's 4 patches and 28 text tokens
+TRAIN_SHAPE = {"whisper-base": (64, 2)}
+TRAIN_SHAPE_DEFAULT = (32, 2)
+
+
+def train_case(get_config, arch: str):
+    """(config, ShapeSpec, runtime fields) of an arch's training golden
+    run, from either package's ``get_config``."""
+    from repro.configs.base import ShapeSpec
+    _, _, overrides, attn = TRAIN_ARCHS[arch]
+    S, B = TRAIN_SHAPE.get(arch, TRAIN_SHAPE_DEFAULT)
+    return (family_cfg(get_config, arch, overrides),
+            ShapeSpec("golden_train", "train", S, B), {"attn_mode": attn})
+
+
+def compute_golden_train() -> dict[str, np.ndarray]:
+    """The JAX package's training losses and gradients (see the module
+    docstring)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.data.pipeline import synth_batch
+    from repro.models.registry import get_model
+    from repro.models.runtime import Runtime
+    from repro_torch.models.convert import flatten
+
+    out = {}
+    for arch, (pfile, prefix, overrides, _) in TRAIN_ARCHS.items():
+        cfg, shape, rt_kw = train_case(get_config, arch)
+        api = get_model(cfg)
+        params = api.init(jax.random.key(0))
+        batch = synth_batch(cfg, shape, 0)
+        rt = Runtime(**rt_kw)
+        (loss, metrics), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: api.loss(p, b, rt), has_aux=True))(
+                params, {k: jnp.asarray(v) for k, v in batch.items()})
+        pre = f"{arch}/"
+        out.update({pre + "params_file": np.array(pfile),
+                    pre + "params_prefix": np.array(prefix),
+                    pre + "overrides": np.array(json.dumps(overrides)),
+                    pre + "runtime": np.array(json.dumps(rt_kw)),
+                    pre + "loss": np.asarray(loss, np.float32),
+                    pre + "nll": np.asarray(metrics["nll"], np.float32),
+                    pre + "aux": np.asarray(metrics["aux"], np.float32)})
+        out.update({f"{pre}batch/{k}": v for k, v in batch.items()})
+        out.update(flatten(jax.tree.map(np.asarray, grads),
+                           pre + "grads/"))
+    return out
+
+
 if __name__ == "__main__":
     os.makedirs(DATA, exist_ok=True)
     np.savez_compressed(GOLDEN, **compute_golden())
@@ -566,3 +648,5 @@ if __name__ == "__main__":
     np.savez_compressed(GOLDEN_ISLANDS, **compute_golden_islands())
     print(f"wrote {GOLDEN_ISLANDS} "
           f"({os.path.getsize(GOLDEN_ISLANDS)} bytes)")
+    np.savez_compressed(GOLDEN_TRAIN, **compute_golden_train())
+    print(f"wrote {GOLDEN_TRAIN} ({os.path.getsize(GOLDEN_TRAIN)} bytes)")

@@ -45,20 +45,6 @@ BF16_ATOL = 5e-2
 _CHIP_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch intra-op thread a test (a module imports this to use it),
-    as ``tests/test_torch_dse.py``: the reduced models' ops are tiny, and
-    with other test processes busy, torch's spinning intra-op threads
-    starve them (six concurrent runs of ``port_meets_golden`` on an
-    8-core host: 205 s at 8 threads a process, 15 s at 1)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
 
 @functools.lru_cache(maxsize=None)
 def chip_smoke():
