@@ -218,6 +218,23 @@ Phases, each printing one JSON line:
    plain dense attention in f32, its forward+backward ms beside the dense
    reference's and ``scaled_dot_product_attention``'s (timed only; the
    port never calls it).
+18. the step model (``repro_torch.gpu``, ``repro_torch.roofline``): (a)
+   ``H100``'s SMs, shared memory a block and HBM capacity equal what the
+   card reports; (b) Llama-3.2-1B in bf16, random weights from ``--seed``,
+   at B 4: a ``train_4k`` step at S 4096 (phase 17 (a)'s plan), a prefill
+   of 4 prompts of 4096 and one decode step over a cache of 4096, each
+   timed, then walked once by ``OpWalk`` (FLOPs by dtype, bytes,
+   transcendentals, the census, the hand kernels' charges: 32 a train
+   step and 16 a prefill, each equal to ``flash_fwd``'s launches in the
+   walk), beside ``estimate`` of the cut cell, Eq. 10's accuracy of its
+   FLOPs and bytes, the bound of the walk's FLOPs at each dtype's rate,
+   peak memory and the record's roofline (written to
+   ``chiprun_out/roofline/``); (c) the walk of a reduced Llama train step
+   in f32 (chunked attention, remat) equal on the CPU and the card:
+   FLOPs, bytes, transcendentals, census, charges; (d) the 15 one-device
+   plans of the train cell ranked, and one timed step of the first- and
+   the last-ranked plan that fit: the model's order against the card's
+   (a finding); the phase within 60 s.
 
 Then the ``kernels`` line (one entry per kernel source: ``flash_fwd``'s
 bf16 source with its launches in phase 9 and its largest error over
@@ -241,18 +258,17 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
-#: its SMs, and one SM's FP32 lanes at the 1.98 GHz boost clock
-SMS = 132
+#: the card's figures: H100 SXM peaks (NVIDIA data sheet, at the 700 W
+#: limit), its SMs, shared memory and HBM (read on the card, phase 18 (a))
+from repro_torch.gpu.chip import H100  # noqa: E402
+
+#: one SM's FP32 lanes at the 1.98 GHz boost clock
 SM_F32_ISSUES_PER_S = 128 * 1.98e9
 #: f32 operations a second where a multiply and an add are issued apart,
 #: one operation an issue: half the FMA rate.  conv_ce's own contract (no
 #: FMA, to equal its plain version bit for bit) holds it to this rate; its
-#: bound_ms is at F32_OPS_PER_S, the card's rate for the function
-F32_NO_FMA_OPS_PER_S = SMS * SM_F32_ISSUES_PER_S
+#: bound_ms is at H100.peak_flops_f32, the card's rate for the function
+F32_NO_FMA_OPS_PER_S = H100.sms * SM_F32_ISSUES_PER_S
 
 KERNELS = {
     "parallelism_search": dict(
@@ -438,6 +454,22 @@ TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL = 1e-5, 5e-5
 FN_B, FN_S, FN_H, FN_HKV, FN_D = 1, 4096, 32, 8, 64
 FN_TOL = {"float32": 2e-5, "bfloat16": 1.5e-2}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+#: phase 18: Llama-3.2-1B in bf16 at B 4: a ``train_4k`` step at S 4096
+#: (phase 17 (a)'s), a prefill of 4 prompts of 4096 (``prefill_32k``'s
+#: length cut to 4096) and one decode step over a cache of 4096
+#: (``decode_32k``'s cut likewise); timed steps of each before its walk
+STEP_CELLS = (("train", "train_4k"), ("prefill", "prefill_32k"),
+              ("decode", "decode_32k"))
+STEP_B, STEP_S, STEP_TIMED = 4, 4096, 2
+#: the hand count of that train step's FLOPs (PERF.md §6: the layers'
+#: bf16 GEMMs 1.28e14, the f32 unembedding 3.44e13, the flash backward's
+#: f32 GEMMs 1.48e13), and the least share of it a walk should count
+#: (the phase reports the share; a shortfall is explained op by op)
+TRAIN_HAND_FLOPS, WALK_HAND_SHARE = 1.28e14 + 3.44e13 + 1.48e13, 0.9
+#: the phase's time limit, seconds
+STEP_MODEL_S = 60.0
+#: phase 18 (d): plans tried from each end of the ranking until one runs
+AUTOPLAN_TRIES = 3
 
 
 class PhaseFailed(RuntimeError):
@@ -713,38 +745,6 @@ def phase_main_vs_golden(card: str, device) -> dict:
 # --------------------------------------------------------------------------
 # phase 4
 # --------------------------------------------------------------------------
-def _search_ops(args) -> dict:
-    """The f32 operations the search needs on these inputs (``ops``), and
-    the count of PRs 11-16 (``ops_5``) for comparison with them.
-
-    A multiply and an add for each (design, mapped layer, feasible pair of
-    the layer's CE): an infeasible pair costs inf whatever its sum.  fc·coh
-    (one multiply a live layer and pair) and ceil(OW/cand) (a division and
-    a ceil a live layer and candidate) are tables every design shares; a
-    live layer is one a design of the batch maps.  For each (design, CE
-    that owns a layer, pair), the quotient pes/(pf·ph), and for each
-    feasible one its floor and the argmin's compare.  A CE that owns no
-    layer takes its first feasible pair: at most one quotient, not
-    counted.  ``ops_5`` is 5 operations a pair for each mapped (design,
-    layer), as PRs 11-16 counted.
-    """
-    import torch
-    pes, ce, fc, _, _, cand, prod = args[:7]
-    P, K = fc.shape[1], cand.numel()
-    mapped = ce >= 0
-    owned = torch.zeros_like(pes).scatter_add_(
-        1, ce.clamp_min(0).long(), mapped.to(pes.dtype))       # (B, NC)
-    feasible = (pes[:, :, None] / prod[None, None, :] >= 1).sum(-1)
-    walked = owned > 0
-    live = int(mapped.any(0).sum())
-    walk = 2 * int((owned * feasible).sum())
-    per_ce = P * int(walked.sum()) + 2 * int((feasible * walked).sum())
-    tables = live * P + 2 * live * K
-    return dict(live_layers=int(mapped.sum()), live_rows=live,
-                ops_walk=walk, ops_per_ce=per_ce, ops_tables=tables,
-                ops=walk + per_ce + tables, ops_5=5 * P * int(mapped.sum()))
-
-
 def phase_load(card: str, device, seed: int, n_designs: int) -> dict:
     import numpy as np
     import torch
@@ -788,19 +788,23 @@ def phase_load(card: str, device, seed: int, n_designs: int) -> dict:
     plain_ms = cuda_ms(lambda: parallelism_search_ref(*args), 3)
     pes, ce_idx, fc = args[:3]
     B, L, P = ce_idx.shape[0], fc.shape[0], fc.shape[1]
-    in_bytes = 4 * sum(a.numel() for a in args)
-    out_bytes = 4 * 4 * B * 16
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops = _search_ops(args)
-    ops_ms = ops["ops"] / F32_OPS_PER_S * 1e3
+    # the search's operations on this chunk's data and its bytes
+    # (mccm_ops.search_cost, which a walk charges too)
+    cost = mccm_ops.search_cost(*args)
+    ops = {k: cost[k] for k in ("live_layers", "live_rows", "ops_walk",
+                                "ops_per_ce", "ops_tables")}
+    ops.update(ops=cost["flops"], ops_5=cost["ops_5"])
+    bytes_ms = cost["bytes"] / H100.hbm_bytes_per_s * 1e3
+    ops_ms = ops["ops"] / H100.peak_flops_f32 * 1e3
     kernel = dict(
         **KERNELS["parallelism_search"], chunk_designs=B, layers_padded=L,
-        pairs=P, bytes=in_bytes + out_bytes, **ops,
+        pairs=P, bytes=cost["bytes"], **ops,
         ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         contract_bound_ms=max(bytes_ms,
                               ops["ops"] / F32_NO_FMA_OPS_PER_S * 1e3),
-        bound_5op_ms=max(bytes_ms, ops["ops_5"] / F32_OPS_PER_S * 1e3),
+        bound_5op_ms=max(bytes_ms,
+                         ops["ops_5"] / H100.peak_flops_f32 * 1e3),
         library_ms=None, launches=n_launch, plan=plan.as_dict(),
         ptxas=[e for e in ptxas_entries(mccm_ops.library(
             "parallelism_search")) if f"ILi{plan.npl}E" in e["entry"]])
@@ -1000,12 +1004,13 @@ def _latency_bound(B: int, L: int) -> tuple[float, str, int, int]:
     """The latency function's bound at B designs of L layers: its bytes
     (dims and par read once, totals and cycles written once) at the card's
     memory rate against its operations (3 divisions, 3 ceils, 3 products,
-    1 add an element) at its f32 rate; bound ms, what sets it, bytes,
-    operations."""
-    nbytes = 4 * (4 * L + 3 * B * L + B + B * L)
-    ops = 10 * B * L        # 3 divisions, 3 ceils, 3 products, 1 add
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    1 add an element) at its f32 rate, as ``mccm_eval.ops.latency_cost``
+    counts them; bound ms, what sets it, bytes, operations."""
+    from repro_torch.kernels.mccm_eval.ops import latency_cost
+    cost = latency_cost(B, L)
+    nbytes, ops = cost["bytes"], cost["flops"]
+    bytes_ms = nbytes / H100.hbm_bytes_per_s * 1e3
+    ops_ms = ops / H100.peak_flops_f32 * 1e3
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
 
@@ -1195,7 +1200,7 @@ def phase_conv(card: str, device, seed: int) -> dict:
             if blocks * ckk != layer_cycles(l, ce):
                 raise PhaseFailed(f"{a}/{l.name}: grid x C*KH*KW is not "
                                   f"Eq. 1")
-            floor += -(-blocks // SMS) * par[0] * par[1] * par[2] * ckk \
+            floor += -(-blocks // H100.sms) * par[0] * par[1] * par[2] * ckk \
                 * 2 / SM_F32_ISSUES_PER_S * 1e3
         grid_floor_ms[a] = floor
 
@@ -1277,13 +1282,15 @@ def phase_conv(card: str, device, seed: int) -> dict:
     x, w = data[big]
     plain_big_ms = cuda_ms(lambda: conv_ref(x, w, net[big].stride), 1)
     # bound: 2 operations a MAC at the card's f32 rate; each padded input,
-    # weight and output once.  The contract's bound: the same operations
-    # at the no-FMA rate the kernel is held to
-    flops = 2 * sum(l.macs for l in net)
-    nbytes = 4 * sum(x.numel() + w.numel() + l.out_ch * l.oh * l.ow
-                     for l, (x, w) in zip(net, data))
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_OPS_PER_S * 1e3
+    # weight and output once (conv_ops.cost, which a walk charges too).
+    # The contract's bound: the same operations at the no-FMA rate the
+    # kernel is held to
+    costs = [conv_ops.cost(*x.shape, *w.shape[:1], *w.shape[2:], l.stride,
+                           x.dtype) for l, (x, w) in zip(net, data)]
+    flops = sum(c["flops"] for c in costs)
+    nbytes = sum(c["bytes"] for c in costs)
+    bytes_ms = nbytes / H100.hbm_bytes_per_s * 1e3
+    ops_ms = flops / H100.peak_flops_f32 * 1e3
     contract_bound_ms = max(bytes_ms, flops / F32_NO_FMA_OPS_PER_S * 1e3)
     kernel = dict(
         **KERNELS["conv_ce"], layers=len(net), designs=list(designs),
@@ -1316,18 +1323,15 @@ def _attn_cost(B: int, Sq: int, Sk: int, H: int, Hkv: int, D: int,
     """The least the card needs for one attention call: 4·D operations for
     each (query, key) pair the masks let through (2·D for q·k, 2·D for
     p·v), at the tensor-core rate in bf16 and the f32 rate in f32; q, k, v
-    read once and the output written once."""
+    read once and the output written once (``flash_attn.ops.cost``, which
+    a walk charges too)."""
     import torch
-    from repro_torch.kernels.flash_attn.ref import attention_mask
-    mask = attention_mask(torch.arange(Sq) + q_offset, torch.arange(Sk), Sk,
-                          causal, window)
-    pairs = int(mask.sum()) * B * H
-    elt = 2 if dtype == torch.bfloat16 else 4
-    nbytes = elt * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D)
-    ops = 4 * D * pairs
-    ops_ms = ops / (BF16_OPS_PER_S if dtype == torch.bfloat16
-                    else F32_OPS_PER_S) * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    from repro_torch.kernels.flash_attn.ops import cost
+    c = cost(B, Sq, Sk, H, Hkv, D, causal, window, dtype, q_offset)
+    pairs, ops, nbytes = c["pairs"], c["flops"], c["bytes"]
+    ops_ms = ops / (H100.peak_flops_bf16 if dtype == torch.bfloat16
+                    else H100.peak_flops_f32) * 1e3
+    bytes_ms = nbytes / H100.hbm_bytes_per_s * 1e3
     return dict(pairs=pairs, ops=ops, bytes=nbytes,
                 bound_ms=max(ops_ms, bytes_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
@@ -4472,6 +4476,332 @@ def phase_train(card: str, device, seed: int) -> dict:
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 18
+# --------------------------------------------------------------------------
+def _spec_vs_card(device) -> dict:
+    """Phase 18 (a): ``H100``'s SMs, shared memory a block and HBM
+    capacity against what the card reports."""
+    import torch
+    props = torch.cuda.get_device_properties(device)
+    card = dict(sms=props.multi_processor_count,
+                smem_bytes_per_block=props.shared_memory_per_block_optin,
+                hbm_capacity=props.total_memory)
+    off = {k: (v, getattr(H100, k)) for k, v in card.items()
+           if v != getattr(H100, k)}
+    if off:
+        raise PhaseFailed(f"H100 differs from the card (card, spec): {off}")
+    return card
+
+
+def _walked(fn, device) -> dict:
+    """One call of ``fn`` under an ``OpWalk``; its counts, the census's top
+    10, the hand kernels' charges (and ``flash_fwd``'s launches in the
+    walk) and the 10 ops with the most FLOPs and the most bytes."""
+    import torch
+    from repro_torch.gpu.op_stats import fusion_count, op_census
+    from repro_torch.gpu.op_walk import OpWalk
+    from repro_torch.kernels import launches, reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with OpWalk() as walk:
+        fn()
+    torch.cuda.synchronize()
+    c = walk.costs()
+    return dict(walk=walk, walk_s=time.perf_counter() - t0,
+                flash_launches=launches()["flash_fwd"], flops=c.flops,
+                flops_by_dtype=c.flops_by_dtype, bytes=c.bytes_accessed,
+                transcendentals=c.transcendentals,
+                census_top10=op_census(walk, 10), charges=c.charges,
+                fusion_count=fusion_count(walk),
+                flops_by_op_top10=sorted(c.flops_by_op.items(),
+                                         key=lambda kv: -kv[1])[:10],
+                bytes_by_op_top10=sorted(c.bytes_by_op.items(),
+                                         key=lambda kv: -kv[1])[:10])
+
+
+def _timed(fn, reps: int) -> list[float]:
+    """Host seconds of each of ``reps`` calls of ``fn``, each ending in a
+    synchronize, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _step_cell(kind, shape_name, fn, cfg, plan, device, resident) -> dict:
+    """Phase 18 (b) for one cell: timed steps, one walk, the estimate of
+    the cut cell, Eq. 10's accuracies, the bounds, peak memory and the
+    roofline of the record written to chiprun_out/roofline/."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.gpu.cost_model import estimate
+    from repro_torch.roofline.analysis import (ART_DIR, analyze_cell,
+                                               cell_record, dtype_bound_s)
+    cut = dict(seq_len=STEP_S, global_batch=STEP_B)
+    shape = dataclasses.replace(SHAPES[shape_name], **cut)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    steps = _timed(fn, STEP_TIMED)
+    peak = torch.cuda.max_memory_allocated(device)
+    w = _walked(fn, device)
+    est = estimate(cfg, shape, plan)
+
+    def acc(oracle, model):
+        # Eq. 10, as benchmarks/tpu_model_accuracy.py computes it
+        return 100.0 * (1.0 - abs(oracle - model) / oracle)
+    cell = f"{cfg.name}__{shape_name}__1xH100"
+    rec = cell_record(cell, cfg.name, shape_name, kind,
+                      w.pop("walk").costs(),
+                      {"argument_size_in_bytes": resident,
+                       "temp_size_in_bytes": peak - resident,
+                       "peak_memory_in_bytes": peak},
+                      plan=dataclasses.asdict(plan), shape_cut=cut)
+    os.makedirs(ART_DIR, exist_ok=True)
+    with open(os.path.join(ART_DIR, cell + ".json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    roof = analyze_cell(rec)
+    med = statistics.median(steps)
+    return dict(
+        cell=cell, batch=STEP_B, seq=STEP_S, steps_s=steps, step_s=med,
+        **w,
+        estimate=dict(flops=est.flops, useful_flops=est.useful_flops,
+                      hbm_bytes=est.hbm_bytes, compute_s=est.compute_s,
+                      memory_s=est.memory_s, dominant=est.dominant(),
+                      fits=est.fits,
+                      hbm_capacity_bytes=est.hbm_capacity_bytes,
+                      mxu_utilization=est.mxu_utilization),
+        eq10_accuracy=dict(flops=acc(w["flops"], est.useful_flops),
+                           hbm=acc(w["bytes"], est.hbm_bytes)),
+        dtype_bound_s=dtype_bound_s(w["flops_by_dtype"]),
+        dtype_bound_over_step=dtype_bound_s(w["flops_by_dtype"]) / med,
+        max_memory_allocated=peak, resident_bytes=resident,
+        roofline=dict(compute_s=roof.compute_s, memory_s=roof.memory_s,
+                      collective_s=roof.collective_s,
+                      dominant=roof.dominant, model_flops=roof.model_flops,
+                      useful_ratio=roof.useful_ratio,
+                      peak_fraction=roof.peak_fraction,
+                      recommendation=roof.recommendation))
+
+
+def _step_cells(device, seed: int):
+    """Phase 18 (b): the three Llama-3.2-1B cells; returns them, and what
+    (d) reuses: the config, the train state, the optimizer and a batch."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import synth_batch, to_device
+    from repro_torch.launch.plans import default_plan
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    api = get_model(cfg)
+    plans = {name: default_plan(cfg, SHAPES[name])
+             for _, name in STEP_CELLS}
+    tplan = plans["train_4k"]
+    opt = make_optimizer("adamw", peak_lr=3e-3, warmup=20, total_steps=100,
+                         state_dtype=tplan.opt_state_dtype,
+                         factored=tplan.opt_factored,
+                         momentum=tplan.opt_momentum)
+    state = init_state(api, opt, torch.Generator(device=device).manual_seed(
+        seed), device=device)
+    step = make_train_step(api, tplan.runtime(), opt, device=device)
+    batch = to_device(synth_batch(cfg, ShapeSpec("train_4k_cut", "train",
+                                                 STEP_S, STEP_B), 0,
+                                  seed=seed), device)
+    tokens = batch["tokens"]
+    box = {"state": state}
+
+    def train():
+        box["state"], _ = step(box["state"], batch)
+
+    prt = plans["prefill_32k"].runtime()
+    with torch.no_grad():
+        _, cache = api.prefill(box["state"].model, tokens, prt,
+                               max_len=STEP_S + 1)
+    drt = plans["decode_32k"].runtime()
+    nxt = tokens[:, -1:]
+
+    def prefill():
+        api.prefill(box["state"].model, tokens, prt, max_len=STEP_S + 1)
+
+    def decode():
+        # the step writes position STEP_S of the cache in place; each
+        # call starts from a cache of STEP_S positions
+        api.decode_step(box["state"].model, dict(cache, len=STEP_S), nxt,
+                        drt)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(device)
+    cells = {}
+    for (kind, name), fn in zip(STEP_CELLS, (train, prefill, decode)):
+        cells[kind] = _step_cell(kind, name, fn, cfg, plans[name], device,
+                                 resident)
+    del cache
+    return cells, (cfg, api, opt, box, batch)
+
+
+def _walk_reduced_step(device, seed: int) -> dict:
+    """Phase 18 (c) on one device: the walk of a reduced Llama train step
+    in f32 (the chunked path, remat, a loss chunk of 12) from seeded
+    weights, the batch already on the device."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import synth_batch, to_device
+    from repro_torch.gpu.op_walk import OpWalk
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import init_state, make_train_step
+    cfg = get_config(TRAIN_ARCH).reduced().replace(dtype="float32")
+    api = get_model(cfg)
+    opt = make_optimizer("adamw", peak_lr=3e-3, warmup=0, total_steps=100)
+    rt = Runtime(attn_mode="chunked", remat=True, loss_chunk=12)
+    model = api.init(torch.Generator().manual_seed(seed)).to(device)
+    state = init_state(api, opt, model=model, device=device)
+    step = make_train_step(api, rt, opt, device=device)
+    batch = to_device(synth_batch(cfg, ShapeSpec("t", "train", 32, 4), 0,
+                                  seed=seed), device)
+    with OpWalk() as walk:
+        step(state, batch)
+    c = walk.costs()
+    return dict(flops=c.flops, bytes=c.bytes_accessed,
+                transcendentals=c.transcendentals, census=c.census,
+                charges=c.charges)
+
+
+def _autoplan_check(device, reuse) -> dict:
+    """Phase 18 (d): the 15 one-device plans of the train cell ranked by
+    the model; one timed step, after a warm-up, of the first- and the
+    last-ranked plan that fit.  A finding, not a gate: a plan the card
+    cannot hold is reported, and the next-ranked plan that fits is tried
+    in its place, up to ``AUTOPLAN_TRIES`` plans from each end."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.gpu.autoplan import rank
+    from repro_torch.train.train_step import make_train_step
+    cfg, api, opt, box, batch = reuse
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=STEP_S,
+                                global_batch=STEP_B)
+    ranked = rank(cfg, shape)
+    fit = [r for r in ranked if r.est.fits]
+
+    def run(r) -> dict:
+        step = make_train_step(api, r.plan.runtime(), opt, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        out = dict(plan=r.plan.name, remat=r.plan.remat,
+                   remat_group=r.plan.remat_group,
+                   loss_chunk=r.plan.loss_chunk, est_step_s=r.step_s,
+                   est_hbm_capacity_bytes=r.est.hbm_capacity_bytes)
+        try:
+            box["state"], _ = step(box["state"], batch)          # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            box["state"], _ = step(box["state"], batch)
+            torch.cuda.synchronize()
+            out.update(step_s=time.perf_counter() - t0,
+                       max_memory_allocated=torch.cuda.max_memory_allocated(
+                           device))
+        except torch.cuda.OutOfMemoryError as e:
+            out.update(step_s=None, out_of_memory=str(e).splitlines()[0])
+        del step
+        torch.cuda.empty_cache()
+        return out
+
+    def first_that_runs(order) -> list[dict]:
+        tried = []
+        for r in order[:AUTOPLAN_TRIES]:
+            tried.append(run(r))
+            if tried[-1]["step_s"] is not None:
+                break
+        return tried
+    first, last = first_that_runs(fit), first_that_runs(fit[::-1])
+    a, b = first[-1]["step_s"], last[-1]["step_s"]
+    return dict(plans=len(ranked), fit=len(fit),
+                ranking=[dict(plan=r.plan.name, est_step_s=r.step_s,
+                              fits=r.est.fits,
+                              est_hbm_capacity_bytes=r.est.hbm_capacity_bytes)
+                         for r in ranked],
+                first=first, last=last,
+                order_matches=(a <= b if a is not None and b is not None
+                               else None))
+
+
+def _fusions_want(cfg) -> dict:
+    """The hand kernels' charges a walk of each cell must count: the
+    ``flash_fwd`` launches of its forward (``train_flash_launches``), twice
+    in a train step under remat (the forward and the recompute)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.plans import default_plan
+    out = {}
+    for kind, name in STEP_CELLS:
+        rt = default_plan(cfg, SHAPES[name]).runtime()
+        n = train_flash_launches(cfg, rt, STEP_S if kind != "decode" else 1)
+        out[kind] = n * (2 if kind == "train" and rt.remat else 1)
+    return out
+
+
+def phase_step_model(card: str, device, seed: int) -> dict:
+    """Phase 18: the step model on the card: (a) ``H100`` against the
+    card, (b) the walk, the estimate and the roofline of three Llama-3.2-1B
+    cells, (c) the walk of a reduced train step equal on the CPU and the
+    card, (d) autoplan's order against measured steps."""
+    import torch
+    t_phase = time.perf_counter()
+    spec = _spec_vs_card(device)
+    cells, reuse = _step_cells(device, seed)
+    want = _fusions_want(reuse[0])
+    t_c = time.perf_counter()
+    routes = {"cpu": _walk_reduced_step(torch.device("cpu"), seed),
+              "card": _walk_reduced_step(device, seed)}
+    same = {k: routes["cpu"][k] == routes["card"][k]
+            for k in routes["cpu"]}
+    t_d = time.perf_counter()
+    autoplan = _autoplan_check(device, reuse)
+    del reuse
+    torch.cuda.empty_cache()
+    hand_share = cells["train"]["flops"] / TRAIN_HAND_FLOPS
+    info = dict(card=card, seed=seed, spec_vs_card=spec,
+                h100=dict(sms=H100.sms,
+                          smem_bytes_per_block=H100.smem_bytes_per_block,
+                          hbm_capacity=H100.hbm_capacity,
+                          peak_flops_bf16=H100.peak_flops_bf16,
+                          peak_flops_f32=H100.peak_flops_f32,
+                          hbm_bytes_per_s=H100.hbm_bytes_per_s),
+                cells=cells, fusion_count_want=want,
+                train_walk_over_hand_count=hand_share,
+                train_walk_reaches_share=hand_share >= WALK_HAND_SHARE,
+                routes_equal=same, routes=routes, autoplan=autoplan,
+                cells_s=t_c - t_phase, routes_s=t_d - t_c,
+                autoplan_s=time.perf_counter() - t_d,
+                phase_s=time.perf_counter() - t_phase)
+    emit("step_model", **info)
+    got = {k: (c["fusion_count"], c["flash_launches"])
+           for k, c in cells.items()}
+    if any(got[k] != (n, n) for k, n in want.items()):
+        raise PhaseFailed(f"(fusion_count, flash_fwd launches) of each "
+                          f"walk {got}, want {want} of each")
+    if not all(same.values()):
+        raise PhaseFailed(f"the CPU's and the card's walks differ: {same}")
+    if info["phase_s"] > STEP_MODEL_S:
+        raise PhaseFailed(f"phase 18 took {info['phase_s']:.1f} s, over "
+                          f"{STEP_MODEL_S} s")
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4511,6 +4841,7 @@ def main(argv=None) -> int:
     phase_wire_islands(card, device, submit, dse)
     families = phase_families(card, device, args.seed)
     phase_train(card, device, args.seed)
+    phase_step_model(card, device, args.seed)
     flash["max_abs_err"] = max([flash["max_abs_err"]] + [
         c["max_abs_err"] for f in families["serve"].values()
         for c in f["kernel_vs_plain"].values()])

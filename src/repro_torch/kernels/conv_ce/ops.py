@@ -23,6 +23,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ...gpu import op_walk
 from .. import _LAUNCHES
 from .ref import conv_ce_ref
 
@@ -326,6 +327,19 @@ def conv_ce_cuda(x, w, *, stride: int = 1, par_f: int = 8, par_oh: int = 4,
     return out
 
 
+def cost(C: int, H: int, W: int, F: int, KH: int, KW: int, stride: int,
+         dtype) -> dict:
+    """The work of one valid convolution of x (C, H, W) by w (F, C, KH,
+    KW), the kernel's and its bound's: 2 operations a MAC, and x and w
+    read and the (F, OH, OW) output written once each."""
+    OH = (H - KH) // stride + 1
+    OW = (W - KW) // stride + 1
+    elt = torch.empty((), dtype=dtype).element_size()
+    return dict(flops=2 * F * OH * OW * C * KH * KW, transcendentals=0,
+                bytes=elt * (C * H * W + F * C * KH * KW + F * OH * OW),
+                dtype=dtype)
+
+
 def conv_ce(x, w, *, stride: int = 1, par_f: int = 8, par_oh: int = 4,
             par_ow: int = 4):
     """One layer on a CE with parallelism ⟨par_f, par_oh, par_ow⟩, routed
@@ -336,12 +350,16 @@ def conv_ce(x, w, *, stride: int = 1, par_f: int = 8, par_oh: int = 4,
     whose grid is ``(⌈F/par_f⌉, ⌈OH/par_oh⌉, ⌈OW/par_ow⌉)``, and an error
     there propagates.  The JAX package's ``interpret`` flag (its CPU
     interpreter) has no counterpart: the CPU runs the plain version.
+    Inside an ``op_walk.OpWalk`` either route is charged :func:`cost` as
+    ``conv_ce``.
     """
-    if x.device.type == "cuda":
-        return conv_ce_cuda(x, w, stride=stride, par_f=par_f, par_oh=par_oh,
-                            par_ow=par_ow)
-    if x.device.type != "cpu":
-        raise ValueError(f"no conv_ce route for a tensor on {x.device}; use "
-                         f"a CPU or CUDA tensor")
-    return conv_ce_ref(x, w, stride=stride, par_f=par_f, par_oh=par_oh,
-                       par_ow=par_ow)
+    with op_walk.charge("conv_ce", lambda: cost(
+            *x.shape, w.shape[0], *w.shape[2:], stride, x.dtype)):
+        if x.device.type == "cuda":
+            return conv_ce_cuda(x, w, stride=stride, par_f=par_f,
+                                par_oh=par_oh, par_ow=par_ow)
+        if x.device.type != "cpu":
+            raise ValueError(f"no conv_ce route for a tensor on {x.device}; "
+                             f"use a CPU or CUDA tensor")
+        return conv_ce_ref(x, w, stride=stride, par_f=par_f, par_oh=par_oh,
+                           par_ow=par_ow)

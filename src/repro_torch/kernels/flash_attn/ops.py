@@ -17,8 +17,10 @@ import ctypes
 import math
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from ...gpu import op_walk
 from .. import _COPIES, _LAUNCHES
 from .ref import flash_fwd_ref
 
@@ -215,24 +217,57 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     return out
 
 
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int | None,
+                  q_offset: int = 0) -> int:
+    """The (query, key) pairs of one (batch, head) that the masks leave
+    visible: query i at position ``q_offset + i`` sees key j < Sk where
+    ``causal`` allows j <= its position and ``window`` j > its position -
+    window.  A sum over the queries of each one's run of keys, so it stays
+    cheap at any length."""
+    pos = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(Sk - 1, pos) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, pos - window + 1) if window is not None else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(B: int, Sq: int, Sk: int, H: int, Hkv: int, D: int, causal: bool,
+         window: int | None, dtype, q_offset: int = 0) -> dict:
+    """The work of one attention call, the kernel's and its bound's: 4·D
+    operations for each visible (query, key) pair of each (batch, query
+    head) (2·D for q·k, 2·D for p·v), one exp a pair, and q, k, v read and
+    the output written once each."""
+    pairs = visible_pairs(Sq, Sk, causal, window, q_offset) * B * H
+    elt = torch.empty((), dtype=dtype).element_size()
+    return dict(pairs=pairs, flops=4 * D * pairs, transcendentals=pairs,
+                bytes=elt * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D),
+                dtype=dtype)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None,
                     q_offset: int = 0):
     """Flash-attention forward, routed by the tensors' device.
 
     q (B, Sq, H, D); k/v (B, Sk, Hkv, D), GQA heads read in place -> (B, Sq,
-    H, D) in q's dtype.  A CPU tensor runs the plain recurrence
+    H, D) in q's dtype, contiguous.  A CPU tensor runs the plain recurrence
     (``flash_fwd_ref``); a CUDA tensor launches the kernel of its dtype,
     and an error there propagates.  The JAX package's block sizes and
     ``interpret`` flag have no counterpart: the kernels' tiles are fixed,
-    and the CPU runs the plain version.
+    and the CPU runs the plain version.  Inside an ``op_walk.OpWalk`` either
+    route is charged :func:`cost` as ``flash_fwd``.
     """
-    if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    scale=scale, q_offset=q_offset)
-    if q.device.type != "cpu":
-        raise ValueError(f"no flash_attention route for a tensor on "
-                         f"{q.device}; use a CPU or CUDA tensor")
-    _check(q, k, v, window)
-    return flash_fwd_ref(q, k, v, causal=causal, window=window, scale=scale,
-                         q_offset=q_offset)
+    with op_walk.charge("flash_fwd", lambda: cost(
+            q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+            q.shape[3], causal, window, q.dtype, q_offset)):
+        if q.device.type == "cuda":
+            return flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, scale=scale,
+                                        q_offset=q_offset)
+        if q.device.type != "cpu":
+            raise ValueError(f"no flash_attention route for a tensor on "
+                             f"{q.device}; use a CPU or CUDA tensor")
+        _check(q, k, v, window)
+        # contiguous, as the kernel returns it: the callers' reshapes then
+        # run the same ops on both routes
+        return flash_fwd_ref(q, k, v, causal=causal, window=window,
+                             scale=scale, q_offset=q_offset).contiguous()

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...gpu import op_walk
 from .. import _COPIES, _LAUNCHES
 from .ref import mccm_latency_ref, parallelism_search_ref
 
@@ -378,25 +379,75 @@ def parallelism_search_cuda(pes_ce, ce_idx, fc_pair, coh_pair, ow, cand,
     return tuple(outs)
 
 
+def search_cost(pes_ce, ce_idx, fc_pair, coh_pair, ow, cand, pair_prod,
+                pair_pf, pair_ph) -> dict:
+    """The work the search needs on these inputs, the kernel's and its
+    bound's: every input read once, the four (B, 16) f32 outputs written
+    once, and the f32 operations (``flops``) these inputs need.
+
+    A multiply and an add for each (design, mapped layer, feasible pair of
+    the layer's CE): an infeasible pair costs inf whatever its sum.  fc·coh
+    (one multiply a live layer and pair) and ceil(OW/cand) (a division and
+    a ceil a live layer and candidate) are tables every design shares; a
+    live layer is one a design of the batch maps.  For each (design, CE
+    that owns a layer, pair), the quotient pes/(pf·ph), and for each
+    feasible one its floor and the argmin's compare.  A CE that owns no
+    layer takes its first feasible pair: at most one quotient, not
+    counted.  The parts: ``ops_walk``, ``ops_per_ce``, ``ops_tables``;
+    ``ops_5`` is the earlier, coarser count: 5 operations a pair for each
+    mapped (design, layer).  Reads the data, so it syncs with the device.
+    """
+    args = (pes_ce, ce_idx, fc_pair, coh_pair, ow, cand, pair_prod, pair_pf,
+            pair_ph)
+    P, K = fc_pair.shape[1], cand.numel()
+    mapped = ce_idx >= 0
+    owned = torch.zeros_like(pes_ce).scatter_add_(
+        1, ce_idx.clamp_min(0).long(), mapped.to(pes_ce.dtype))   # (B, NC)
+    feasible = (pes_ce[:, :, None] / pair_prod[None, None, :] >= 1).sum(-1)
+    walked = owned > 0
+    live = int(mapped.any(0).sum())
+    walk = 2 * int((owned * feasible).sum())
+    per_ce = P * int(walked.sum()) + 2 * int((feasible * walked).sum())
+    tables = live * P + 2 * live * K
+    return dict(flops=walk + per_ce + tables, transcendentals=0,
+                bytes=4 * sum(a.numel() for a in args)
+                + 4 * 4 * pes_ce.shape[0] * NC,
+                dtype=torch.float32, live_layers=int(mapped.sum()),
+                live_rows=live, ops_walk=walk, ops_per_ce=per_ce,
+                ops_tables=tables, ops_5=5 * P * int(mapped.sum()))
+
+
+def latency_cost(B: int, L: int) -> dict:
+    """The work of the latency function at B designs of L layers, the
+    kernel's and its bound's: dims and par read once, the totals and
+    cycles written once, and 10 f32 operations an element (3 divisions,
+    3 ceils, 3 products, 1 add)."""
+    return dict(flops=10 * B * L, transcendentals=0,
+                bytes=4 * (4 * L + 3 * B * L + B + B * L),
+                dtype=torch.float32)
+
+
 def parallelism_search(pes_ce, ce_idx, fc_pair, coh_pair, ow, cand,
                        pair_prod, pair_pf, pair_ph):
     """The fused search, routed by the tensors' device.
 
     Takes the arguments of ``parallelism_search_ref``.  A CPU tensor runs
     the plain version; a CUDA tensor launches the kernel, and an error
-    there propagates.
+    there propagates.  Inside an ``op_walk.OpWalk`` either route is charged
+    :func:`search_cost` as ``parallelism_search``.
     """
     route = "cuda" if pes_ce.device.type == "cuda" else "ref"
     if _FAULT_HOOK is not None:
         _FAULT_HOOK("parallelism_search", route)
     args = (pes_ce, ce_idx, fc_pair, coh_pair, ow, cand, pair_prod, pair_pf,
             pair_ph)
-    if route == "cuda":
-        return parallelism_search_cuda(*args)
-    if pes_ce.device.type != "cpu":
-        raise ValueError(f"no parallelism_search route for a tensor on "
-                         f"{pes_ce.device}; use a CPU or CUDA tensor")
-    return parallelism_search_ref(*args)
+    with op_walk.charge("parallelism_search", lambda: search_cost(*args)):
+        if route == "cuda":
+            return parallelism_search_cuda(*args)
+        if pes_ce.device.type != "cpu":
+            raise ValueError(f"no parallelism_search route for a tensor on "
+                             f"{pes_ce.device}; use a CPU or CUDA tensor")
+        return parallelism_search_ref(*args)
 
 
 def mccm_latency_cuda(dims, par):
@@ -463,11 +514,14 @@ def mccm_latency(dims, par):
     ``interpret``: the TPU kernel's design tile and its CPU interpreter.
     Neither has a counterpart here (the CUDA kernel picks its own tile,
     :func:`latency_plan`, and the CPU runs the plain version), so the port
-    drops both.
+    drops both.  Inside an ``op_walk.OpWalk`` either route is charged
+    :func:`latency_cost` as ``mccm_latency``.
     """
-    if dims.device.type == "cuda":
-        return mccm_latency_cuda(dims, par)
-    if dims.device.type != "cpu":
-        raise ValueError(f"no mccm_latency route for a tensor on "
-                         f"{dims.device}; use a CPU or CUDA tensor")
-    return mccm_latency_ref(dims, par)
+    with op_walk.charge("mccm_latency", lambda: latency_cost(
+            par.shape[0], dims.shape[0])):
+        if dims.device.type == "cuda":
+            return mccm_latency_cuda(dims, par)
+        if dims.device.type != "cpu":
+            raise ValueError(f"no mccm_latency route for a tensor on "
+                             f"{dims.device}; use a CPU or CUDA tensor")
+        return mccm_latency_ref(dims, par)

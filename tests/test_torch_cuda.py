@@ -1290,3 +1290,45 @@ def test_island_search_on_card_equals_cpu(cuda):
         [(h["islands"], h["migrants"]) for h in want.history]
     for k, w in want.metrics.items():
         np.testing.assert_allclose(got.metrics[k], w, rtol=1e-5, err_msg=k)
+
+
+def _walk_reduced_train_step(device):
+    """The walk of one reduced Llama train step in f32 (the chunked path:
+    the kernel forward, the Function's backward, remat, a loss chunk of
+    12), the batch already on ``device``."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import synth_batch, to_device
+    from repro_torch.gpu.op_walk import OpWalk
+    cfg, api, rt, state, step = _train_setup(device)
+    batch = to_device(synth_batch(cfg, ShapeSpec("t", "train", 32, 4), 0),
+                      device)
+    with OpWalk() as walk:
+        step(state, batch)
+    return walk.costs()
+
+
+def test_op_walk_on_card_equals_cpu(cuda):
+    """The same step walked on the CPU (the plain flash recurrence, the
+    backward on the caller's thread) and on the card (the f32 kernel,
+    the backward and remat's recompute on autograd's device thread):
+    equal FLOPs, bytes, transcendentals, census and charges, 4
+    ``flash_fwd`` charges (2 layers, forward and recompute), each one of
+    the card's launches."""
+    from repro_torch.kernels import launches, reset_launches
+    cpu = _walk_reduced_train_step(torch.device("cpu"))
+    reset_launches()
+    card = _walk_reduced_train_step(cuda)
+    torch.cuda.synchronize()
+    assert launches()["flash_fwd"] == 4
+    assert card.charges == cpu.charges == {"flash_fwd": 4}
+    for f in ("flops", "bytes_accessed", "transcendentals", "census",
+              "flops_by_dtype", "bytes_by_op"):
+        assert getattr(card, f) == getattr(cpu, f), f
+
+
+def test_h100_spec_equals_the_card(cuda):
+    from repro_torch.gpu.chip import H100
+    props = torch.cuda.get_device_properties(cuda)
+    assert props.multi_processor_count == H100.sms
+    assert props.shared_memory_per_block_optin == H100.smem_bytes_per_block
+    assert props.total_memory == H100.hbm_capacity
