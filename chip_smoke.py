@@ -234,9 +234,27 @@ Phases, each printing one JSON line:
    FLOPs, bytes, transcendentals, census, charges; (d) the 15 one-device
    plans of the train cell ranked, and one timed step of the first- and
    the last-ranked plan that fit: the model's order against the card's
-   (a finding); the phase within 60 s.
+   (a finding); the phase within 60 s;
+19. the design-axis mesh (``repro_torch.core.shard.EvalMesh``): (a) phase
+   4's 100,000 ResNet-50/ZCU102 designs through ``Session(EvalConfig(
+   mesh=4))`` (on one card the mesh clamps to 1: ``requested`` and
+   ``ndevices`` reported) and through the same session with a mesh of
+   four shards of the card, every metric equal to phase 4's arrays bit
+   for bit; rows padded for each route, µs a design of both (median of
+   3), search launches per shard; (b) phase 15 (e)'s 4-island
+   MobileNetV2 search at 100,000 designs with one island a shard, run
+   serial, sharded, sharded, serial: every design, metric, front and
+   island front of each run equal to the first serial run's bit for bit;
+   seconds, µs a design and a generation's median step seconds of each
+   run, launches per shard; (c) ``joint_evaluate`` on phase 14 (a)'s
+   deployments in each mode over the four shards, every field equal to
+   the unsharded call bit for bit; (d) with more than one card visible,
+   (a)-(c) again over ``min(4, count)`` cards, one shard a card, with
+   launches per card; on one card that is reported.
 
-Then the ``kernels`` line (one entry per kernel source: ``flash_fwd``'s
+Then the ``kernels`` line (one entry per kernel source: the search's
+launches those of phase 4's main path and of phase 19's sharded runs,
+``flash_fwd``'s
 bf16 source with its launches in phase 9 and its largest error over
 phases 8, 9 and 16, its f32 source with its launches
 in phase 10's long batch), the card's name and power limit as
@@ -470,6 +488,10 @@ TRAIN_HAND_FLOPS, WALK_HAND_SHARE = 1.28e14 + 3.44e13 + 1.48e13, 0.9
 STEP_MODEL_S = 60.0
 #: phase 18 (d): plans tried from each end of the ranking until one runs
 AUTOPLAN_TRIES = 3
+#: phase 19: the design-axis mesh's width (four shards of the card, or
+#: one shard a card over at most this many cards), the batch path's CPU
+#: tile the sharded rows are padded to, and the timed runs of each route
+MESH_SHARDS, MESH_TILE, MESH_RUNS = 4, 128, 3
 
 
 class PhaseFailed(RuntimeError):
@@ -828,6 +850,8 @@ def phase_load(card: str, device, seed: int, n_designs: int) -> dict:
                 profile=breakdown)
     emit("load", **info)
     kernel["us_per_design_median"] = info["us_per_design_median"]
+    # phase 19 holds the sharded routes to these arrays
+    kernel["arrays"] = out
     return kernel
 
 
@@ -4802,6 +4826,222 @@ def phase_step_model(card: str, device, seed: int) -> dict:
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 19
+# --------------------------------------------------------------------------
+def _same(got: dict, want: dict) -> list:
+    """The keys whose tensors or arrays differ in any bit (or dtype)."""
+    import numpy as np
+    import torch
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        g, w = got[k], want[k]
+        if isinstance(w, torch.Tensor):
+            if g.dtype != w.dtype or not torch.equal(g.to(w.device), w):
+                bad.append(k)
+        elif not np.array_equal(g, w):
+            bad.append(k)
+    return bad
+
+
+def _per_shard(mesh) -> list:
+    return [dict(device=str(d), **{k: v for k, v in t.items() if v})
+            for d, t in zip(mesh.devices, mesh.shard_launches)]
+
+
+def _mesh_evaluate(device, mesh, want: dict, seed: int,
+                   n_designs: int) -> dict:
+    """(a): phase 4's designs through the session's own mesh (``mesh=4``)
+    and through ``mesh``, each bit-equal to phase 4's arrays."""
+    import numpy as np
+    import torch
+    from repro_torch.api import EvalConfig, Session, get_board, get_cnn
+    from repro_torch.core.batch_eval import padded_rows
+    from repro_torch.core.dse import sample_mixed
+    from repro_torch.kernels import launches, reset_launches
+    net, board = get_cnn("resnet50"), get_board("zcu102")
+    batch = sample_mixed(np.random.default_rng(seed), len(net), n_designs)
+    cfg = EvalConfig(device=str(device), mesh=MESH_SHARDS)
+    with Session(board, config=cfg) as own, \
+            Session(board, device=str(device), mesh=1) as single, \
+            Session(board, config=cfg) as sharded:
+        sharded.mesh = mesh
+        routes = {"session_mesh": own, "single": single, "sharded": sharded}
+        for ses in routes.values():                 # warm-up
+            ses.evaluate(batch, net)
+        torch.cuda.synchronize()
+        walls = {k: [] for k in routes}
+        outs, counts = {}, {}
+        for _ in range(MESH_RUNS):
+            for name, ses in routes.items():
+                mesh.reset_shard_launches()
+                reset_launches()
+                t0 = time.perf_counter()
+                outs[name] = ses.evaluate(batch, net)
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t0)
+                counts[name] = launches()["parallelism_search"]
+        shard_launches = _per_shard(mesh)
+        own_mesh = dict(requested=own.mesh.requested,
+                        ndevices=own.mesh.ndevices,
+                        devices=[str(d) for d in own.mesh.devices])
+    bad = {k: _same(o, want) for k, o in outs.items()}
+    if any(bad.values()):
+        raise PhaseFailed(f"mesh (a): outputs part from phase 4's: {bad}")
+    if counts["sharded"] == 0 or any(
+            s.get("parallelism_search", 0) == 0 for s in shard_launches):
+        raise PhaseFailed(f"mesh (a): a shard launched no search kernel: "
+                          f"{shard_launches}")
+    us = {k: statistics.median(v) / n_designs * 1e6
+          for k, v in walls.items()}
+    return dict(cnn="resnet50", board="zcu102", designs=n_designs,
+                session_mesh=own_mesh, mesh=[str(d) for d in mesh.devices],
+                padded_rows=dict(
+                    sharded=padded_rows(n_designs, MESH_TILE, mesh.ndevices),
+                    single=padded_rows(n_designs, MESH_TILE)),
+                wall_s=walls, us_per_design=us, launches=counts,
+                shard_launches=shard_launches, bit_equal=True)
+
+
+def _mesh_islands(device, mesh) -> dict:
+    """(b): phase 15 (e)'s island search with one island a shard, against
+    the serial islands in this run, bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.api import SearchConfig, Session, get_board, get_cnn
+    from repro_torch.kernels import launches, reset_launches
+    net = get_cnn(DSE_CNN)
+    cfg = SearchConfig(n_islands=mesh.ndevices, seed=DSE_SEARCH_SEED)
+    runs = {"serial": [], "sharded": []}
+    for name in ("serial", "sharded", "sharded", "serial"):
+        with Session(get_board(), device=str(device), mesh=1) as ses:
+            if name == "sharded":
+                ses.mesh = mesh
+            mesh.reset_shard_launches()
+            reset_launches()
+            res = ses.explore(net, DSE_BUDGET, strategy="search", config=cfg)
+            torch.cuda.synchronize()
+            runs[name].append((res, launches()["parallelism_search"],
+                               _per_shard(mesh)))
+    want, n_serial, _ = runs["serial"][0]
+    for got, n_launch, shard_launches in runs["sharded"] + runs["serial"]:
+        same = dict(
+            designs=all(np.array_equal(a, b) for a, b in zip(
+                got.batch.to_numpy(), want.batch.to_numpy())),
+            metrics=not _same(got.metrics, want.metrics),
+            front=np.array_equal(got.front, want.front),
+            island_fronts=len(got.island_fronts) == mesh.ndevices
+            and all(np.array_equal(a, b) for a, b in zip(
+                got.island_fronts, want.island_fronts)),
+            history=got.history == want.history)
+        if not all(same.values()):
+            raise PhaseFailed(f"mesh (b): an island run parts from the "
+                              f"first serial one: {same}")
+        if n_launch == 0 or n_launch != n_serial:
+            raise PhaseFailed(f"mesh (b): launches {n_launch} (serial "
+                              f"{n_serial})")
+    got, n_launch, shard_launches = runs["sharded"][-1]
+    if any(s.get("parallelism_search", 0) == 0 for s in shard_launches):
+        raise PhaseFailed(f"mesh (b): a shard launched no search kernel: "
+                          f"{shard_launches}")
+
+    def timed(name):
+        rs = [r for r, _, _ in runs[name]]
+        return dict(seconds=[r.seconds for r in rs],
+                    per_design_us=[r.per_design_us for r in rs],
+                    step_s_median=[statistics.median(
+                        t["step_s"] for t in r.timings) for r in rs])
+    return dict(cnn=DSE_CNN, budget=DSE_BUDGET, n_islands=mesh.ndevices,
+                pop_size=cfg.pop_size, seed=DSE_SEARCH_SEED,
+                order="serial sharded sharded serial", launches=n_launch,
+                generations=len(got.timings),
+                step_s=[t["step_s"] for t in got.timings],
+                shard_launches=shard_launches, sharded=timed("sharded"),
+                serial=timed("serial"), bit_equal=True)
+
+
+def _mesh_joint(device, mesh) -> dict:
+    """(c): ``joint_evaluate`` on phase 14 (a)'s deployments in each mode,
+    sharded over ``mesh``, against the unsharded call bit for bit."""
+    import torch
+    from repro_torch.api import get_board, get_cnn
+    from repro_torch.core.dse import MultiDesignBatch
+    from repro_torch.core.multinet import joint_evaluate, make_multi_tables
+    from repro_torch.kernels import launches, reset_launches
+    golden, cfg = _multinet_golden()
+    fields = ("seg_end", "seg_pipe", "seg_nce", "inter_pipe")
+    mode_kw = {"spatial": ("pes_shares", "buf_shares", "bw_shares"),
+               "temporal": ("time_shares", "reconfig_s"),
+               "hybrid": ("assign", "pes_shares", "buf_shares", "bw_shares",
+                          "time_shares", "reconfig_s")}
+    out = {}
+    for mode, c in cfg["eval"].items():
+        p = f"eval/{mode}"
+        md = MultiDesignBatch.from_numpy(
+            *(golden[f"{p}/in/{f}"] for f in fields), device=device)
+        given = dict(pes_shares=golden[f"{p}/in/pes"],
+                     buf_shares=golden[f"{p}/in/buf"],
+                     bw_shares=golden[f"{p}/in/bw"],
+                     time_shares=golden[f"{p}/in/time"],
+                     assign=golden[f"{p}/in/assign"],
+                     reconfig_s=c["reconfig_s"])
+        kw = {k: given[k] for k in mode_kw[mode]}
+        mt = make_multi_tables([get_cnn(n) for n in c["nets"]],
+                               weights=c["weights"], slo_s=c["slo_s"],
+                               device=device)
+        board = get_board(c["board"])
+        want = joint_evaluate(md, mt, board, mode=mode, **kw)
+        mesh.reset_shard_launches()
+        reset_launches()
+        got = joint_evaluate(md, mt, board, mode=mode, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        n = launches()["parallelism_search"]
+        bad = _same(got, want)
+        shard_launches = _per_shard(mesh)
+        if bad:
+            raise PhaseFailed(f"mesh (c) {mode}: {bad} part from the "
+                              f"unsharded call")
+        if n == 0 or any(s.get("parallelism_search", 0) == 0
+                         for s in shard_launches):
+            raise PhaseFailed(f"mesh (c) {mode}: launches {n}, per shard "
+                              f"{shard_launches}")
+        out[mode] = dict(models=len(c["nets"]), deployments=c["n"],
+                         padded_rows=mesh.padded_rows(c["n"], MESH_TILE),
+                         launches=n, shard_launches=shard_launches,
+                         bit_equal=True)
+    return out
+
+
+def phase_mesh(card: str, device, want: dict, seed: int,
+               n_designs: int) -> dict:
+    """The design-axis mesh on the card: four shards of it, then, where
+    more than one card is visible, one shard a card."""
+    import torch
+    from repro_torch.core.shard import EvalMesh
+    t_phase = time.perf_counter()
+    meshes = {"shards_of_one_card": EvalMesh(devices=[device] *
+                                             MESH_SHARDS)}
+    count = torch.cuda.device_count()
+    if count > 1:
+        meshes["across_cards"] = EvalMesh(min(MESH_SHARDS, count))
+    info = dict(card=card, device_count=count)
+    total = 0
+    for name, mesh in meshes.items():
+        parts = dict(evaluate=_mesh_evaluate(device, mesh, want, seed,
+                                             n_designs),
+                     islands=_mesh_islands(device, mesh),
+                     joint=_mesh_joint(device, mesh))
+        total += parts["evaluate"]["launches"]["sharded"] \
+            + parts["islands"]["launches"] \
+            + sum(m["launches"] for m in parts["joint"].values())
+        info[name] = parts
+    if count == 1:
+        info["across_cards"] = "one card visible"
+    info.update(launches=total, phase_s=time.perf_counter() - t_phase)
+    emit("mesh", **info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4842,6 +5082,9 @@ def main(argv=None) -> int:
     families = phase_families(card, device, args.seed)
     phase_train(card, device, args.seed)
     phase_step_model(card, device, args.seed)
+    mesh = phase_mesh(card, device, search.pop("arrays"), args.seed,
+                      args.designs)
+    search["launches"] += mesh["launches"]
     flash["max_abs_err"] = max([flash["max_abs_err"]] + [
         c["max_abs_err"] for f in families["serve"].values()
         for c in f["kernel_vs_plain"].values()])

@@ -16,7 +16,8 @@ masked tensor ops: the same model, not an approximation.
 * ``evaluate_batch`` — runs the blocks: ``chunk`` designs per block on the
   card (one kernel launch each), ``tile`` designs on the CPU, where the
   plain search builds a (tile, L, P) cost block.  Results are row-local,
-  so the block size changes no number.
+  so the block size changes no number, and ``mesh=`` (``core.shard``)
+  shards the rows across devices without changing one.
 
 Exactness against the JAX package.  Where a sum feeds a discrete choice
 its order is fixed to the reference's, so the same designs get the same
@@ -29,6 +30,7 @@ cast to float32 explicitly.
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -843,15 +845,22 @@ def _pad_rows(design: DesignBatch, n: int) -> DesignBatch:
                        rep(design.seg_nce), rep(design.inter_pipe))
 
 
-def _blocks(design: DesignBatch, tables: NetTables,
-            dev: DeviceSpec | DeviceTables, *, tile: int = DEFAULT_TILE,
-            chunk: int = DEFAULT_CHUNK, full_pes: float | None = None):
-    """The set-up a blocked batch call shares: the board's
-    ``DeviceTables``, the search's ``SearchTables`` and the row blocks, all
-    on the tables' device.  A block is ``chunk`` designs on the card (one
-    search-kernel launch) and ``tile`` designs on the CPU; each is a
-    ``(designs, boards)`` pair, the boards cut to the block's rows when
-    ``dev`` holds one board per row.
+def padded_rows(B: int, tile: int = DEFAULT_TILE, ndevices: int = 1) -> int:
+    """Rows a B-design sharded call executes: B padded to a multiple of
+    ``ndevices x tile``, so every shard of the mesh (``core.shard``) holds
+    the same whole number of tiles."""
+    unit = tile * max(int(ndevices), 1)
+    return -(-B // unit) * unit
+
+
+def search_setup(tables: NetTables, dev: DeviceSpec | DeviceTables,
+                 full_pes: float | None = None
+                 ) -> tuple[DeviceTables, SearchTables]:
+    """The set-up a batch call shares, on the tables' device: the board's
+    ``DeviceTables`` and the search's ``SearchTables`` (the pair list).  A
+    caller that runs many batches, or the shards of a mesh, builds it once
+    and passes it as ``pairs=`` (:func:`evaluate_batch`), so no call does
+    this host-side work again.
 
     The pair list is pruned for the board's PE count, or for ``full_pes``
     when given: a per-row board must name the full board it was cut from
@@ -868,17 +877,34 @@ def _blocks(design: DesignBatch, tables: NetTables,
                          "the board they were cut from")
     else:
         hint = pes_hint(float(dev.pes))
+    return dev, _pair_layer_tables(tables,
+                                   pair_tables(tables.candidates, hint))
+
+
+def _blocks(design: DesignBatch, tables: NetTables,
+            dev: DeviceSpec | DeviceTables, *, tile: int = DEFAULT_TILE,
+            chunk: int = DEFAULT_CHUNK, full_pes: float | None = None,
+            pairs: SearchTables | None = None):
+    """The board's ``DeviceTables``, the search's ``SearchTables`` (from
+    :func:`search_setup`, unless ``pairs`` gives them with ``dev`` as
+    ``DeviceTables``) and the row blocks, all on the tables' device.  A
+    block is ``chunk`` designs on the card (one search-kernel launch) and
+    ``tile`` designs on the CPU; each is a ``(designs, boards)`` pair, the
+    boards cut to the block's rows when ``dev`` holds one board per row.
+    """
+    device = tables.device
+    if pairs is None:
+        dev, pairs = search_setup(tables, dev, full_pes)
     if design.batch == 0:
         raise ValueError("no designs to evaluate (empty DesignBatch)")
     if dev.per_row and dev.pes.shape[0] != design.batch:
         raise ValueError(f"{dev.pes.shape[0]} board rows for "
                          f"{design.batch} designs")
     design = design.to(device)
-    search = _pair_layer_tables(tables, pair_tables(tables.candidates, hint))
     rows = tile if device.type == "cpu" else chunk
-    return dev, search, [(design.take(slice(s, s + rows)),
-                          dev.take(slice(s, s + rows)))
-                         for s in range(0, design.batch, rows)]
+    return dev, pairs, [(design.take(slice(s, s + rows)),
+                         dev.take(slice(s, s + rows)))
+                        for s in range(0, design.batch, rows)]
 
 
 def _cat_blocks(outs: list[dict]) -> dict:
@@ -891,16 +917,29 @@ def _cat_blocks(outs: list[dict]) -> dict:
 def evaluate_batch(design: DesignBatch, tables: NetTables,
                    dev: DeviceSpec | DeviceTables, fm_tile_rows: int = 2,
                    *, tile: int = DEFAULT_TILE, chunk: int = DEFAULT_CHUNK,
-                   full_pes: float | None = None) -> dict[str, torch.Tensor]:
+                   full_pes: float | None = None,
+                   pairs: SearchTables | None = None,
+                   mesh=None) -> dict[str, torch.Tensor]:
     """DesignBatch -> metric tensors on the tables' device.
 
     The batch runs in blocks of ``chunk`` designs on the card (one search
     kernel launch per block) and of ``tile`` designs on the CPU.  ``dev``
     is one board, or ``DeviceTables`` with one board per design row; those
-    need ``full_pes`` (see :func:`_blocks`).
+    need ``full_pes`` (see :func:`search_setup`).  ``pairs``, with ``dev``
+    as ``DeviceTables``, is the set-up :func:`search_setup` built for
+    these tables and this board, used as it is.
+
+    ``mesh`` (a ``core.shard.EvalMesh``, duck-typed to avoid an import
+    cycle) shards the design axis across its devices, the metrics landing
+    on its first device; a None or single-device mesh takes this
+    unchanged single-device path.
     """
+    if mesh is not None and getattr(mesh, "is_sharded", False):
+        return mesh.evaluate_padded(design, tables, dev, tile=tile,
+                                    chunk=chunk, fm_tile_rows=fm_tile_rows,
+                                    full_pes=full_pes, pairs=pairs)
     _, search, parts = _blocks(design, tables, dev, tile=tile, chunk=chunk,
-                               full_pes=full_pes)
+                               full_pes=full_pes, pairs=pairs)
     return _cat_blocks([eval_design_block(b, tables, d, search,
                                           fm_tile_rows=fm_tile_rows)
                         for b, d in parts])
@@ -909,10 +948,11 @@ def evaluate_batch(design: DesignBatch, tables: NetTables,
 # --------------------------------------------------------------------------
 # spec lists
 # --------------------------------------------------------------------------
-def _bucket(b: int, tile: int) -> int:
-    """Smallest power-of-two multiple of ``tile`` holding ``b`` designs:
-    bounds the number of distinct chunk shapes to the ladder size."""
-    n = tile
+def _bucket(b: int, tile: int, ndevices: int = 1) -> int:
+    """Smallest power-of-two multiple of ``ndevices x tile`` holding ``b``
+    designs: bounds the number of distinct chunk shapes to the ladder
+    size, and keeps every bucket evenly shardable across the mesh."""
+    n = tile * max(int(ndevices), 1)
     while n < b:
         n *= 2
     return n
@@ -924,29 +964,33 @@ def _evaluate_specs(specs: list[AcceleratorSpec], net: Network,
                     tables: NetTables | None = None,
                     tile: int = DEFAULT_TILE, pad_to: int | None = None,
                     fm_tile_rows: int = 2, device="cuda",
-                    batch_fn=None) -> dict[str, np.ndarray]:
+                    batch_fn=None, mesh=None) -> dict[str, np.ndarray]:
     """Specs -> stacked host metric arrays, ``chunk`` specs at a time.
 
     Every chunk, the tail included, is padded to one row count
-    (``pad_to``, by default ``chunk`` or the bucket of a shorter list).
+    (``pad_to``, by default ``chunk`` or the bucket of a shorter list,
+    which under a sharded ``mesh`` is a multiple of ``ndevices x tile``).
     ``device`` is where the tables are built when ``tables`` is None.
     ``batch_fn`` is the batch path each chunk runs through: by default
-    :func:`evaluate_batch`, or the schedule layer's ``schedule_batch``,
-    which takes the same arguments.
+    :func:`evaluate_batch` (sharded over ``mesh``), or the schedule
+    layer's ``schedule_batch``, which takes the same arguments.
     """
     if not specs:
         raise ValueError("no specs to evaluate (empty design list)")
     tables = make_tables(net, device=device) if tables is None else tables
+    nd = mesh.ndevices if mesh is not None and mesh.is_sharded else 1
     n_layers = len(net)
     outs: list[dict] = []
     n = len(specs)
     if pad_to is None:
-        pad_to = chunk if n > chunk else _bucket(max(n, 1), tile)
+        pad_to = chunk if n > chunk else _bucket(max(n, 1), tile, nd)
+    if batch_fn is None:
+        batch_fn = partial(evaluate_batch, mesh=mesh)
     for i in range(0, n, chunk):
         sub = specs[i:i + chunk]
         batch = _pad_rows(encode_specs(sub, n_layers, device=tables.device),
                           pad_to)
-        out = (batch_fn or evaluate_batch)(
+        out = batch_fn(
             batch, tables, dev, fm_tile_rows, tile=tile,
             chunk=max(chunk, pad_to))
         outs.append({k: v[:len(sub)].cpu().numpy() for k, v in out.items()})

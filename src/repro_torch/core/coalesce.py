@@ -20,7 +20,9 @@ next-fit packing that keeps each request's specs in order, so the
 exactly-once, ordering and padding guarantees are testable without a
 session.  :class:`ArrivalEstimator` is the adaptive linger policy on top:
 the drain waits ~2 observed inter-arrival times for peers, never more than
-the configured cap.  ``ndevices`` stays 1 until the port has a mesh.
+the configured cap.  ``ndevices`` is the session's mesh width
+(``core.shard.EvalMesh``; 1 unless the mesh is sharded), so every chunk
+splits into equal shards.
 """
 from __future__ import annotations
 

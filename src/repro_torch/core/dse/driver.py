@@ -63,7 +63,7 @@ def _explore(net, dev, n: int = 100_000, *,
              objectives: tuple[str, ...] = DEFAULT_OBJECTIVES,
              config: SearchConfig | None = None, tables,
              tile: int | None = None,
-             eval_chunk: int | None = None) -> DSEResult:
+             eval_chunk: int | None = None, mesh=None) -> DSEResult:
     """Implementation behind ``Session.explore``: evaluate ``n`` designs
     and return the sample plus its Pareto front.
 
@@ -79,7 +79,9 @@ def _explore(net, dev, n: int = 100_000, *,
     keywords configure the search only when no config is passed.
     ``tables`` (the net's ``NetTables``) pick the device.  ``tile`` and
     ``eval_chunk`` are the batch path's blocks on the CPU and on the card
-    (None: its defaults).
+    (None: its defaults).  ``mesh`` (a ``core.shard.EvalMesh``) shards the
+    random sweep's design axis and turns the search into the island model;
+    None keeps the single-device paths bit-identical.
     """
     from ..batch_eval import (DEFAULT_CHUNK, DEFAULT_TILE, _pad_rows,
                               evaluate_batch, make_device_tables)
@@ -96,7 +98,7 @@ def _explore(net, dev, n: int = 100_000, *,
                                init_family=family)
         objectives = cfg.objectives
         res: SearchResult = search(net, dev, cfg, tables=tables, tile=tile,
-                                   chunk=eval_chunk)
+                                   chunk=eval_chunk, mesh=mesh)
         return DSEResult(
             batch=res.batch, metrics=res.metrics, seconds=res.seconds,
             per_design_us=res.seconds / max(res.n_evals, 1) * 1e6,
@@ -137,7 +139,8 @@ def _explore(net, dev, n: int = 100_000, *,
         # shape (padded rows are sliced off below); the pulls wait for the
         # device, so the clock stops on finished work
         out = evaluate_batch(_pad_rows(batch.to(device), min(chunk, n)),
-                             tables, devt, tile=tile, chunk=eval_chunk)
+                             tables, devt, tile=tile, chunk=eval_chunk,
+                             mesh=mesh)
         outs.append({k: v[:b].cpu().numpy() for k, v in out.items()})
         batches.append(batch)
         timings.append(dict(chunk=len(timings), breed_s=t_eval - t_draw,

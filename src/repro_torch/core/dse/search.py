@@ -30,10 +30,12 @@ the device until the end of the search.
 
 The island model (``n_islands > 1``): sub-populations that evolve under
 the same generation step, each on its own ``[seed, island]`` RNG stream,
-with periodic migration of Pareto elites and a final merged front.  The
-islands take turns through the single-device step, as the JAX package runs
-them without a mesh: the same semantics and draws, serial execution.  The
-JAX package's sharded island step (one island a device) is not ported.
+with periodic migration of Pareto elites and a final merged front.  Under
+a sharded mesh (``core.shard.EvalMesh``) of one device per island, island
+i's generation step runs on ``mesh.devices[i]``, every island's step
+enqueued before any is read back; otherwise the islands take turns through
+the single-device step, as the JAX package runs them without a mesh.  Both
+give the same designs and the same bits.
 """
 from __future__ import annotations
 
@@ -45,7 +47,6 @@ import numpy as np
 import torch
 
 from .. import resilience, telemetry
-from ..device import DeviceSpec
 from ..resilience import EvalError
 from .encoding import (NC, NS, DesignBatch, concat_batches,
                        repair_batch_torch, validate_batch_torch)
@@ -91,9 +92,11 @@ class SearchConfig:
     elite_frac: float = 0.25          # scalarized top-slice joining parents
     init_family: str = "both"         # sampler for init/immigrants:
                                       # "custom" | "mixed" | "both"
-    # ---- island model (serial islands on one device) ------------------
-    n_islands: int | None = None      # None: 1 (the port has no mesh) --
-                                      # the classic single-population loop
+    # ---- island model ---------------------------------------------------
+    n_islands: int | None = None      # None: the mesh's device count when
+                                      # search() gets a sharded mesh, else
+                                      # 1 -- the classic single-population
+                                      # loop
     migration_interval: int = 4       # generations between elite exchanges
     migration_elites: int = 8         # per-island elites broadcast at each
                                       # migration (0 disables migration)
@@ -309,7 +312,7 @@ def make_children(rng: np.random.Generator, parents: DesignBatch,
 def search_step(design: DesignBatch, tables, devt, w: torch.Tensor,
                 lo: torch.Tensor, hi: torch.Tensor, *,
                 objectives: tuple[str, ...], min_ces: int, max_ces: int,
-                tile: int, chunk: int):
+                tile: int, chunk: int, pairs=None):
     """One (sub-)generation on the tables' device: constraint repair, the
     batch path, validity, objective orientation and selection scoring.
 
@@ -319,13 +322,15 @@ def search_step(design: DesignBatch, tables, devt, w: torch.Tensor,
     The score is the JAX step's ``((pts - lo) / span) @ w`` as a
     fixed-order f32 sum over the objectives (:func:`_weighted_sum`).
     ``tables`` and ``devt`` are the batch path's ``NetTables`` and
-    ``DeviceTables``, ``tile`` and ``chunk`` its blocks.
+    ``DeviceTables``, ``tile`` and ``chunk`` its blocks, ``pairs`` its
+    pair tables when the caller built them (``batch_eval.search_setup``).
     """
     from ..batch_eval import evaluate_batch
 
     design = repair_batch_torch(design, tables.L, min_ces=min_ces,
                                 max_ces=max_ces)
-    metrics = evaluate_batch(design, tables, devt, tile=tile, chunk=chunk)
+    metrics = evaluate_batch(design, tables, devt, tile=tile, chunk=chunk,
+                             pairs=pairs)
     pts = torch.stack([(-1.0 if k in ORIENT_MAX else 1.0) * metrics[k]
                        for k in objectives], 1)
     ok = validate_batch_torch(design, tables.L, min_ces=min_ces,
@@ -468,7 +473,7 @@ def _gen_telemetry(kind: str, gen: int, evals: int, points,
 
 def search(net, dev, config: SearchConfig | None = None, tables=None, *,
            device="cuda", tile: int | None = None,
-           chunk: int | None = None) -> SearchResult:
+           chunk: int | None = None, mesh=None) -> SearchResult:
     """Run the guided loop: sample -> evaluate -> archive -> breed.
 
     The step runs on the device of ``tables`` (``NetTables``) when given
@@ -476,9 +481,14 @@ def search(net, dev, config: SearchConfig | None = None, tables=None, *,
     ``dev`` is a board (``DeviceSpec``) or its ``DeviceTables`` on that
     device.  ``tile`` and ``chunk`` are the batch path's blocks on the CPU
     and on the card (None: its defaults).
+
+    ``mesh`` (a ``core.shard.EvalMesh``) turns the loop into an island
+    model, one sub-population per device, via ``cfg.n_islands`` (None
+    resolves to the mesh's device count).  With one island the classic
+    single-population loop below runs unchanged.
     """
     from ..batch_eval import (DEFAULT_CHUNK, DEFAULT_TILE, _pad_rows,
-                              make_device_tables, make_tables)
+                              make_tables, search_setup)
 
     cfg = config or SearchConfig()
     n_obj = len(cfg.objectives)
@@ -491,21 +501,24 @@ def search(net, dev, config: SearchConfig | None = None, tables=None, *,
     if cfg.mode == "scalarized" and cfg.weights is not None \
             and len(cfg.weights) != n_obj:
         raise ValueError("weights must match objectives")
-    # None: one island (the port has no mesh to count devices on)
-    n_islands = 1 if cfg.n_islands is None else cfg.n_islands
+    n_islands = cfg.n_islands
+    if n_islands is None:
+        n_islands = mesh.ndevices \
+            if mesh is not None and getattr(mesh, "is_sharded", False) else 1
     if n_islands < 1:
         raise ValueError(f"n_islands must be >= 1, got {n_islands}")
     n_islands = min(n_islands, cfg.budget)
     tables = tables if tables is not None \
         else make_tables(net, device=device)
     device = tables.device
-    devt = make_device_tables(dev, device=device) \
-        if isinstance(dev, DeviceSpec) else dev
+    # the board's tables and the pair list, built once for every step
+    devt, pairs = search_setup(tables, dev)
     statics = dict(objectives=tuple(cfg.objectives), min_ces=cfg.min_ces,
                    max_ces=cfg.max_ces, tile=tile or DEFAULT_TILE,
                    chunk=chunk or DEFAULT_CHUNK)
     if n_islands > 1:
-        return _island_search(cfg, tables, devt, statics, n_islands)
+        return _island_search(cfg, tables, devt, pairs, statics, n_islands,
+                              mesh)
 
     n_layers = tables.L
     rng = np.random.default_rng(cfg.seed)
@@ -545,7 +558,7 @@ def search(net, dev, config: SearchConfig | None = None, tables=None, *,
             keep = min(s + pop_n, n) - s
             sub = _pad_rows(pop.take(slice(s, s + keep)).to(device), pop_n)
             design, metrics, pts, ok, score, lo, hi = search_step(
-                sub, tables, devt, w_t, lo, hi, **statics)
+                sub, tables, devt, w_t, lo, hi, pairs=pairs, **statics)
             all_metrics.append({k: v[:keep] for k, v in metrics.items()})
             design_l.append([a[:keep].cpu().numpy() for a in (
                 design.seg_end, design.seg_pipe, design.seg_nce,
@@ -687,20 +700,24 @@ def _migration_pick(archive: ParetoArchive, k: int) -> np.ndarray:
     return pay[order[sel]]
 
 
-def _island_search(cfg: SearchConfig, tables, devt, statics: dict,
-                   n_islands: int) -> SearchResult:
+def _island_search(cfg: SearchConfig, tables, devt, pairs, statics: dict,
+                   n_islands: int, mesh=None) -> SearchResult:
     """The island model: ``n_islands`` sub-populations, each evolving
     under the same generation step (:func:`search_step`), with periodic
     migration of Pareto elites between islands and a final merged-front
     reduction.
 
-    The islands take turns through the single-device step on the tables'
-    device, each sub-batch padded to ``pop_n`` rows under the island's own
-    weight and normalization rows: the JAX package's serial island loop
-    (the one it runs without a mesh), so the same semantics and the same
-    draws.  Breeding stays host-side per island (``make_children``), each
-    island on its own ``[seed, island]`` RNG stream, so results are
-    deterministic given (seed, island count)."""
+    Each island's sub-batch is padded to ``pop_n`` rows under the
+    island's own weight and normalization rows, and island i's step runs
+    on device i of a mesh: a sharded ``mesh`` with one device per island,
+    else the tables' device named once per island (the JAX package's
+    serial island loop).  The tables and the pair list are copied once to
+    each distinct device, every island's step is enqueued before any is
+    read back, and the results and the lo/hi planes are gathered on the
+    tables' device.  Both meshes give the same bits, so a sharded and a
+    serial run write the same checkpoints.  Breeding stays host-side per
+    island (``make_children``), each island on its own ``[seed, island]``
+    RNG stream, so results are deterministic given (seed, island count)."""
     from ..batch_eval import _pad_rows
 
     n_obj = len(cfg.objectives)
@@ -720,13 +737,25 @@ def _island_search(cfg: SearchConfig, tables, devt, statics: dict,
     sizes[-1, :rem % I] += 1
     total = cfg.budget
 
+    from ..shard import EvalMesh, _map
+
+    if not (mesh is not None and getattr(mesh, "is_sharded", False)
+            and mesh.ndevices == I):
+        mesh = EvalMesh(devices=[device] * I)
+    shared = mesh.replicate((tables, devt, pairs))
+    home = lambda x: _map(x, lambda t: t.to(device))
+
     def step_all(subs, w_t, lo, hi):
-        """Island i's sub-batch through the single-device step under its
-        own weight and normalization rows, one island after another."""
-        outs = [search_step(sub, tables, devt, w_t[i], lo[i], hi[i],
-                            **statics) for i, sub in enumerate(subs)]
-        return ([o[:5] for o in outs], torch.stack([o[5] for o in outs]),
-                torch.stack([o[6] for o in outs]))
+        """Island i's sub-batch through the generation step on device i
+        of the mesh, under its own weight and normalization rows."""
+        outs = mesh.run_shards(
+            lambda sub, t, dv, pr, w, l, h: search_step(
+                sub, t, dv, w, l, h, pairs=pr, **statics),
+            [(subs[i].to(d), *shared[d], w_t[i].to(d), lo[i].to(d),
+              hi[i].to(d)) for i, d in enumerate(mesh.devices)])
+        return ([home(o[:5]) for o in outs],
+                torch.stack([o[5].to(device) for o in outs]),
+                torch.stack([o[6].to(device) for o in outs]))
 
     hall_end = np.empty((total, NS), np.int32)
     hall_pipe = np.empty((total, NS), bool)

@@ -80,7 +80,8 @@ def _joint_explore(nets, dev, n: int = 4096, *, strategy: str = "search",
                    config: MultinetSearchConfig | None = None,
                    weights=None, slo_s=None, mtables=None, device="cuda",
                    tile: int | None = None,
-                   eval_chunk: int | None = None) -> JointDSEResult:
+                   eval_chunk: int | None = None,
+                   mesh=None) -> JointDSEResult:
     """Implementation behind ``Session.deploy``: evaluate ``n``
     deployments of ``nets`` on ``dev`` and return the sample plus its
     Pareto front over the system objectives.
@@ -92,7 +93,8 @@ def _joint_explore(nets, dev, n: int = 4096, *, strategy: str = "search",
     ``mtables`` are used verbatim by EVERY strategy, random included, and
     pick the device; else the tables are built on ``device``.  ``tile``
     and ``eval_chunk`` are the batch path's blocks on the CPU and on the
-    card (None: the defaults).
+    card (None: the defaults).  A sharded ``mesh`` (``core.shard.EvalMesh``)
+    shards every ``joint_evaluate`` call's deployment axis.
     """
     if n < 1:
         raise ValueError(f"n must be >= 1, got {n}")
@@ -110,7 +112,8 @@ def _joint_explore(nets, dev, n: int = 4096, *, strategy: str = "search",
                         objective=objective, weights=weights, slo_s=slo_s)
         cfg = MultinetSearchConfig(**{**base, **over})
         res: MultinetSearchResult = joint_search(
-            nets, dev, cfg, mtables=mtables, device=device, **blocks)
+            nets, dev, cfg, mtables=mtables, device=device, mesh=mesh,
+            **blocks)
         return JointDSEResult(
             designs=res.designs, metrics=res.metrics, seconds=res.seconds,
             per_eval_us=res.seconds / max(res.n_evals, 1) * 1e6,
@@ -145,7 +148,8 @@ def _joint_explore(nets, dev, n: int = 4096, *, strategy: str = "search",
             sh = [s[pad] for s in sh]
         t_eval = time.perf_counter()
         out = joint_evaluate(md, mt, dev, pes_shares=sh[0],
-                             buf_shares=sh[1], bw_shares=sh[2], **blocks)
+                             buf_shares=sh[1], bw_shares=sh[2], mesh=mesh,
+                             **blocks)
         outs.append({k: out[k][:b].cpu().numpy() for k in keep})
         timings.append(dict(chunk=len(timings), breed_s=t_eval - t_draw,
                             step_s=time.perf_counter() - t_eval))

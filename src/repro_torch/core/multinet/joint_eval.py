@@ -43,12 +43,16 @@ index over request-weight-normalized throughputs), ``slo_attainment``,
 hybrid the canonical ``assign`` plane).  :func:`slo_attainment_dist`
 grades the SLO check under per-model deadline distributions.
 
-There is no mesh path: ``mesh=`` raises ``NotImplementedError``
-(``ROADMAP.md``, queue 1, item 11).
+Under a sharded ``mesh`` (``core.shard.EvalMesh``) the deployment axis is
+padded to a multiple of ``ndevices x tile`` and split across the mesh's
+devices, the tables copied to each (:func:`_joint_sharded`); every shard
+runs the same lanes on its rows, so the result is the single-device one
+bit for bit.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -57,7 +61,7 @@ from ..batch_eval import (DEFAULT_CHUNK, DEFAULT_TILE, DeviceTables,
                           NetTables, _seq_sum, evaluate_batch,
                           make_device_tables, make_tables, shared_max_L)
 from ..device import DeviceSpec
-from ..dse.encoding import MultiDesignBatch
+from ..dse.encoding import MultiDesignBatch, pad_deployments, pad_plane
 from ..workload import Network
 from .partition import (DEFAULT_FLOORS, DEFAULT_MAX_M, gather_slices,
                         lane_devices, partition_devices,
@@ -389,6 +393,22 @@ def joint_hybrid(md: MultiDesignBatch, mt: MultiNetTables,
 # --------------------------------------------------------------------------
 # the public entry point
 # --------------------------------------------------------------------------
+def _joint_sharded(mesh, run, md: MultiDesignBatch, mt: MultiNetTables,
+                   devt: DeviceTables, planes, *, tile: int):
+    """Sharded joint evaluation: the deployment axis is padded to a
+    multiple of ``ndevices x tile`` and sharded across the mesh, tables
+    replicated, pad rows sliced back off: the multinet analogue of
+    ``EvalMesh.evaluate_padded`` (the same row-local arithmetic, so it is
+    bit-identical to the single-device call).  Each shard runs ``run``
+    (a mode function), one batch-path call a model lane."""
+    B = md.batch
+    n = mesh.padded_rows(B, tile)
+    out = mesh.shard_call(
+        run, (pad_deployments(md, n), mt, devt,
+              *(pad_plane(p, n) for p in planes)), replicated=(1, 2))
+    return {k: v[:B] for k, v in out.items()}
+
+
 def joint_evaluate(md: MultiDesignBatch, mt: MultiNetTables,
                    dev: DeviceSpec | DeviceTables, *, mode: str = "spatial",
                    pes_shares=None, buf_shares=None, bw_shares=None,
@@ -406,14 +426,11 @@ def joint_evaluate(md: MultiDesignBatch, mt: MultiNetTables,
     ``dev`` is a board or its 0-d ``DeviceTables``.  Each lane is one
     batch-path call in blocks of ``chunk`` designs on the card (one
     search-kernel launch each) and ``tile`` on the CPU.  Returns metric
-    tensors on the tables' device.  ``mesh`` (sharding the deployment
-    axis) is not ported and raises ``NotImplementedError``.
+    tensors on the tables' device.  ``mesh`` (a ``core.shard.EvalMesh``,
+    duck-typed) shards the deployment axis across its devices, the
+    metrics landing on its first device; a None or single-device mesh
+    takes the single-device path unchanged.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "joint_evaluate(mesh=...) shards the deployment axis over "
-            "several cards, which the port does not have yet (ROADMAP.md, "
-            "queue 1, item 11)")
     device = mt.device
     if isinstance(dev, DeviceSpec):
         full_pes = float(dev.pes)
@@ -433,22 +450,23 @@ def joint_evaluate(md: MultiDesignBatch, mt: MultiNetTables,
     kw = dict(tile=tile, chunk=chunk, fm_tile_rows=fm_tile_rows,
               full_pes=full_pes)
     if mode == "spatial":
-        return joint_spatial(md, mt, devt, plane(pes_shares),
-                             plane(buf_shares), plane(bw_shares),
-                             floors=tuple(floors), **kw)
-    if mode == "temporal":
-        return joint_temporal(md, mt, devt, plane(time_shares),
-                              share_floor=float(floors[2]),
-                              reconfig_s=float(reconfig_s), **kw)
-    if mode == "hybrid":
-        return joint_hybrid(md, mt, devt,
-                            plane(assign, torch.zeros_like(ones)),
-                            plane(pes_shares), plane(buf_shares),
-                            plane(bw_shares), plane(time_shares),
-                            floors=tuple(floors),
-                            reconfig_s=float(reconfig_s), **kw)
-    raise ValueError(f"unknown mode {mode!r}; known: spatial, temporal, "
-                     f"hybrid")
+        run = partial(joint_spatial, floors=tuple(floors), **kw)
+        planes = (plane(pes_shares), plane(buf_shares), plane(bw_shares))
+    elif mode == "temporal":
+        run = partial(joint_temporal, share_floor=float(floors[2]),
+                      reconfig_s=float(reconfig_s), **kw)
+        planes = (plane(time_shares),)
+    elif mode == "hybrid":
+        run = partial(joint_hybrid, floors=tuple(floors),
+                      reconfig_s=float(reconfig_s), **kw)
+        planes = (plane(assign, torch.zeros_like(ones)), plane(pes_shares),
+                  plane(buf_shares), plane(bw_shares), plane(time_shares))
+    else:
+        raise ValueError(f"unknown mode {mode!r}; known: spatial, "
+                         f"temporal, hybrid")
+    if mesh is not None and getattr(mesh, "is_sharded", False):
+        return _joint_sharded(mesh, run, md, mt, devt, planes, tile=tile)
+    return run(md, mt, devt, *planes)
 
 
 # --------------------------------------------------------------------------

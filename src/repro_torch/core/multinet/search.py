@@ -286,14 +286,16 @@ def _crossover_assign(rng, a, b, m, frac):
 # --------------------------------------------------------------------------
 def joint_search(nets, dev, config: MultinetSearchConfig | None = None,
                  mtables=None, *, device="cuda", tile: int | None = None,
-                 chunk: int | None = None) -> MultinetSearchResult:
+                 chunk: int | None = None,
+                 mesh=None) -> MultinetSearchResult:
     """Run the joint loop: sample deployments -> joint evaluate -> archive
     -> breed designs, budget splits and (hybrid) assignments together.
 
     Caller-provided ``mtables`` are used verbatim (and pick the device);
     else the tables are built on ``device``.  ``tile`` and ``chunk`` are
     the batch path's blocks on the CPU and on the card (None: the
-    defaults)."""
+    defaults).  A sharded ``mesh`` (``core.shard.EvalMesh``) shards every
+    generation's deployment axis across its devices."""
     cfg = config or MultinetSearchConfig()
     if cfg.budget < 1 or cfg.pop_size < 1:
         raise ValueError(f"budget and pop_size must be >= 1 "
@@ -393,12 +395,14 @@ def joint_search(nets, dev, config: MultinetSearchConfig | None = None,
                 out = joint_evaluate(sub, mt, dev, pes_shares=subsh["pes"],
                                      buf_shares=subsh["buf"],
                                      bw_shares=subsh["bw"],
-                                     floors=cfg.floors, **blocks)
+                                     floors=cfg.floors, mesh=mesh,
+                                     **blocks)
             elif cfg.mode == "temporal":
                 out = joint_evaluate(sub, mt, dev, mode="temporal",
                                      time_shares=subsh["time"],
                                      floors=cfg.floors,
-                                     reconfig_s=cfg.reconfig_s, **blocks)
+                                     reconfig_s=cfg.reconfig_s, mesh=mesh,
+                                     **blocks)
             else:
                 out = joint_evaluate(sub, mt, dev, mode="hybrid",
                                      assign=subsh["assign"],
@@ -407,7 +411,8 @@ def joint_search(nets, dev, config: MultinetSearchConfig | None = None,
                                      bw_shares=subsh["bw"],
                                      time_shares=subsh["time"],
                                      floors=cfg.floors,
-                                     reconfig_s=cfg.reconfig_s, **blocks)
+                                     reconfig_s=cfg.reconfig_s, mesh=mesh,
+                                     **blocks)
             got = {k: out[k][:len(idx)].cpu().numpy() for k in keep}
             if slo_aware:
                 got["slo_attainment_dist"] = slo_attainment_dist(

@@ -1,10 +1,10 @@
 """The front door of the port: a :class:`Session` owns the memoized tables
-and the evaluation knobs, and scores designs on one device.
+and the evaluation knobs, and scores designs on its device (or its mesh).
 
-The PyTorch port of the JAX package's ``core/session.py``, without the
-mesh: ``evaluate`` on one spec or
-notation string (the scalar Builder, plain Python on the host, whatever
-the session's device), on a list of them and on a ``DesignBatch`` (the
+The PyTorch port of the JAX package's ``core/session.py``: ``evaluate``
+on one spec or notation string (the scalar Builder, plain Python on the
+host, whatever the session's device), on a list of them and on a
+``DesignBatch`` (the
 batch path, on the session's device); ``build`` and ``explain`` on one
 design; ``schedule``, the per-CE temporal-mapping search under one design
 (and ``refine="schedule"`` on ``explain`` and ``explore``), on the
@@ -17,7 +17,11 @@ into megabatches, with deadlines and admission control) and
 ``submit_search`` (long ``explore`` and ``deploy`` jobs on their own
 worker); the lifecycle
 (``close``, ``with Session(...)``, :func:`default_session`); and
-``compile_stats``, ``cache_stats`` and ``observability``.  The device is
+``compile_stats``, ``cache_stats`` and ``observability``.  The batch
+paths shard the design axis over the session's ``EvalMesh``
+(``EvalConfig.mesh``, ``core.shard``): every card, or shards of the host
+under ``REPRO_MESH_DEVICES``; a one-device mesh is the single-device path
+unchanged.  The device is
 explicit: ``cuda`` unless the caller passes ``device="cpu"``, and a
 Session asked for ``cuda`` on a machine without a visible card raises
 instead of running on the CPU.  A faulted kernel is retried
@@ -60,6 +64,7 @@ from .multinet.search import JOINT_OBJECTIVES, MultinetSearchConfig
 from .notation import AcceleratorSpec, format_spec, parse
 from .resilience import (CircuitBreaker, EvalError, classify,
                          nonfinite_keys, retry_delay, wrap)
+from .shard import EvalMesh, env_mesh_devices
 from .workload import Network
 
 
@@ -114,9 +119,16 @@ class EvalConfig:
     #: Further submits fail at once with ``EvalError.QUEUE_FULL``; None =
     #: unbounded
     max_queue: int | None = None
+    #: design-axis mesh width (devices).  None resolves REPRO_MESH_DEVICES,
+    #: else every visible device of the session's kind; 1 pins the
+    #: single-device path.  The session builds one ``core.shard.EvalMesh``
+    #: from this and threads it through evaluate()/explore()/deploy()/
+    #: submit()
+    mesh: int | None = None
 
     def resolved(self) -> "EvalConfig":
-        """Check the knobs and pin the env-dependent cache bound."""
+        """Check the knobs and pin the env-dependent fields (the cache
+        bound and the mesh width)."""
         for name in ("tile", "fm_tile_rows", "chunk"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, "
@@ -131,9 +143,12 @@ class EvalConfig:
         if self.linger_max_s is not None and self.linger_max_s < 0:
             raise ValueError(f"linger_max_s must be >= 0, "
                              f"got {self.linger_max_s}")
+        if self.mesh is not None and self.mesh < 1:
+            raise ValueError(f"mesh must be >= 1, got {self.mesh}")
         return replace(
             self, max_cached_tables=env_bound(TABLES_ENV, DEFAULT_MAX_TABLES)
-            if self.max_cached_tables is None else self.max_cached_tables)
+            if self.max_cached_tables is None else self.max_cached_tables,
+            mesh=self.mesh if self.mesh is not None else env_mesh_devices())
 
 
 @dataclass
@@ -250,6 +265,10 @@ class Session:
                 f"Session(device={self.config.device!r}) needs a visible "
                 f"CUDA card and none is available; pass device='cpu' to "
                 f"run the plain PyTorch path on the CPU")
+        #: the session's design-axis mesh, its first device the session's
+        #: own (outputs gather there); a single-device mesh leaves every
+        #: path on ``self.device``
+        self.mesh = EvalMesh(ndevices=self.config.mesh, device=self.device)
         self.default_device = dev
         self.stats = SessionStats()
         #: counts consecutive backend faults and trips open past its
@@ -492,7 +511,7 @@ class Session:
             return self._resilient_call(lambda: evaluate_batch(
                 designs.to(self.device), self.tables(net),
                 self.device_tables(dev), cfg.fm_tile_rows, tile=cfg.tile,
-                chunk=cfg.chunk))
+                chunk=cfg.chunk, mesh=self.mesh))
         try:
             specs = [parse(d, len(net), inter_segment_pipelining=
                            inter_segment_pipelining)
@@ -509,7 +528,7 @@ class Session:
         out = self._resilient_call(lambda: _evaluate_specs(
             specs, net, self.device_tables(dev), cfg.chunk,
             tables=self.tables(net), tile=cfg.tile,
-            fm_tile_rows=cfg.fm_tile_rows))
+            fm_tile_rows=cfg.fm_tile_rows, mesh=self.mesh))
         bad = nonfinite_keys(out)
         if bad:
             raise EvalError(EvalError.NONFINITE_METRICS,
@@ -662,7 +681,7 @@ class Session:
                                seed=seed, chunk=chunk, strategy=strategy,
                                objectives=objectives, config=config,
                                tables=self.tables(net), tile=cfg.tile,
-                               eval_chunk=cfg.chunk)
+                               eval_chunk=cfg.chunk, mesh=self.mesh)
             except Exception as e:  # noqa: BLE001 — classified below
                 if classify(e) != EvalError.BACKEND_FAULT \
                         or isinstance(e, (EvalError, NotImplementedError)):
@@ -752,7 +771,7 @@ class Session:
                     else objectives,
                     objective=objective, config=config, weights=weights,
                     slo_s=slo_s, mtables=mt, tile=cfg.tile,
-                    eval_chunk=cfg.chunk)
+                    eval_chunk=cfg.chunk, mesh=self.mesh)
             except Exception as e:  # noqa: BLE001 — classified below
                 if classify(e) != EvalError.BACKEND_FAULT \
                         or isinstance(e, (EvalError, NotImplementedError)):
@@ -1055,7 +1074,8 @@ class Session:
         cfg = self.config
         return _evaluate_specs(r.specs, r.net, self.device_tables(r.dev),
                                cfg.chunk, tables=self.tables(r.net),
-                               tile=cfg.tile, fm_tile_rows=cfg.fm_tile_rows)
+                               tile=cfg.tile, fm_tile_rows=cfg.fm_tile_rows,
+                               mesh=self.mesh)
 
     def _run_megabatch(self, reqs: list[_Request]) -> None:
         # the outer net: whatever goes wrong below, every future resolves
@@ -1105,7 +1125,8 @@ class Session:
             results = self._resilient_call(lambda: [
                 _evaluate_specs(specs, net, dtab, cfg.chunk, tables=tab,
                                 tile=cfg.tile, pad_to=pad,
-                                fm_tile_rows=cfg.fm_tile_rows)
+                                fm_tile_rows=cfg.fm_tile_rows,
+                                mesh=self.mesh)
                 for specs, net, tab, dtab, pad in jobs])
         except Exception:  # noqa: BLE001 — isolate the bad request(s)
             # one malformed request must not fail its co-queued peers:
@@ -1132,9 +1153,10 @@ class Session:
         back to each request's future, in its own spec order, every
         request answered once."""
         cfg = self.config
+        nd = self.mesh.ndevices if self.mesh.is_sharded else 1
         keyed = [((id(tab), id(dtab)), len(r.specs))
                  for r, tab, dtab in ready]
-        plan = plan_megabatch(keyed, cfg.chunk, cfg.tile)
+        plan = plan_megabatch(keyed, cfg.chunk, cfg.tile, nd)
         by_key = {}
         for i, (key, _) in enumerate(keyed):
             by_key.setdefault(key, i)

@@ -3,7 +3,10 @@ latency sweep, the CE convolution, flash attention) against its plain
 PyTorch version, the Session's main path through the search kernel, the
 schedule layer's plane and artifacts against the CPU's, multinet
 (``joint_evaluate``, ``Session.deploy`` and the search kernel on slice
-boards) against the CPU's, the LM serving path through the flash
+boards) against the CPU's, the design-axis mesh (a sharded
+``evaluate_batch`` and island search, four shards of one card and one
+shard a card where there are several) against the unsharded calls, the
+LM serving path through the flash
 kernel, and training: a reduced Llama step and the flash-attention
 Function's gradients against the CPU's.
 
@@ -1332,3 +1335,57 @@ def test_h100_spec_equals_the_card(cuda):
     assert props.multi_processor_count == H100.sms
     assert props.shared_memory_per_block_optin == H100.smem_bytes_per_block
     assert props.total_memory == H100.hbm_capacity
+
+
+def _card_meshes(cuda):
+    """Four shards of one card, and, with more than one card visible,
+    one shard a card over ``min(4, count)`` cards."""
+    from repro_torch.core.shard import EvalMesh
+    meshes = [EvalMesh(devices=[cuda] * 4)]
+    n = torch.cuda.device_count()
+    if n > 1:
+        meshes.append(EvalMesh(min(4, n)))
+    return meshes
+
+
+def test_sharded_evaluate_batch_on_card_equals_unsharded(cuda):
+    """The design-axis mesh on the card: a sharded ``evaluate_batch`` (rows
+    padded to 4 x 128, each shard in chunks of 2048) bit-equal to the
+    single-device call, every shard launching one search kernel a chunk
+    of its rows on its own device."""
+    from repro_torch.core.batch_eval import evaluate_batch, padded_rows
+    net, board = get_cnn("resnet50"), get_board("zcu102")
+    db = sample_mixed(np.random.default_rng(6), len(net), 5000)
+    t = make_tables(net, device=cuda)
+    want = evaluate_batch(db.to(cuda), t, board)
+    for mesh in _card_meshes(cuda):
+        got = evaluate_batch(db.to(cuda), t, board, mesh=mesh)
+        for k, w in want.items():
+            assert got[k].device == mesh.devices[0]
+            assert torch.equal(got[k].to(cuda), w), k
+        rows = padded_rows(db.batch, 128, mesh.ndevices) // mesh.ndevices
+        assert [s["parallelism_search"] for s in mesh.shard_launches] \
+            == [-(-rows // 2048)] * mesh.ndevices
+
+
+def test_sharded_island_search_on_card_equals_serial(cuda):
+    """Four islands, one a shard (four shards of one card, then one a card
+    where there are several), bit-equal to the serial islands on the
+    card: designs, points, metrics, fronts and history."""
+    from repro_torch.core.dse.search import SearchConfig, search
+    cfg = SearchConfig(n_islands=4, pop_size=64, budget=1300,
+                       migration_interval=2, migration_elites=4, seed=3)
+    net, board = get_cnn("mobilenetv2"), get_board()
+    want = search(net, board, cfg, device=str(cuda))
+    for mesh in _card_meshes(cuda):
+        if mesh.ndevices != 4:
+            continue
+        got = search(net, board, cfg, device=str(cuda), mesh=mesh)
+        for g, w in zip(got.batch.to_numpy(), want.batch.to_numpy()):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got.points, want.points)
+        for k, w in want.metrics.items():
+            np.testing.assert_array_equal(got.metrics[k], w, err_msg=k)
+        np.testing.assert_array_equal(got.front_idx, want.front_idx)
+        assert got.history == want.history
+        assert all(s["parallelism_search"] > 0 for s in mesh.shard_launches)

@@ -454,8 +454,12 @@ def test_joint_evaluate_errors():
                                device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
         tmn.joint_evaluate(md, mt, get_board("zc706"), mode="mixed")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmn.joint_evaluate(md, mt, get_board("zc706"), mesh=object())
+    # an unsharded mesh object takes the single-device path, bit for bit
+    plain = tmn.joint_evaluate(md, mt, get_board("zc706"))
+    meshed = tmn.joint_evaluate(md, mt, get_board("zc706"), mesh=object())
+    assert set(meshed) == set(plain)
+    for k, v in plain.items():
+        assert torch.equal(meshed[k], v), k
     mt3 = tmn.make_multi_tables([get_cnn("resnet50")], max_m=3,
                                 device="cpu")
     with pytest.raises(ValueError, match="design lanes"):
