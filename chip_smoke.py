@@ -251,12 +251,37 @@ Phases, each printing one JSON line:
    the unsharded call bit for bit; (d) with more than one card visible,
    (a)-(c) again over ``min(4, count)`` cards, one shard a card, with
    launches per card; on one card that is reported.
+20. the LM mesh (``repro_torch.launch.{mesh,plans,steps}``, DTensor
+   placements, the ``local_map`` regions): (a) Llama-3.2-1B at full width
+   in bf16, random weights from ``--seed``, through ``build_step`` on a
+   1 x 1 mesh over NCCL (world 1) beside the single-device route of
+   phases 17-18 on the same seed: a prefill of 4 x 4096 (``prefill_32k``
+   cut), one decode step over a cache of 4097 (``decode_32k`` cut) and a
+   ``train_4k`` step at B 4 (phase 17's cut): prefill's logits, the
+   decode step's logits and tokens and the step's loss bit-equal, its
+   parameters bit-equal or within 2e-6 relative (the line names the op
+   where not), ``flash_fwd``'s launches equal, rank 0's layer-0 q, k and
+   v through the kernel and its plain version; seconds, peak memory and
+   collectives (count and bytes by kind) of each; (b) four ranks on the
+   card over gloo on CUDA tensors: ``tests/torch_mesh_check.py``'s
+   golden cases on a 2 x 2 mesh (the reduced f32 Llama and Granite:
+   losses and gradients under each plan, a train step, prefill and
+   greedy decode, the compressed step (its first loss; the rest of the
+   CPU tests' 12-step trajectory reported), ``moe_ep`` and
+   ``moe_ep_a2a`` with drops, the reshard onto 4 x 1) and its 1 x 4
+   cases (heads that do not divide the model axis) against
+   ``golden_mesh.npz`` with the CPU tests' tolerances, and the full-width
+   prefill (one ``flash_fwd`` launch a layer on every rank) and decode
+   step on 2 x 2: seconds, launches, collectives and peak memory a rank,
+   the logits' distance from (a)'s; (c) one rank a
+   card over NCCL where four cards are visible; on one card that is
+   reported.
 
 Then the ``kernels`` line (one entry per kernel source: the search's
 launches those of phase 4's main path and of phase 19's sharded runs,
 ``flash_fwd``'s
-bf16 source with its launches in phase 9 and its largest error over
-phases 8, 9 and 16, its f32 source with its launches
+bf16 source with its launches in phase 9 and phase 20 (a) and its largest
+error over phases 8, 9, 16 and 20, its f32 source with its launches
 in phase 10's long batch), the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before
@@ -271,6 +296,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -492,6 +518,23 @@ AUTOPLAN_TRIES = 3
 #: one shard a card over at most this many cards), the batch path's CPU
 #: tile the sharded rows are padded to, and the timed runs of each route
 MESH_SHARDS, MESH_TILE, MESH_RUNS = 4, 128, 3
+#: phase 20: the LM mesh.  (a) Llama-3.2-1B at full width in bf16 on a
+#: 1 x 1 mesh over NCCL: a ``train_4k`` step at B 4 x S 4096 (phase 17's
+#: cut), a prefill of 4 x 4096 (``prefill_32k`` cut as phase 18's) and one
+#: decode step over a cache of 4097 positions; the train step's parameters
+#: within this relative distance of the single-device route's where not
+#: bit-equal.  (b) four ranks on the one card over gloo on CUDA tensors:
+#: the golden mesh cases (``golden_mesh.npz``) and the full-width prefill
+#: and decode on a 2 x 2 mesh (no full-width training there: four copies
+#: of the weights and their AdamW state, 4 x 12.4 GB, and gloo's host
+#: staging of every collective); (c) one rank a card over NCCL where more
+#: than one card is visible.  Tolerances of the golden cases as
+#: tests/test_torch_mesh.py holds them on the CPU.
+LM_MESH_ARCH, LM_MESH_B, LM_MESH_S, LM_MESH_RANKS = "llama3.2-1b", 4, 4096, 4
+LM_MESH_PARAM_RTOL = 2e-6
+LM_MESH_LOSS_ATOL, LM_MESH_RTOL_OF_SCALE, LM_MESH_MAX_FLIPS = 1e-5, 5e-5, 8
+GOLDEN_MESH = os.path.join(ROOT, "src", "repro_torch", "data",
+                           "golden_mesh.npz")
 
 
 class PhaseFailed(RuntimeError):
@@ -5042,10 +5085,486 @@ def phase_mesh(card: str, device, want: dict, seed: int,
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 20
+# --------------------------------------------------------------------------
+def _rendezvous(d: str) -> str:
+    return "file://" + os.path.join(d, "rendezvous")
+
+
+def _counted(fn, device, warm: bool = True, reps: int = 2):
+    """(result, host seconds of each of ``reps`` timed calls, ``flash_fwd``
+    launches, collectives by kind) of ``fn``: after a warm-up call (where
+    ``warm``), one call under the collective counter, the counts set to 0
+    just before it, then ``reps`` calls timed without the counter (each
+    ending in a synchronize)."""
+    import torch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.collectives import CollectiveCounter
+    if warm:
+        fn()
+    torch.cuda.synchronize(device)
+    reset_launches()
+    with CollectiveCounter() as cc:
+        out = fn()
+        torch.cuda.synchronize(device)
+    n_launch = launches()["flash_fwd"]
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+    return out, times, n_launch, cc.report()
+
+
+def _time_once(fn, device) -> float:
+    """Host seconds of one call of ``fn``, ending in a synchronize."""
+    import torch
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
+
+
+def _lm_mesh_one(device, seed: int, out_dir: str) -> dict:
+    """Phase 20 (a): full-width Llama-3.2-1B through ``build_step`` on a
+    1 x 1 NCCL mesh beside the single-device route on the same seed."""
+    import numpy as np
+    import math
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import synth_batch, to_device
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.plans import default_plan
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = get_config(LM_MESH_ARCH)
+    api = get_model(cfg)
+    B, S = LM_MESH_B, LM_MESH_S
+    tshape = ShapeSpec("train_4k_cut", "train", S, B)
+    pshape = ShapeSpec("prefill_32k_cut", "prefill", S, B)
+    dshape = ShapeSpec("decode_32k_cut", "decode", S + 1, B)
+    batch = to_device(synth_batch(cfg, tshape, 0, seed=seed), device)
+    tokens = batch["tokens"]
+
+    def model():
+        return api.init(torch.Generator(device=device).manual_seed(seed))
+    out = dict(config=dict(arch=LM_MESH_ARCH, dtype=cfg.dtype, B=B, S=S,
+                           cache=S + 1, mesh={"data": 1, "model": 1},
+                           backend="nccl",
+                           cuts=["train_4k: batch 256 -> 4",
+                                 "prefill_32k: 32 x 32768 -> 4 x 4096",
+                                 "decode_32k: 128 x 32768 -> 4 x 4097"]))
+    # the single-device route (phases 17 and 18)
+    m = model()
+    prt = default_plan(cfg, SHAPES["prefill_32k"]).runtime()
+    drt = default_plan(cfg, SHAPES["decode_32k"]).runtime()
+    with torch.no_grad():
+        (lp, cache), p_s, p_launch, _ = _counted(
+            lambda: api.prefill(m, tokens, prt, max_len=S + 1), device)
+        tok = lp[:, -1, :cfg.vocab_size].argmax(-1)[:, None].int()
+        (ld, _), d_s, d_launch, _ = _counted(
+            lambda: api.decode_step(m, cache, tok, drt), device)
+    del cache
+    plain = dict(prefill_s=p_s, decode_s=d_s, prefill_flash=p_launch,
+                 decode_flash=d_launch)
+    # the mesh route on the same model, its parameters placed on 1 x 1
+    with tempfile.TemporaryDirectory() as d:
+        MESH.init_process_group("nccl", rank=0, world_size=1,
+                                init_method=_rendezvous(d))
+        try:
+            mesh = MESH.make_mesh_spec(1, 1, device="cuda")
+            pb = ST.build_step(cfg, pshape, mesh)
+            db = ST.build_step(cfg, dshape, mesh)
+            pb.place_model(m)
+            torch.cuda.reset_peak_memory_stats(device)
+            (lpm, cache), pm_s, pm_launch, pm_coll = _counted(
+                lambda: pb.fn(m, {"tokens": tokens}, max_len=S + 1), device)
+            lpm = lpm.full_tensor()
+            tokm = lpm[:, -1, :cfg.vocab_size].argmax(-1)[:, None].int()
+            (ldm, _), dm_s, dm_launch, dm_coll = _counted(
+                lambda: db.fn(m, cache, tokm), device)
+            ldm = ldm.full_tensor()
+            serve_peak = torch.cuda.max_memory_allocated(device)
+            del cache
+            # rank 0's layer-0 local q, k and v through the kernel
+            with torch.no_grad():
+                loc = {k: (v.to_local() if isinstance(v, DTensor) else v)
+                       for k, v in m["layers"][0]["attn"].named_parameters()}
+                attn = L.Params(**{k: v.clone() for k, v in loc.items()})
+                table = m["embed"]["table"].to_local()
+                ln1 = L.Params(scale=m["layers"][0]["ln1"]["scale"]
+                               .to_local().clone())
+                h = L.rms_norm(table[tokens], ln1, cfg.norm_eps)
+                q, k, v = L._qkv(attn, h, cfg)
+                cos, sin = L.rope_angles(torch.arange(S, device=device),
+                                         cfg.head_dim, cfg.rope_theta)
+                q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+            layer0_err = _flash_vs_plain(q, k, v, "lm_mesh layer 0")
+            del q, k, v, h, m
+            np.save(os.path.join(out_dir, "prefill_logits.npy"),
+                    lp[:, -1].float().cpu().numpy())
+            np.save(os.path.join(out_dir, "decode_logits.npy"),
+                    ld[:, -1].float().cpu().numpy())
+            serve = dict(
+                prefill_s=pm_s, decode_s=dm_s, prefill_flash=pm_launch,
+                decode_flash=dm_launch, collectives=dict(prefill=pm_coll,
+                                                         decode=dm_coll),
+                peak_bytes=serve_peak,
+                prefill_logits_bit_equal=bool(torch.equal(lpm, lp)),
+                decode_tokens_equal=bool(torch.equal(tokm, tok)),
+                decode_logits_bit_equal=bool(torch.equal(ldm, ld)),
+                layer0_max_abs_err=layer0_err)
+            # training: the single-device step, then the mesh's
+            plan = default_plan(cfg, SHAPES["train_4k"])
+            opt = make_optimizer("adamw", peak_lr=3e-3, warmup=20,
+                                 total_steps=100,
+                                 state_dtype=plan.opt_state_dtype,
+                                 factored=plan.opt_factored,
+                                 momentum=plan.opt_momentum)
+            state = init_state(api, opt, model=model(), device=device)
+            step = make_train_step(api, plan.runtime(), opt, device=device)
+            box = {}
+
+            def plain_step():
+                box["state"], box["m"] = step(state, batch)
+            # the first step counted and compared, a second one timed
+            _, _, t_launch, _ = _counted(plain_step, device, warm=False,
+                                         reps=0)
+            mt = box.pop("m")
+            want = {n: p.detach().clone()
+                    for n, p in state.model.named_parameters()}
+            loss, gnorm = mt["loss"].clone(), mt["grad_norm"].clone()
+            t_s = _time_once(plain_step, device)
+            box.clear()
+            plain.update(train_s=t_s, train_flash=t_launch,
+                         loss=float(loss), grad_norm=float(gnorm))
+            del state, step, mt
+            tb = ST.build_step(cfg, tshape, mesh, opt=opt)
+            state = init_state(api, opt, model=tb.place_model(model()),
+                               device=device)
+            torch.cuda.reset_peak_memory_stats(device)
+            (_, mm), _, tm_launch, tm_coll = _counted(
+                lambda: tb.fn(state, batch), device, warm=False, reps=0)
+            peak = torch.cuda.max_memory_allocated(device)
+            rel, n_diff = 0.0, 0
+            for n, p in state.model.named_parameters():
+                got, w = p.detach().to_local().float(), want[n].float()
+                diff = (got - w).abs()
+                n_diff += int((diff > 0).sum())
+                rel = max(rel, float(diff.max() / w.abs().max().clamp_min(
+                    1e-30)))
+            gn_equal = bool(torch.equal(mm["grad_norm"], gnorm))
+            loss_equal = bool(torch.equal(mm["loss"], loss))
+            m_loss, m_gnorm = float(mm["loss"]), float(mm["grad_norm"])
+            tm_s = _time_once(lambda: tb.fn(state, batch), device)
+            train = dict(
+                step_s=tm_s, flash=tm_launch, collectives=tm_coll,
+                peak_bytes=peak, loss=m_loss, grad_norm=m_gnorm,
+                loss_bit_equal=loss_equal,
+                grad_norm_bit_equal=gn_equal,
+                params_bit_equal=n_diff == 0, params_differing=n_diff,
+                params_max_rel=rel,
+                differing_op=(None if n_diff == 0 else
+                              "the gradient norm's sum of squares"
+                              if not gn_equal else "the AdamW update"))
+            del state, want
+        finally:
+            dist.destroy_process_group()
+    out.update(single_device=plain, serve=serve, train=train)
+    fails = []
+    if not (serve["prefill_logits_bit_equal"] and serve["decode_tokens_equal"]
+            and serve["decode_logits_bit_equal"]):
+        fails.append("serving differs from the single-device route")
+    if not train["loss_bit_equal"]:
+        fails.append("the train step's loss differs")
+    if not train["params_bit_equal"] and rel > LM_MESH_PARAM_RTOL:
+        fails.append(f"parameters {rel} apart relatively")
+    if (pm_launch, dm_launch, tm_launch) != (p_launch, d_launch, t_launch):
+        fails.append(f"flash_fwd launches {(pm_launch, dm_launch, tm_launch)}"
+                     f" != single device {(p_launch, d_launch, t_launch)}")
+    if not math.isfinite(train["loss"]):
+        fails.append("non-finite loss")
+    if fails:
+        raise PhaseFailed(f"lm_mesh (a): {fails}: {out}")
+    out["launches"] = pm_launch + dm_launch + tm_launch
+    return out
+
+
+def _lm_mesh_full_rank(device, seed: int, a_dir: str) -> dict:
+    """Full-width Llama-3.2-1B bf16 prefill and one decode step on this
+    world's 2 x 2 mesh: seconds, launches, collectives, peak memory, and
+    (rank 0) the logits' distance from (a)'s."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import synth_batch, to_device
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.registry import get_model
+    cfg = get_config(LM_MESH_ARCH)
+    api = get_model(cfg)
+    B, S = LM_MESH_B, LM_MESH_S
+    batch = to_device(synth_batch(cfg, ShapeSpec("train_4k_cut", "train", S,
+                                                 B), 0, seed=seed), device)
+    mesh = MESH.make_mesh_spec(2, 2, device="cuda")
+    pb = ST.build_step(cfg, ShapeSpec("prefill_32k_cut", "prefill", S, B),
+                       mesh)
+    db = ST.build_step(cfg, ShapeSpec("decode_32k_cut", "decode", S + 1, B),
+                       mesh)
+    m = pb.place_model(api.init(torch.Generator(device=device).manual_seed(
+        seed)))
+    torch.cuda.reset_peak_memory_stats(device)
+    (lp, cache), p_s, p_launch, p_coll = _counted(
+        lambda: pb.fn(m, {"tokens": batch["tokens"]}, max_len=S + 1), device)
+    lp = lp.full_tensor()
+    tok = lp[:, -1, :cfg.vocab_size].argmax(-1)[:, None].int()
+    (ld, _), d_s, d_launch, d_coll = _counted(lambda: db.fn(m, cache, tok),
+                                              device)
+    ld = ld.full_tensor()
+    out = dict(prefill_s=p_s, decode_s=d_s, prefill_flash=p_launch,
+               decode_flash=d_launch,
+               collectives=dict(prefill=p_coll, decode=d_coll),
+               peak_bytes=torch.cuda.max_memory_allocated(device))
+    nxt = ld[:, -1, :cfg.vocab_size].argmax(-1)
+    out["tokens_ok"] = bool(torch.isfinite(ld).all()) and bool(
+        ((nxt >= 0) & (nxt < cfg.vocab_size)).all())
+    if dist.get_rank() == 0:
+        a_p = np.load(os.path.join(a_dir, "prefill_logits.npy"))
+        a_d = np.load(os.path.join(a_dir, "decode_logits.npy"))
+        out["prefill_max_abs_err_vs_a"] = float(np.abs(
+            lp[:, -1].float().cpu().numpy() - a_p).max())
+        out["decode_max_abs_err_vs_a"] = float(np.abs(
+            ld[:, -1].float().cpu().numpy() - a_d).max())
+        out["decode_tokens_equal_a"] = bool(np.array_equal(
+            tok.cpu().numpy()[:, 0], a_p[:, :cfg.vocab_size].argmax(-1)))
+    return out
+
+
+def _lm_mesh_rank(rank: int, world: int, backend: str, init: str,
+                  out_dir: str, a_dir: str, seed: int) -> None:
+    """One rank of (b) or (c): the full-width serving on the 2 x 2 mesh,
+    then the golden mesh cases (``tests/torch_mesh_check.py``, the CPU
+    tests' rank program); rank 0 writes the golden cases' arrays and each
+    rank its own numbers under ``out_dir``."""
+    import numpy as np
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as MESH
+    sys.path.append(os.path.join(ROOT, "tests"))
+    import torch_mesh_check as mesh_check
+    faulthandler.enable()           # a crash in a rank prints its stack
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if backend == "gloo":
+        torch.cuda.set_device(0)                # the ranks share one card
+    MESH.init_process_group(backend, rank=rank, world_size=world,
+                            init_method=init)
+    device = torch.device("cuda", torch.cuda.current_device())
+    mine: dict = {}
+    try:
+        t0 = time.perf_counter()
+        mine["full"] = _lm_mesh_full_rank(device, seed, a_dir)
+        mine["full_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = mesh_check.run_2x2(mesh_check.golden(), "cuda",
+                                 os.path.join(out_dir, "ckpt"))
+        mine["golden_s"] = time.perf_counter() - t0
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "golden_cases.npz"), **got)
+        del got
+        mine["bad_modules"] = [m for m in sys.modules
+                               if m in ("jax", "repro")
+                               or m.startswith(("jax.", "repro."))]
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(mine, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_golden_check(got: dict) -> dict:
+    """The golden mesh cases run on the card against ``golden_mesh.npz``,
+    with tests/test_torch_mesh.py's tolerances; fails past any."""
+    import numpy as np
+    with np.load(GOLDEN_MESH) as z:
+        g = {k: z[k] for k in z.files}
+    worst: dict = {}
+    fails = []
+
+    def note(key, err):
+        grp = "/".join(key.split("/")[:3])
+        worst[grp] = max(worst.get(grp, 0.0), err)
+    for k, w in g.items():
+        if w.dtype.kind in "USO" or "/batch/" in k or "/init/" in k \
+                or k.endswith("/moe/x"):
+            continue
+        if k not in got:
+            fails.append(f"{k}: not run")
+            continue
+        a = got[k]
+        if a.shape != w.shape:
+            fails.append(f"{k}: shape {a.shape} != {w.shape}")
+            continue
+        if w.dtype.kind in "iu":
+            if not np.array_equal(a, w):
+                fails.append(f"{k} differs")
+            continue
+        if "/compress/grads/" in k or "/compress/residuals/" in k:
+            arch, rest = k.split("/compress/")
+            path = rest.split("/", 2)[-1] if rest.startswith(
+                "residuals") else rest[len("grads/"):]
+            q = np.abs(a - w) / g[f"{arch}/compress/scales/{path}"]
+            note(k, float(q.max(initial=0.0)))
+            worst[arch + " flips"] = worst.get(arch + " flips", 0) + int(
+                (q > 1e-3).sum())
+            if q.max(initial=0.0) > 1.0 + 1e-3:
+                fails.append(f"{k}: {q.max()} quanta")
+            continue
+        if k.endswith("/compress/losses"):
+            # the card runs one compressed step against the golden file;
+            # the other 11 of the CPU tests' trajectory are reported: each
+            # flip of an int8 rounding moves the rest of the trajectory
+            worst[k + " (12 steps, reported)"] = float(np.abs(a - w).max())
+            a, w = a[:1], w[:1]
+        if k.endswith(("/loss", "/nll", "/aux", "/grad_norm", "/losses")):
+            err = float(np.abs(a - w).max())
+            tol = LM_MESH_LOSS_ATOL
+        elif "/scales/" in k:
+            err = float((np.abs(a - w) / w).max())
+            tol = 1e-5
+        else:
+            err = float(np.abs(a - w).max()) / max(1.0, float(
+                np.abs(w).max(initial=0.0)))
+            tol = LM_MESH_RTOL_OF_SCALE
+        note(k, err)
+        if err > tol:
+            fails.append(f"{k}: {err} > {tol}" + (
+                f" (got {a.tolist()}, want {w.tolist()})" if a.size <= 16
+                else ""))
+    for arch in {k.split("/")[0] for k in g if "/compress/" in k}:
+        if worst.get(arch + " flips", 0) > 2 * LM_MESH_MAX_FLIPS:
+            fails.append(f"{arch}: {worst[arch + ' flips']} elements flip")
+    for impl in ("ep", "ep_a2a"):
+        key = f"granite-moe-1b-a400m/moe/{impl}/dropped"
+        if int(got[key]) <= 0:
+            fails.append(f"{key}: nothing dropped")
+    ck = [k for k in got if k.startswith("reshard/4x1/")]
+    if not ck:
+        fails.append("no reshard arrays")
+    if fails:
+        raise PhaseFailed(f"lm_mesh golden cases: {fails[:10]}")
+    return dict(worst=worst, dropped={
+        impl: int(got[f"granite-moe-1b-a400m/moe/{impl}/dropped"])
+        for impl in ("ep", "ep_a2a")},
+        collectives={impl: json.loads(str(
+            got[f"granite-moe-1b-a400m/moe/{impl}/collectives"]))
+            for impl in ("ep", "ep_a2a")})
+
+
+def _lm_mesh_world(backend: str, world: int, a_dir: str, seed: int) -> dict:
+    """Spawn ``world`` ranks of ``backend`` and gather their results: the
+    golden cases held against ``golden_mesh.npz``, the reshard bit-equal,
+    no rank importing ``jax`` or ``repro``, and the full-width prefill
+    launching ``flash_fwd`` once a layer on every rank."""
+    import numpy as np
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    with tempfile.TemporaryDirectory() as d:
+        out_dir = os.path.join(d, "out")
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        mp.spawn(_lm_mesh_rank, args=(world, backend, _rendezvous(d),
+                                      out_dir, a_dir, seed),
+                 nprocs=world)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        with np.load(os.path.join(out_dir, "golden_cases.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        # kept beside the run's output, for a failure to be read there
+        os.makedirs(OUT_DIR, exist_ok=True)
+        np.savez_compressed(os.path.join(
+            OUT_DIR, f"lm_mesh_golden_cases_{backend}.npz"), **got)
+        with np.load(os.path.join(out_dir, "ckpt", "2x2", "step_00000001",
+                                  "arrays.npz")) as z:
+            saved = {k: z[k] for k in z.files}
+    golden = _mesh_golden_check(got)
+    off = [k for k, v in saved.items()
+           if not np.array_equal(got[f"reshard/4x1/{k}"].astype(v.dtype), v)]
+    if off:
+        raise PhaseFailed(f"lm_mesh reshard onto 4 x 1 not bit-equal: {off}")
+    bad = sorted({m for r in ranks for m in r["bad_modules"]})
+    if bad:
+        raise PhaseFailed(f"lm_mesh ranks imported {bad}")
+    full = [r["full"] for r in ranks]
+    if not all(f["tokens_ok"] for f in full):
+        raise PhaseFailed(f"lm_mesh full-width tokens: {full}")
+    layers = get_config(LM_MESH_ARCH).n_layers
+    if any(f["prefill_flash"] != layers for f in full):
+        raise PhaseFailed(f"lm_mesh full-width prefill: flash_fwd launches "
+                          f"a rank {[f['prefill_flash'] for f in full]}, "
+                          f"want {layers} (one a layer)")
+    return dict(backend=backend, world=world, mesh={"data": 2, "model": 2},
+                wall_s=wall, golden=golden, reshard_4x1_bit_equal=True,
+                golden_s=[r["golden_s"] for r in ranks],
+                full=full, full_s=[r["full_s"] for r in ranks],
+                launches=sum(f["prefill_flash"] + f["decode_flash"]
+                             for f in full))
+
+
+def phase_lm_mesh(card: str, device, seed: int) -> dict:
+    """Phase 20: the LM mesh (the module docstring's item 20)."""
+    import torch
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as a_dir:
+        one = _lm_mesh_one(device, seed, a_dir)
+        emit("lm_mesh", part="(a) 1 x 1", **one)
+        torch.cuda.empty_cache()
+        t_b = time.perf_counter()
+        four = _lm_mesh_world("gloo", LM_MESH_RANKS, a_dir, seed)
+        count = torch.cuda.device_count()
+        across = ("one card visible" if count == 1 else
+                  _lm_mesh_world("nccl", LM_MESH_RANKS, a_dir, seed)
+                  if count >= LM_MESH_RANKS else
+                  f"{count} cards visible: the 2 x 2 mesh needs "
+                  f"{LM_MESH_RANKS}")
+    info = dict(card=card, one_by_one=one, gloo_on_one_card=four,
+                across_cards=across,
+                tolerance=dict(param_rtol=LM_MESH_PARAM_RTOL,
+                               loss_atol=LM_MESH_LOSS_ATOL,
+                               rtol_of_scale=LM_MESH_RTOL_OF_SCALE,
+                               compressed="one quantum"),
+                a_s=t_b - t_phase, b_s=time.perf_counter() - t_b,
+                launches=one["launches"],
+                phase_s=time.perf_counter() - t_phase)
+    emit("lm_mesh", **info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--designs", type=int, default=100_000)
+    ap.add_argument("--only", choices=("lm_mesh",), default=None,
+                    help="run the kernels' build and this phase alone, and "
+                         "print no kernels line and no ok line (debugging)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5059,6 +5578,9 @@ def main(argv=None) -> int:
     card = nvidia_smi()
 
     phase_build(card)
+    if args.only == "lm_mesh":
+        phase_lm_mesh(card, device, args.seed)
+        return 0
     err = phase_kernel(card, device)
     phase_main_vs_golden(card, device)
     search = phase_load(card, device, args.seed, args.designs)
@@ -5085,6 +5607,11 @@ def main(argv=None) -> int:
     mesh = phase_mesh(card, device, search.pop("arrays"), args.seed,
                       args.designs)
     search["launches"] += mesh["launches"]
+    lm_mesh = phase_lm_mesh(card, device, args.seed)
+    flash["launches"] += lm_mesh["launches"]
+    flash["max_abs_err"] = max(flash["max_abs_err"],
+                               lm_mesh["one_by_one"]["serve"][
+                                   "layer0_max_abs_err"])
     flash["max_abs_err"] = max([flash["max_abs_err"]] + [
         c["max_abs_err"] for f in families["serve"].values()
         for c in f["kernel_vs_plain"].values()])

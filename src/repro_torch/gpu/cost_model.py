@@ -13,10 +13,11 @@ Outputs the three roofline terms, in seconds, that a walk of the step
 (``op_walk``) counts, plus a fits-in-HBM verdict -- analytically, in
 microseconds per plan, which is what makes plan DSE (``autoplan``)
 practical.  The arithmetic is the JAX function's, in its order, so that
-on a chip with the TPU's figures the two give equal floats; the port's own
-plans are one device (:meth:`PlanView.of`), and :func:`estimate_view`
-takes a :class:`PlanView` as it is, so the TP, FSDP and expert-parallel
-branches run at any mesh's widths.
+on a chip with the TPU's figures the two give equal floats.
+:meth:`PlanView.of` resolves a plan's axes to widths on a mesh (a
+``DeviceMesh``, or anything whose ``.shape`` maps axis to width), or
+without one to a single device; :func:`estimate_view` takes a
+:class:`PlanView` as it is.
 
 All quantities are PER DEVICE unless suffixed ``_global``.
 """
@@ -26,6 +27,7 @@ import math
 from dataclasses import dataclass, field
 
 from ..configs.base import ModelConfig, ShapeSpec
+from ..launch.plans import mesh_shape
 from .chip import H100, ChipSpec
 
 BF16 = 2
@@ -34,9 +36,8 @@ F32 = 4
 
 @dataclass
 class PlanView:
-    """The axis widths a plan resolves to: the JAX package's
-    ``PlanView.of(plan, mesh)`` on any mesh, or :meth:`of` one of the
-    port's plans."""
+    """The axis widths a plan resolves to: on a mesh, the JAX package's
+    ``PlanView.of(plan, mesh)``; without one, one device."""
 
     n_dev: int
     dp: int                    # product of data axes (incl. pod)
@@ -53,18 +54,37 @@ class PlanView:
     opt_bytes: int = F32
 
     @classmethod
-    def of(cls, plan) -> "PlanView":
-        """The widths of one of the port's plans: one device, so every
-        axis has width 1 and the MoE dispatch is ``local`` (at width 1 the
-        JAX package's ``ep_a2a`` takes the same arithmetic)."""
-        return cls(n_dev=1, dp=1, tp=1, fsdp=1, ep=1,
-                   remat=plan.remat, remat_group=plan.remat_group,
-                   act_shard_seq=False, moe_impl="local",
-                   loss_chunk=plan.loss_chunk,
-                   opt_factored=plan.opt_factored,
+    def of(cls, plan, mesh=None) -> "PlanView":
+        """The widths ``plan`` resolves to on ``mesh``; without one, one
+        device, where every axis has width 1 and the MoE dispatch is
+        ``local`` (at width 1 the JAX package's ``ep_a2a`` takes the same
+        arithmetic)."""
+        opt = dict(opt_factored=plan.opt_factored,
                    opt_momentum=plan.opt_momentum,
                    opt_bytes=(2 if plan.opt_state_dtype == "bfloat16"
                               else F32))
+        if mesh is None:
+            return cls(n_dev=1, dp=1, tp=1, fsdp=1, ep=1,
+                       remat=plan.remat, remat_group=plan.remat_group,
+                       act_shard_seq=False, moe_impl="local",
+                       loss_chunk=plan.loss_chunk, **opt)
+        shape = mesh_shape(mesh)
+        dp = 1
+        for a in plan.dp_axes:
+            dp *= shape.get(a, 1)
+        tp = shape.get(plan.tp_axis, 1) if plan.tp_axis else 1
+        fsdp = 1
+        for a in (plan.fsdp_axes or ()):
+            fsdp *= shape.get(a, 1)
+        ep = shape.get(plan.ep_axis, 1) if plan.ep_axis else 1
+        n = 1
+        for v in shape.values():
+            n *= v
+        return cls(n_dev=n, dp=dp, tp=tp, fsdp=max(fsdp, 1), ep=ep,
+                   remat=plan.remat, remat_group=plan.remat_group,
+                   act_shard_seq=(plan.act_shard == "seq"),
+                   moe_impl=plan.moe_impl, loss_chunk=plan.loss_chunk,
+                   **opt)
 
 
 @dataclass
@@ -154,10 +174,10 @@ def _ag_wire(size_out: float, n: int) -> float:
 
 
 def estimate(cfg: ModelConfig, shape: ShapeSpec, plan,
-             chip: ChipSpec = H100) -> CostEstimate:
+             chip: ChipSpec = H100, *, mesh=None) -> CostEstimate:
     """Analytical per-device cost of one step of this cell under one of the
-    port's plans, on one card."""
-    return estimate_view(cfg, shape, PlanView.of(plan), chip)
+    port's plans, on ``mesh`` (one card without one)."""
+    return estimate_view(cfg, shape, PlanView.of(plan, mesh), chip)
 
 
 def estimate_view(cfg: ModelConfig, shape: ShapeSpec, pv: PlanView,

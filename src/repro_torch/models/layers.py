@@ -18,8 +18,23 @@ kept from there:
   FlashAttention-2 VJP as blockwise torch tensor code.
 * Sliding-window attention (h2o-danube) masks both paths.
 
-Not ported yet: the tensor-parallel head padding and sharding hints (a
-``Runtime`` with a mesh raises).
+On a mesh (``rt.mesh``) the tensors are DTensors and DTensor propagates
+the projections' shardings; three regions run under ``local_map``, on each
+rank's local tensors, because a DTensor cannot reach the kernel (its
+``data_ptr``) or has no sharding strategy for the op:
+
+* the attention (:func:`attention_region`): q/k/v with batch over the dp
+  axes and heads over tp, so each rank runs ``flash_fwd`` (or the dense
+  path) on its own heads; heads that do not divide tp are padded to the
+  next multiple, kv heads that do not divide it repeated first, as the
+  JAX package's ``chunked_attention`` does;
+* the decode step's cache write and attention (:func:`decode_region`), on
+  the cache's own layout: heads over tp, or, where the kv heads do not
+  divide tp (or the plan shards the cache's sequence), the sequence, with
+  the softmax's max, sum and product reduced across the sequence's ranks;
+* the embedding lookup (:func:`embed_rows`) on a vocab-sharded table:
+  each tp rank looks up the tokens its rows hold, zeros elsewhere, and
+  the sum over tp (a ``Partial`` placement) is the row.
 """
 from __future__ import annotations
 
@@ -32,6 +47,8 @@ from torch import nn
 
 from ..kernels.flash_attn import flash_attention
 from ..kernels.flash_attn.ref import attention_mask, kv_range
+from . import collectives as C
+from .runtime import placements
 
 
 class Params(nn.Module):
@@ -178,10 +195,28 @@ def _qkv(params: Params, x, cfg):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = _heads(q, cfg.n_heads, cfg.head_dim)
+    k = _heads(k, cfg.n_kv_heads, cfg.head_dim)
+    v = _heads(v, cfg.n_kv_heads, cfg.head_dim)
     return q, k, v
+
+
+def _heads(t, n: int, hd: int):
+    """(B, S, n·hd) -> (B, S, n, hd).  A DTensor whose features are
+    sharded over axes whose width does not divide ``n`` (2 kv heads on a
+    4-wide model axis) is first made whole along them."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if isinstance(t, DTensor):
+        mesh, last = t.device_mesh, t.ndim - 1
+        width = 1
+        for i, p in enumerate(t.placements):
+            if isinstance(p, Shard) and p.dim % t.ndim == last:
+                width *= mesh.size(i)
+        if n % width:
+            t = t.redistribute(mesh, tuple(
+                Replicate() if isinstance(p, Shard) and p.dim % t.ndim == last
+                else p for p in t.placements))
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
 
 
 def _repeat_kv(k, n_rep: int):
@@ -377,37 +412,123 @@ def resolve_mode(mode: str, S: int) -> str:
 
 def attention_fwd(params: Params, x, cfg, *, positions=None, causal=True,
                   mode: str = "auto", q_offset: int = 0,
-                  return_kv: bool = False):
+                  return_kv: bool = False, rt=None):
     """Self-attention over x:(B,S,D) -> (B,S,D), or with ``return_kv``
     (out, k, v): the roped keys and the values, (B,S,Hkv,hd), that prefill
-    writes into the KV cache."""
+    writes into the KV cache.  With a mesh in ``rt`` the attention runs in
+    :func:`attention_region`."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, cfg)
     if positions is None:
         positions = torch.arange(S, device=x.device) + q_offset
     if cfg.pos_emb == "rope":
         cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        cos, sin = replicated_like(cos, q), replicated_like(sin, q)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     window = cfg.sliding_window
-    if resolve_mode(mode, S) == "chunked":
-        out = chunked_attention(q, k, v, causal=causal, window=window,
-                                q_offset=q_offset)
+    attn = chunked_attention if resolve_mode(mode, S) == "chunked" \
+        else dense_attention
+
+    def fn(q, k, v):
+        return attn(q, k, v, causal=causal, window=window,
+                    q_offset=q_offset)
+    wo = params["wo"]
+    if rt is not None and rt.mesh is not None:
+        out = attention_region(rt, fn, q, k, v)
+        if _padded_heads(rt, cfg.n_heads):
+            # heads padded over tp leave whole (attention_region); so does
+            # wo, whose rows tp would split inside a head
+            wo = wo.redistribute(rt.mesh, placements((), rt.mesh))
     else:
-        out = dense_attention(q, k, v, causal=causal, window=window,
-                              q_offset=q_offset)
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ params["wo"]
+        out = fn(q, k, v)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ wo
     return (out, k, v) if return_kv else out
 
 
+def _padded_heads(rt, n_heads: int) -> bool:
+    """Whether ``n_heads`` are padded to a multiple of the tp width."""
+    ntp = rt.size(rt.tp_axis) if rt.tp_axis else 1
+    return ntp > 1 and n_heads % ntp != 0
+
+
+def replicated_like(t, ref):
+    """``t`` as a DTensor replicated on ``ref``'s mesh where ``ref`` is a
+    DTensor, else ``t``.  A plain tensor that an autograd op saves beside
+    DTensors must be one: the backward runs without the forward's
+    implicit replication."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(ref, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def _spec(rt, n: int, dims: dict, shape) -> tuple:
+    """An n-dim spec from {dim: axes}, an entry dropped where its axes'
+    width does not divide the dim."""
+    out = [None] * n
+    for d, axes in dims.items():
+        if axes and shape[d] % rt.size(axes) == 0:
+            out[d] = axes
+    return tuple(out)
+
+
+def attention_region(rt, fn, q, k, v):
+    """``fn(q, k, v) -> out`` (q, out (B,S,H,hd); k, v (B,S,Hkv,hd)) on
+    each rank's heads under ``local_map``: batch over the dp axes, heads
+    over tp.  KV heads that do not divide tp are repeated to H first;
+    heads that do not divide it are padded with zero heads to the next
+    multiple on every rank, and each rank runs its own slice of them (the
+    padded heads' outputs are cut off)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh, tp = rt.mesh, rt.tp_axis
+    H, Hkv = q.shape[2], k.shape[2]
+    ntp = rt.size(tp) if tp else 1
+    if ntp > 1 and Hkv % ntp:
+        k, v = _repeat_kv(k, H // Hkv), _repeat_kv(v, H // Hkv)
+    dp = rt.dp_axes or None
+    pad = _padded_heads(rt, H)
+    bdims = _spec(rt, 4, {0: dp}, q.shape)
+    if pad:
+        # every rank holds all heads, pads them and runs its own slice
+        Hp = -(-H // ntp) * ntp
+        n_loc = Hp // ntp
+
+        def local(q, k, v):
+            r = mesh.get_local_rank(tp)
+            z = Hp - H
+            q, k, v = (F.pad(t, (0, 0, 0, z)) for t in (q, k, v))
+            sl = slice(r * n_loc, (r + 1) * n_loc)
+            return fn(q[:, :, sl], k[:, :, sl], v[:, :, sl])
+        ins = (placements(bdims, mesh),) * 3
+        grads = (placements(bdims, mesh, partial=tp),) * 3
+        out_pl = placements(bdims[:2] + (tp, None), mesh)
+        out = local_map(local, out_placements=list(out_pl), in_placements=ins,
+                        in_grad_placements=grads, device_mesh=mesh,
+                        redistribute_inputs=True)(q, k, v)
+        # whole over tp before the padding is cut: H heads do not split
+        # over tp, in the forward's merge of the heads nor its backward
+        out = out.redistribute(mesh, placements(bdims, mesh))
+        return out[:, :, :H]
+    spec = bdims[:2] + ((tp if ntp > 1 else None), None)
+    pl = placements(spec, mesh)
+    return local_map(fn, out_placements=list(pl), in_placements=(pl, pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def attention_decode(params: Params, x, cfg, cache_k, cache_v,
-                     cache_len: int):
+                     cache_len: int, rt=None, layer: int | None = None):
     """One-token decode with a KV cache.
 
-    x: (B, 1, D); cache_k/v: (B, S_max, Hkv, hd); cache_len: number of
-    valid cache positions.  Returns (out, cache_k, cache_v).  Unlike the
-    JAX package, which returns updated copies, the new position is
-    written into cache_k/cache_v in place: a step allocates no cache.
+    x: (B, 1, D); cache_k/v: (B, S_max, Hkv, hd), or with ``layer`` the
+    stacked (L, B, S_max, Hkv, hd) caches and the layer to use; cache_len:
+    number of valid cache positions.  Returns (out, cache_k, cache_v).
+    Unlike the JAX package, which returns updated copies, the new position
+    is written into the cache in place: a step allocates no cache.  With a
+    mesh in ``rt`` the write and the attention run in
+    :func:`decode_region`.
     """
     B = x.shape[0]
     q, k, v = _qkv(params, x, cfg)
@@ -416,25 +537,100 @@ def attention_decode(params: Params, x, cfg, cache_k, cache_v,
         cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    cache_k[:, cache_len] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, cache_len] = v[:, 0].to(cache_v.dtype)
+    if rt is not None and rt.mesh is not None:
+        out = decode_region(rt, cfg, q, k, v, cache_k, cache_v, cache_len,
+                            layer)
+    else:
+        ck = cache_k if layer is None else cache_k[layer]
+        cv = cache_v if layer is None else cache_v[layer]
+        out = _decode_attend(q, k, v, ck, cv, cache_len, cfg)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ params["wo"]
+    return out, cache_k, cache_v
 
-    S_max, Hkv = cache_k.shape[1], cache_k.shape[2]
-    H = cfg.n_heads
+
+def _decode_attend(q, k, v, cache_k, cache_v, cache_len: int, cfg,
+                   seq0: int = 0, reduce=None):
+    """Write k, v (B,1,Hkv,hd) at ``cache_len`` into the cache (B, S,
+    Hkv, hd) that holds positions [seq0, seq0 + S), and attend q (B,1,H,
+    hd) over it -> (B,1,H,hd).  ``reduce(t, op)`` combines the softmax's
+    max and sums and the weighted values across ranks that hold the
+    sequence's other positions (None: this cache is the whole of it)."""
+    B = q.shape[0]
+    S_loc, Hkv, hd = cache_k.shape[1], cache_k.shape[2], cache_k.shape[3]
+    i = cache_len - seq0
+    if 0 <= i < S_loc:
+        cache_k[:, i] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, i] = v[:, 0].to(cache_v.dtype)
+    H = q.shape[2]
     rep = H // Hkv
     # grouped-GQA einsum: the kv cache is never repeated
-    qg = q.reshape(B, 1, Hkv, rep, cfg.head_dim)
-    scale = 1.0 / math.sqrt(cfg.head_dim)
+    qg = q.reshape(B, 1, Hkv, rep, hd)
+    scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), cache_k.float()) * scale
-    kpos = torch.arange(S_max, device=x.device)
+    kpos = torch.arange(S_loc, device=q.device) + seq0
     valid = kpos <= cache_len
     if cfg.sliding_window is not None:
         valid &= kpos > cache_len - cfg.sliding_window
     s = torch.where(valid, s, -torch.inf)
-    p = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bkrqs,bskd->bqkrd", p, cache_v)
-    out = out.reshape(B, 1, H * cfg.head_dim) @ params["wo"]
-    return out, cache_k, cache_v
+    if reduce is None:
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        out = torch.einsum("bkrqs,bskd->bqkrd", p, cache_v)
+        return out.reshape(B, 1, H, hd)
+    # the sequence spans ranks: the softmax from its global max and sum
+    m = reduce(s.amax(-1, keepdim=True), "max")
+    m = torch.where(torch.isneginf(m), 0.0, m)
+    e = torch.exp(s - m)
+    den = reduce(e.sum(-1, keepdim=True), "sum")
+    num = reduce(torch.einsum("bkrqs,bskd->bqkrd", e, cache_v.float()),
+                 "sum")
+    out = num / den.permute(0, 3, 1, 2, 4)
+    return out.to(q.dtype).reshape(B, 1, H, hd)
+
+
+def decode_region(rt, cfg, q, k, v, cache_k, cache_v, cache_len: int,
+                  layer: int | None):
+    """The decode step's cache write and attention under ``local_map``,
+    on the cache's own placements (no copy of the cache is made): heads
+    over tp where the cache is head-sharded; else q and the new k, v
+    replicated over the axes that shard the cache's sequence, each rank
+    writing the position it holds and the softmax reduced across them."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = rt.mesh
+    names = mesh.mesh_dim_names
+    cpl = tuple(cache_k.placements)
+    lead = 0 if layer is None else 1
+    seq_axes = tuple(names[i] for i, p in enumerate(cpl)
+                     if p == Shard(lead + 1))
+    head_axes = tuple(names[i] for i, p in enumerate(cpl)
+                      if p == Shard(lead + 2))
+    batch_axes = tuple(names[i] for i, p in enumerate(cpl)
+                       if p == Shard(lead))
+    if any(p != Replicate() and p not in (Shard(lead), Shard(lead + 1),
+                                          Shard(lead + 2))
+           for p in cpl):
+        raise NotImplementedError(f"decode on a cache placed {cpl}")
+    spec = (batch_axes or None, None, head_axes or None, None)
+    pl = placements(spec, mesh)
+
+    def local(q, k, v, ck, cv):
+        if layer is not None:
+            ck, cv = ck[layer], cv[layer]
+        seq0, reduce = 0, None
+        if seq_axes:
+            idx = 0
+            for a in seq_axes:
+                idx = idx * rt.size(a) + mesh.get_local_rank(a)
+            seq0 = idx * ck.shape[1]
+
+            def reduce(t, op):
+                for a in seq_axes:
+                    t = C.all_reduce(t, op, mesh, a)
+                return t
+        return _decode_attend(q, k, v, ck, cv, cache_len, cfg, seq0, reduce)
+    return local_map(local, out_placements=list(pl),
+                     in_placements=(pl, pl, pl, cpl, cpl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v, cache_k, cache_v)
 
 
 def cross_attention_fwd(params: Params, x, enc_out, cfg):
@@ -493,19 +689,74 @@ def init_embedding(gen: torch.Generator, cfg) -> Params:
     return Params(**p)
 
 
-def embed(params: Params, tokens, cfg, *, offset: int = 0):
-    x = params["table"][tokens]
+def embed(params: Params, tokens, cfg, *, offset: int = 0, rt=None):
+    x = embed_rows(params["table"], tokens, rt)
     if cfg.pos_emb == "abs":
         S = tokens.shape[-1]
         x = x + params["pos"][offset:offset + S]
     return x
 
 
+def embed_rows(table, tokens, rt=None):
+    """``table[tokens]``.  On a mesh: the table's FSDP shards gathered, and
+    where its rows (the vocab) are sharded over tp each tp rank looks up
+    the tokens it holds, zeros elsewhere, so the rows come back as a
+    ``Partial`` sum over tp, which the next op reduces exactly (one term
+    is nonzero)."""
+    if rt is None or rt.mesh is None:
+        return table[tokens]
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, tp = rt.mesh, rt.tp_axis
+    vocab_tp = bool(tp) and table.placements[
+        mesh.mesh_dim_names.index(tp)] == Shard(0)
+    dp = rt.dp_axes or None
+    tspec = _spec(rt, tokens.ndim, {0: dp}, tokens.shape)
+    tab = placements((tp if vocab_tp else None, None), mesh)
+    out_pl = placements(tspec + (None,), mesh,
+                        partial=tp if vocab_tp else ())
+
+    def local(tab_l, tok):
+        if not vocab_tp:
+            return tab_l[tok]
+        n = tab_l.shape[0]
+        v0 = mesh.get_local_rank(tp) * n
+        hit = (tok >= v0) & (tok < v0 + n)
+        rows = tab_l[torch.where(hit, tok - v0, 0)]
+        return rows * hit[..., None].to(rows.dtype)
+    # rows looked up from different tokens on each dp rank add up
+    grad_tab = placements((tp if vocab_tp else None, None), mesh,
+                          partial=tspec[0] or ())
+    tok_pl = placements(tspec, mesh)
+    return local_map(local, out_placements=list(out_pl),
+                     in_placements=(tab, tok_pl),
+                     in_grad_placements=(grad_tab, tok_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
+
+
 def unembed(params_emb: Params, params_head: Params | None, x, cfg):
-    """Project to vocab logits (fp32). Tied or separate head."""
+    """Project to vocab logits (fp32). Tied or separate head.  On a mesh
+    the product runs on the vocab-sharded table and the logits leave
+    gathered, the vocab whole on every rank, for the cross-entropy's
+    gather and log-sum-exp."""
     if params_head is None:
-        return x.float() @ params_emb["table"].float().T
-    return x.float() @ params_head["w"].float()
+        logits = x.float() @ params_emb["table"].float().T
+    else:
+        logits = x.float() @ params_head["w"].float()
+    return _whole_last_dim(logits)
+
+
+def _whole_last_dim(t):
+    """A DTensor with its last dim no longer sharded; anything else as
+    it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return t
+    last = t.ndim - 1
+    pl = tuple(Replicate() if (isinstance(p, Shard) and p.dim == last)
+               or isinstance(p, Partial) else p for p in t.placements)
+    return t if pl == tuple(t.placements) else t.redistribute(
+        t.device_mesh, pl)
 
 
 def lm_head(model) -> Params | None:

@@ -1,13 +1,22 @@
 """Runtime: how a model executes (orthogonal to ModelConfig).
 
-The PyTorch port of the JAX package's ``models/runtime.py``, trimmed to
-one device: ``ModelConfig`` says *what* the network is; ``Runtime`` says
-which attention path prefill takes, how the MoE layer dispatches (on one
-device: ``local``), the SSD scan's chunk, and for training the remat
-policy and the loss chunk.  The mesh, the tensor- and expert-parallel
-axes, the expert-parallel MoE dispatches and the other sharding fields
-are not ported yet (``ROADMAP.md`` queue 1, item 11): a ``Runtime``
-given a mesh, or ``moe_impl`` ``"ep"`` or ``"ep_a2a"``, raises.
+The PyTorch port of the JAX package's ``models/runtime.py``:
+``ModelConfig`` says *what* the network is; ``Runtime`` says how it runs:
+which mesh axes exist (a ``torch.distributed.device_mesh.DeviceMesh`` with
+named dims, one process a rank), how the MoE layer dispatches (``local``,
+or expert-parallel ``ep``/``ep_a2a`` on a mesh), which attention path
+prefill takes, the SSD scan's chunk, and for training the remat policy and
+the loss chunk.  The launcher builds one from a
+:class:`repro_torch.launch.plans.ParallelPlan`.
+
+On a mesh, the parameters and activations are DTensors: a JAX
+``PartitionSpec`` (an axis name, a tuple of names or ``None`` a tensor
+dim) becomes DTensor placements through :func:`placements` (``Shard(d)``
+on each mesh dim that tensor dim ``d`` names, else ``Replicate()``), and
+:meth:`Runtime.constrain`, the JAX package's ``with_sharding_constraint``,
+is ``DTensor.redistribute`` to them.  The dense and MoE families run on a
+mesh; the SSM, hybrid, enc-dec and VLM families wait for the dry-run slice
+(``ROADMAP.md`` item 13(d)) and raise there (:func:`single_device_only`).
 """
 from __future__ import annotations
 
@@ -18,17 +27,78 @@ import torch
 
 ATTN_MODES = ("dense", "chunked", "auto")
 MOE_IMPLS = ("local", "ep", "ep_a2a")
+ACT_SHARDS = ("none", "seq")
+
+
+def _names(entry) -> tuple[str, ...]:
+    """The mesh axes a spec entry names: None, one name, or a tuple."""
+    if entry is None:
+        return ()
+    if isinstance(entry, (tuple, list)):
+        return tuple(entry)
+    return (entry,)
+
+
+def placements(spec, mesh, partial=()) -> tuple:
+    """A spec (one entry a tensor dim) -> DTensor placements on ``mesh``:
+    ``Shard(d)`` on each mesh dim that entry ``d`` names, ``Partial()``
+    (a sum) on the axes ``partial`` names, ``Replicate()`` on the others.
+    A mesh dim named twice raises."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    out = [Replicate()] * mesh.ndim
+    names = mesh.mesh_dim_names
+    for a in _names(partial):
+        out[names.index(a)] = Partial()
+    for d, entry in enumerate(spec):
+        for a in _names(entry):
+            i = names.index(a)
+            if out[i] != Replicate():
+                raise ValueError(f"mesh axis {a!r} shards two dims of {spec}")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def distribute(t: torch.Tensor, mesh, pl) -> torch.Tensor:
+    """``t``, the same full tensor on every rank, as a DTensor on ``mesh``
+    with placements ``pl``: each rank keeps its own shard of its copy and
+    nothing is sent.  A tensor on another device type than the mesh's
+    raises: nothing is moved between the host and a card here."""
+    from torch.distributed.tensor import distribute_tensor
+    check_mesh_device(t, mesh)
+    return distribute_tensor(t, mesh, pl, src_data_rank=None)
+
+
+def check_mesh_device(t: torch.Tensor, mesh) -> None:
+    """Raise unless ``t`` lies on ``mesh``'s device type."""
+    if t.device.type != mesh.device_type:
+        raise ValueError(
+            f"a {t.device.type} tensor cannot go onto a {mesh.device_type} "
+            f"mesh: move it to {mesh.device_type} first, or build the mesh "
+            f"with device={t.device.type!r}")
+
+
+def axis_size(mesh, axes) -> int:
+    """The product of the widths of ``axes`` (a name, a tuple or None)."""
+    n = 1
+    for a in _names(axes):
+        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    return n
 
 
 @dataclass(frozen=True)
 class Runtime:
     attn_mode: str = "auto"             # dense | chunked | auto
-    mesh: Any = None                    # sharding: not ported yet
-    moe_impl: str = "local"             # local (ep | ep_a2a: not ported yet)
+    mesh: Any = None                    # DeviceMesh | None
+    dp_axes: tuple[str, ...] = ()       # batch-sharding axes ("pod","data")
+    tp_axis: str | None = None          # tensor-parallel axis ("model")
+    ep_axis: str | None = None          # expert-parallel axis (defaults tp)
+    moe_impl: str = "local"             # local | ep | ep_a2a
     ssd_chunk: int = 256                # tokens a chunk of the SSD scan
     remat: bool = False                 # recompute each layer in backward
     remat_group: int = 1                # layers per remat block (g>1: save
                                         # only every g-th residual)
+    act_shard: str = "none"             # none | seq: residual stream
+                                        # sequence-sharded over tp
     loss_chunk: int = 0                 # 0 = unchunked cross-entropy
 
     def __post_init__(self):
@@ -38,6 +108,9 @@ class Runtime:
         if self.moe_impl not in MOE_IMPLS:
             raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got "
                              f"{self.moe_impl!r}")
+        if self.act_shard not in ACT_SHARDS:
+            raise ValueError(f"act_shard must be one of {ACT_SHARDS}, got "
+                             f"{self.act_shard!r}")
         if self.ssd_chunk < 1:
             raise ValueError(f"ssd_chunk must be >= 1, got {self.ssd_chunk}")
         if self.remat_group < 1:
@@ -47,14 +120,50 @@ class Runtime:
             raise ValueError(f"loss_chunk must be >= 0, got "
                              f"{self.loss_chunk}")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "Runtime(mesh=...): sharded execution is not ported yet "
-                "(ROADMAP.md queue 1, item 11)")
-        if self.moe_impl != "local":
-            raise NotImplementedError(
-                f"Runtime(moe_impl={self.moe_impl!r}): the expert-parallel "
-                f"MoE dispatch is not ported yet (ROADMAP.md queue 1, item "
-                f"11)")
+            names = tuple(self.mesh.mesh_dim_names or ())
+            for a in self.dp_axes + tuple(
+                    x for x in (self.tp_axis, self.ep_axis) if x):
+                if a not in names:
+                    raise ValueError(f"axis {a!r} is not a dim of the mesh "
+                                     f"{names}")
+
+    def size(self, axes) -> int:
+        """The width of ``axes`` on the mesh (1 without one)."""
+        return 1 if self.mesh is None or not axes else axis_size(self.mesh,
+                                                                 axes)
+
+    def constrain(self, x, *spec):
+        """``x`` redistributed to ``spec``'s placements on the mesh (the
+        JAX package's ``with_sharding_constraint``), an entry dropped where
+        its axes do not divide the dim; ``x`` itself without a mesh."""
+        if self.mesh is None:
+            return x
+        # a dim its axes do not divide stays whole (a decode step's one
+        # position under act_shard="seq")
+        spec = tuple(e if x.shape[d] % self.size(e) == 0 else None
+                     for d, e in enumerate(spec))
+        return x.redistribute(self.mesh, placements(spec, self.mesh))
+
+    def act_spec(self, ndim: int):
+        """Activation spec for the (B, S, ...) residual stream: batch over
+        dp axes; sequence over tp when act_shard == 'seq'."""
+        seq = (self.tp_axis if (self.act_shard == "seq" and self.tp_axis)
+               else None)
+        if ndim < 2:
+            return (self.dp_axes,) + (None,) * (ndim - 1)
+        return (self.dp_axes, seq) + (None,) * (ndim - 2)
+
+
+LOCAL = Runtime()
+
+
+def single_device_only(rt, family: str) -> None:
+    """Raise for a family that does not run on a mesh yet."""
+    if rt is not None and rt.mesh is not None:
+        raise NotImplementedError(
+            f"the {family} family on a mesh is not ported yet: it comes with "
+            f"the dry-runs (ROADMAP.md item 13(d)); the dense and MoE "
+            f"families run on a mesh")
 
 
 def resolve_device(device, who: str) -> torch.device:

@@ -20,9 +20,22 @@ ahead of the tokens' (the VLM's projected patches).  ``forward``,
 ``prefill`` and ``decode_step`` run without autograd; ``loss`` runs the
 same layers with it, under the runtime's remat (``torch.utils.checkpoint``
 a layer, or a group of ``remat_group`` layers) and, with a ``loss_chunk``,
-the chunked cross-entropy.  Not ported yet: the sharding constraints.
+the chunked cross-entropy.
+
+On a mesh (``rt.mesh``) the parameters and inputs are DTensors and the
+same code runs SPMD, one process a rank: the residual stream is
+constrained to ``rt.act_spec(3)`` where the JAX package constrains it
+(after the embedding and after each residual add; with ``act_shard="seq"``
+its sequence over tp, gathered where a block reads it), the attention, decode and embedding run in
+``layers``' ``local_map`` regions, and prefill's cache is built by
+stacking the layers' keys and values and redistributing them to the
+cache's placements (``launch/plans.py::cache_pspecs``).  Plain tensors
+that the code makes (positions, masks, zeros) act as replicated
+(:func:`mesh_context`).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -58,27 +71,56 @@ def _ffn(p: Block, h, cfg, rt):
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
+def mesh_context(rt):
+    """On a mesh, plain tensors mixed with DTensors act as replicated
+    (``implicit_replication``); without one, nothing."""
+    if rt is None or rt.mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _whole_sequence(x, rt):
+    """Under ``act_shard="seq"`` the residual stream's sequence gathered
+    where a block (or the final norm) reads it; ``x`` itself otherwise.
+    The block adds its outputs to the gathered stream and shards the sum
+    again, so the gradients that reach the projections are whole along the
+    sequence too (Megatron-SP's all-gather; the stream between blocks, what
+    remat saves, stays sequence-sharded)."""
+    if rt.mesh is None or rt.act_shard != "seq":
+        return x
+    return rt.constrain(x, rt.dp_axes, None, None)
+
+
 def block_fwd(p: Block, x, cfg, rt, *, return_kv: bool = False):
     """Full-sequence block. x: (B,S,D) -> (x', aux[, (k,v)])."""
+    x = _whole_sequence(x, rt)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     out = L.attention_fwd(p["attn"], h, cfg, mode=rt.attn_mode,
-                          return_kv=return_kv)
+                          return_kv=return_kv, rt=rt)
     attn_out, kv = (out[0], out[1:]) if return_kv else (out, None)
     x = x + attn_out
+    x = _whole_sequence(rt.constrain(x, *rt.act_spec(3)), rt)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(p, h, cfg, rt)
     x = x + y
+    x = rt.constrain(x, *rt.act_spec(3))
     return (x, aux, kv) if return_kv else (x, aux)
 
 
-def block_decode(p: Block, x, cfg, rt, cache_k, cache_v, cache_len: int):
-    """One-token block step; writes the new KV position into the cache."""
+def block_decode(p: Block, x, cfg, rt, cache_k, cache_v, cache_len: int,
+                 layer: int | None = None):
+    """One-token block step; writes the new KV position into the cache
+    (one layer's, or with ``layer`` that layer of the stacked cache).  On
+    a mesh the residual stream keeps ``rt.act_spec(3)`` after each add, so
+    DTensor does not shard the step's one position."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_out, nk, nv = L.attention_decode(p["attn"], h, cfg,
-                                          cache_k, cache_v, cache_len)
-    x = x + attn_out
+                                          cache_k, cache_v, cache_len,
+                                          rt=rt, layer=layer)
+    x = rt.constrain(x + attn_out, *rt.act_spec(3))
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(p, h, cfg, rt)[0], nk, nv
+    return rt.constrain(x + _ffn(p, h, cfg, rt)[0], *rt.act_spec(3)), nk, nv
 
 
 # --------------------------------------------------------------------------
@@ -131,19 +173,20 @@ def _blocks(model, x, cfg, rt, *, return_kv: bool = False):
     return x, aux, []
 
 
-def _embed(model, tokens, cfg, embeds):
-    x = L.embed(model["embed"], tokens, cfg)
+def _embed(model, tokens, cfg, embeds, rt=None):
+    x = L.embed(model["embed"], tokens, cfg, rt=rt)
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
-    return x
+    return rt.constrain(x, *rt.act_spec(3)) if rt is not None else x
 
 
 def _hidden(model, tokens, cfg, rt, embeds=None):
     """The final-normed hidden states (B,S',D) and aux, with autograd
     wherever the caller records it."""
-    x = _embed(model, tokens, cfg, embeds)
+    x = _embed(model, tokens, cfg, embeds, rt)
     x, aux, _ = _blocks(model, x, cfg, rt)
-    return L.rms_norm(x, model["final_norm"], cfg.norm_eps), aux
+    return L.rms_norm(_whole_sequence(x, rt), model["final_norm"],
+                      cfg.norm_eps), aux
 
 
 def logits_fwd(model, tokens, cfg, rt, *, embeds=None):
@@ -156,7 +199,8 @@ def logits_fwd(model, tokens, cfg, rt, *, embeds=None):
 def forward(model, tokens, cfg, rt, *, embeds=None):
     """tokens (B,S) int -> (logits (B,S',V) fp32, aux), S' = S plus the
     positions of ``embeds`` (B,P,D), which go ahead of the tokens."""
-    return logits_fwd(model, tokens, cfg, rt, embeds=embeds)
+    with mesh_context(rt):
+        return logits_fwd(model, tokens, cfg, rt, embeds=embeds)
 
 
 # --------------------------------------------------------------------------
@@ -192,7 +236,7 @@ def chunked_xent(x, model, labels, cfg, rt, mask=None):
     S = x.shape[1]
     c = rt.loss_chunk
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.bool, device=x.device)
+        mask = torch.ones_like(labels, dtype=torch.bool)
     emb, head = model["embed"], model.lm_head()
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -217,9 +261,10 @@ def loss(model, batch, cfg, rt):
     """batch: {tokens (B,S), labels (B,S)[, mask]} -> (scalar, metrics
     {nll, aux}); the MoE's load-balance loss enters as
     ``aux_loss_coef·aux``."""
-    x, aux = _hidden(model, batch["tokens"], cfg, rt)
-    nll = nll_of(model, x, batch["labels"], cfg, rt, batch.get("mask"))
-    return nll + cfg.aux_loss_coef * aux, {"nll": nll, "aux": aux}
+    with mesh_context(rt):
+        x, aux = _hidden(model, batch["tokens"], cfg, rt)
+        nll = nll_of(model, x, batch["labels"], cfg, rt, batch.get("mask"))
+        return nll + cfg.aux_loss_coef * aux, {"nll": nll, "aux": aux}
 
 
 # --------------------------------------------------------------------------
@@ -240,25 +285,50 @@ def init_cache(cfg, batch: int, max_len: int, rt, dtype=None,
 
 @torch.no_grad()
 def prefill(model, tokens, cfg, rt, *, embeds=None,
-            max_len: int | None = None):
+            max_len: int | None = None, cache_placements=None):
     """Run the prompt (``embeds`` ahead of the tokens), return
     (last-position logits, filled cache).
 
     ``max_len`` pads the KV cache's sequence axis so ``decode_step`` can
-    append up to ``max_len - prompt_len`` generated tokens."""
-    x = _embed(model, tokens, cfg, embeds)
-    x, _, kvs = _blocks(model, x, cfg, rt, return_kv=True)
-    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
-    logits = L.unembed(model["embed"], model.lm_head(), x[:, -1:, :], cfg)
-    S = x.shape[1]
-    n = max(S, max_len or 0)
-    cache = init_cache(cfg, x.shape[0], n, rt, dtype=kvs[0][0].dtype,
-                       device=x.device)       # (L, B, n, Hkv, hd)
-    for i, (k, v) in enumerate(kvs):
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
-    cache["len"] = S
-    return logits, cache
+    append up to ``max_len - prompt_len`` generated tokens.  On a mesh the
+    cache takes ``cache_specs``' placements (``cache_placements``)."""
+    with mesh_context(rt):
+        x = _embed(model, tokens, cfg, embeds, rt)
+        x, _, kvs = _blocks(model, x, cfg, rt, return_kv=True)
+        x = L.rms_norm(_whole_sequence(x, rt), model["final_norm"],
+                       cfg.norm_eps)
+        logits = L.unembed(model["embed"], model.lm_head(), x[:, -1:, :],
+                           cfg)
+        S = x.shape[1]
+        n = max(S, max_len or 0)
+        if rt.mesh is not None:
+            return logits, _mesh_cache(kvs, n, cache_placements)
+        cache = init_cache(cfg, x.shape[0], n, rt, dtype=kvs[0][0].dtype,
+                           device=x.device)       # (L, B, n, Hkv, hd)
+        for i, (k, v) in enumerate(kvs):
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+        cache["len"] = S
+        return logits, cache
+
+
+def _mesh_cache(kvs, n: int, pl: dict | None):
+    """The stacked (L, B, n, Hkv, hd) cache of the layers' DTensor keys
+    and values, padded to n positions, on the placements ``pl`` gives
+    (``{"k": ..., "v": ...}``; None: as stacking leaves them)."""
+    out = {}
+    for j, name in enumerate(("k", "v")):
+        t = torch.stack([kv[j] for kv in kvs])
+        S = t.shape[2]
+        if n > S:
+            z = torch.zeros(t.shape[:2] + (n - S,) + t.shape[3:],
+                            dtype=t.dtype, device=t.device)
+            t = torch.cat([t, z], dim=2)
+        if pl is not None:
+            t = t.redistribute(t.device_mesh, pl[name])
+        out[name] = t
+    out["len"] = kvs[0][0].shape[1]
+    return out
 
 
 @torch.no_grad()
@@ -266,12 +336,19 @@ def decode_step(model, cache, tokens, cfg, rt):
     """tokens (B,1) -> (logits (B,1,V), cache).  The cache's tensors are
     updated in place; the returned dict holds them with ``len`` + 1."""
     pos = cache["len"]
-    x = model["embed"]["table"][tokens]
-    if cfg.pos_emb == "abs":
-        x = x + model["embed"]["pos"][pos:pos + 1]
-    for i, p in enumerate(model["layers"]):
-        x, _, _ = block_decode(p, x, cfg, rt, cache["k"][i], cache["v"][i],
-                               pos)
-    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
-    logits = L.unembed(model["embed"], model.lm_head(), x, cfg)
+    with mesh_context(rt):
+        x = L.embed_rows(model["embed"]["table"], tokens, rt)
+        if cfg.pos_emb == "abs":
+            x = x + model["embed"]["pos"][pos:pos + 1]
+        if rt.mesh is not None:
+            x = rt.constrain(x, *rt.act_spec(3))
+        for i, p in enumerate(model["layers"]):
+            if rt.mesh is not None:
+                x, _, _ = block_decode(p, x, cfg, rt, cache["k"],
+                                       cache["v"], pos, layer=i)
+            else:
+                x, _, _ = block_decode(p, x, cfg, rt, cache["k"][i],
+                                       cache["v"][i], pos)
+        x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+        logits = L.unembed(model["embed"], model.lm_head(), x, cfg)
     return logits, {"k": cache["k"], "v": cache["v"], "len": pos + 1}

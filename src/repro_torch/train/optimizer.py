@@ -19,6 +19,13 @@ biases included).  The port decides them on the same shapes
 (``models/convert.py::stacked_shapes``), so that one update equals the
 JAX package's.  The schedules take the step as a tensor and compute on
 its device: an update reads nothing back to the host.
+
+On a mesh the parameters and gradients are DTensors: each moment takes
+its parameter's placements (the factored ``v_row`` drops the last dim's
+sharding, ``v_col`` the second to last's, ``launch/plans.py::opt_pspecs``),
+the gradient norm is the sum of every shard's squares (a partial sum
+reduced across the ranks), and every new value is written back on its
+leaf's own placements.
 """
 from __future__ import annotations
 
@@ -76,6 +83,35 @@ def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float):
 # --------------------------------------------------------------------------
 # AdamW (+ factored option)
 # --------------------------------------------------------------------------
+def _zeros(p, shape, dtype, drop: int | None = None):
+    """Zeros of ``shape`` on ``p``'s device; a DTensor on ``p``'s mesh
+    where ``p`` is one, with ``p``'s placements less the sharding of its
+    dim ``drop`` (the dims after it move down one)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    pl = []
+    for q in p.placements:
+        if isinstance(q, Shard) and drop is not None:
+            d = q.dim % p.ndim
+            q = Replicate() if d == drop else (Shard(d - 1) if d > drop
+                                               else q)
+        pl.append(q)
+    from torch.distributed.tensor import distribute_tensor
+    z = torch.zeros(shape, dtype=dtype, device=p.to_local().device)
+    return distribute_tensor(z, p.device_mesh, pl, src_data_rank=None)
+
+
+def _write(dst, src):
+    """``dst.copy_(src)``, ``src`` first moved to ``dst``'s placements
+    where both are DTensors."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(dst, DTensor) and isinstance(src, DTensor) \
+            and src.placements != dst.placements:
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
+
+
 def _should_factor(shape) -> bool:
     return len(shape) >= 2 and shape[-1] >= 128 and shape[-2] >= 128
 
@@ -106,18 +142,18 @@ class AdamW:
         shapes = _layouts(params)
         mu = {}
         for name, p in params.items():
-            st = ({"m": torch.zeros(p.shape, dtype=sd, device=p.device)}
-                  if self.momentum else {})
+            st = {"m": _zeros(p, p.shape, sd)} if self.momentum else {}
             if self.factored and _should_factor(shapes[name]):
                 if p.ndim < 2:
                     raise NotImplementedError(
                         f"{name}: the JAX layout factors a {shapes[name]} "
                         f"stack across its layers")
-                st["v_row"] = torch.zeros(p.shape[:-1], device=p.device)
-                st["v_col"] = torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                          device=p.device)
+                st["v_row"] = _zeros(p, p.shape[:-1], torch.float32,
+                                     drop=p.ndim - 1)
+                st["v_col"] = _zeros(p, p.shape[:-2] + p.shape[-1:],
+                                     torch.float32, drop=p.ndim - 2)
             else:
-                st["v"] = torch.zeros(p.shape, dtype=sd, device=p.device)
+                st["v"] = _zeros(p, p.shape, sd)
             mu[name] = st
         dev = next(iter(params.values())).device
         return {"mu": mu,
@@ -166,9 +202,9 @@ class AdamW:
         for name, p in params.items():
             new_p, st = self._leaf(p, grads[name], state["mu"][name],
                                    len(shapes[name]), b1, c1, c2, lr)
-            p.copy_(new_p)
+            _write(p, new_p)
             for k, t in st.items():
-                state["mu"][name][k].copy_(t)
+                _write(state["mu"][name][k], t)
         state["count"] = count
         return gnorm
 

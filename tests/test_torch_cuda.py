@@ -7,8 +7,10 @@ boards) against the CPU's, the design-axis mesh (a sharded
 ``evaluate_batch`` and island search, four shards of one card and one
 shard a card where there are several) against the unsharded calls, the
 LM serving path through the flash
-kernel, and training: a reduced Llama step and the flash-attention
-Function's gradients against the CPU's.
+kernel, training: a reduced Llama step and the flash-attention
+Function's gradients against the CPU's, and the LM mesh (four gloo ranks
+on the card, and one) against ``golden_mesh.npz`` and the unsharded
+route.
 
 Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
 no card is visible (the decision is made in the fixture, never at import).
@@ -1389,3 +1391,64 @@ def test_sharded_island_search_on_card_equals_serial(cuda):
         np.testing.assert_array_equal(got.front_idx, want.front_idx)
         assert got.history == want.history
         assert all(s["parallelism_search"] > 0 for s in mesh.shard_launches)
+
+
+def test_lm_mesh_on_card_meets_golden_and_one_by_one(cuda, tmp_path):
+    """The LM mesh with its ranks on this card (gloo on CUDA tensors):
+    the golden mesh cases of the 2 x 2 world within
+    tests/test_torch_mesh.py's tolerances (loss 1e-5, the rest 5e-5 of
+    each leaf's scale, tokens exact, one compressed step within one
+    quantum) and its 1 x 4 cases, every golden output run, the reshard
+    onto 4 x 1 bit-equal, and the 1 x 1 world's mesh routes bit-equal to
+    the unsharded ones."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_check as mesh_check
+    ck = str(tmp_path / "ck")
+    got = {}
+    for world in (4, 1):
+        path = str(tmp_path / f"w{world}.npz")
+        mesh_check.spawn(world, path, ck, device="cuda")
+        with np.load(path) as z:
+            got.update({f"{world}/{k}": z[k] for k in z.files})
+    g = mesh_check.golden()
+    for k, w in g.items():
+        if w.dtype.kind in "USO" or "/batch/" in k or "/init/" in k \
+                or k.endswith("/moe/x"):
+            continue
+        assert f"4/{k}" in got, f"{k}: not run on the card"
+        a = got[f"4/{k}"]
+        if w.dtype.kind in "iu":
+            np.testing.assert_array_equal(a, w, err_msg=k)
+        elif "/compress/grads/" in k or "/compress/residuals/" in k:
+            arch, rest = k.split("/compress/")
+            path = (rest.split("/", 2)[-1] if rest.startswith("residuals")
+                    else rest[len("grads/"):])
+            q = np.abs(a - w) / g[f"{arch}/compress/scales/{path}"]
+            assert q.max(initial=0.0) <= 1.0 + 1e-3, k
+        elif k.endswith("/compress/losses"):
+            # one compressed step on the card (the CPU tests hold all 12:
+            # each int8 rounding that flips moves the rest of the run)
+            np.testing.assert_allclose(a[:1], w[:1], rtol=0, atol=1e-5,
+                                       err_msg=k)
+        elif k.endswith(("/loss", "/nll", "/aux", "/grad_norm")):
+            np.testing.assert_allclose(a, w, rtol=0, atol=1e-5, err_msg=k)
+        elif "/scales/" in k:
+            np.testing.assert_allclose(a, w, rtol=1e-5, err_msg=k)
+        else:
+            scale = max(1.0, float(np.abs(w).max(initial=0.0)))
+            np.testing.assert_allclose(a, w, rtol=0, atol=5e-5 * scale,
+                                       err_msg=k)
+    with np.load(f"{ck}/2x2/step_00000001/arrays.npz") as z:
+        for k in z.files:
+            for world, lab in ((4, "4x1"), (1, "1x1")):
+                np.testing.assert_array_equal(
+                    got[f"{world}/reshard/{lab}/{k}"].astype(z[k].dtype),
+                    z[k], err_msg=k)
+    mesh = {k: v for k, v in got.items() if k.startswith("1/one/")
+            and "/mesh/" in k and not k.endswith("cache_placements")}
+    assert mesh
+    for k, v in mesh.items():
+        np.testing.assert_array_equal(v, got[k.replace("/mesh/", "/plain/")],
+                                      err_msg=k)

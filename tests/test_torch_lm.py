@@ -33,6 +33,7 @@ from repro.models import transformer as JT
 from repro.models.runtime import Runtime as JaxRuntime
 from repro.serve.engine import ServeEngine as JaxEngine
 from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs.base import ShapeSpec
 from repro_torch.kernels import launches, reset_launches
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import get_model, transformer
@@ -252,20 +253,40 @@ def test_port_walk_reaches_the_lm_subpackages():
 
 
 def test_unported_parts_raise():
-    """What still raises: the sharded runtime, the expert-parallel MoE
-    dispatches and the train launcher's data- and tensor-parallel and
-    compressed modes (ROADMAP.md queue 1, item 11).  Every family serves
-    (tests/test_torch_moe.py, test_torch_ssm.py, test_torch_encdec_vlm.py)
-    and trains (tests/test_torch_train.py, test_torch_train_models.py)."""
+    """What still raises: the SSM, hybrid, enc-dec and VLM families on a
+    mesh (they come with the dry-runs, ROADMAP.md item 13(d)), and an NCCL
+    mesh with more ranks than visible cards.  The dense and MoE families
+    run on a mesh (tests/test_torch_mesh.py); every family serves and
+    trains on one device."""
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import steps as launch_steps
     from repro_torch.launch import train as launch_train
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Runtime(mesh=object())
-    for impl in ("ep", "ep_a2a"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            Runtime(moe_impl=impl)
-    for flags in (["--dp", "2"], ["--tp", "2"], ["--compress"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            launch_train.main(["--reduced", "--device", "cpu", *flags])
+
+    class Mesh:                       # a 2 x 2 stand-in: no ranks needed
+        mesh_dim_names = ("data", "model")
+        shape = {"data": 2, "model": 2}
+        device_type = "cpu"
+    rt = Runtime(mesh=Mesh(), dp_axes=("data",), tp_axis="model")
+    shape = ShapeSpec("p", "prefill", 16, 2)
+    for arch in ("mamba2-370m", "zamba2-1.2b", "whisper-base",
+                 "internvl2-2b"):
+        cfg = get_config(arch).reduced()
+        api = get_model(cfg)
+        with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
+            api.prefill(None, {"tokens": None}, rt)
+        with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
+            api.loss(None, {}, rt)
+        with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
+            launch_steps.build_step(cfg, shape, Mesh())
+    with pytest.raises(RuntimeError, match="NCCL refuses"):
+        launch_mesh.check_cards(torch.cuda.device_count() + 1)
+    with pytest.raises(RuntimeError, match="NCCL refuses"):
+        launch_train.main(["--reduced", "--device", "cpu", "--backend",
+                           "nccl", "--dp", "2"])
+    with pytest.raises(ValueError, match="not a dim of the mesh"):
+        Runtime(mesh=Mesh(), tp_axis="tensor")
+    with pytest.raises(ValueError, match="act_shard"):
+        Runtime(act_shard="batch")
     with pytest.raises(ValueError, match="attn_mode"):
         Runtime(attn_mode="flash")
     with pytest.raises(ValueError, match="moe_impl"):

@@ -233,8 +233,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
     n, bad, mods = out.stdout.split(" ", 2)
     assert int(n) >= 20 and bad.strip() == "[]", out.stdout
-    # the DSE, serving, schedule, multinet and training slices' modules
-    # are among those walked
+    # the DSE, serving, schedule, multinet, training and LM mesh slices'
+    # modules are among those walked
     for m in ("core.telemetry", "core.resilience", "core.dse.pareto",
               "core.dse.search", "core.dse.driver", "telemetry",
               "core.coalesce", "schedule", "schedule.search",
@@ -244,7 +244,9 @@ def test_port_imports_neither_jax_nor_repro():
               "core.multinet.joint_eval", "core.multinet.search",
               "core.multinet.driver", "train", "train.optimizer",
               "train.train_step", "train.checkpoint", "data",
-              "data.pipeline", "launch.plans", "launch.train"):
+              "data.pipeline", "launch.plans", "launch.train",
+              "launch.mesh", "launch.steps",
+              "models.collectives"):
         assert f"repro_torch.{m}" in mods.split(), m
 
 

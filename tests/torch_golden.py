@@ -11,7 +11,7 @@ dense),
 ``src/repro_torch/data/golden_multinet.npz`` (multinet co-scheduling) and
 ``src/repro_torch/data/golden_islands.npz`` (the island search) and
 ``src/repro_torch/data/golden_train.npz`` (the training losses and
-gradients).
+gradients) and ``src/repro_torch/data/golden_mesh.npz`` (the LM mesh).
 Regenerate them after a change to the JAX package's model with::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py
@@ -105,6 +105,36 @@ path), the ``synth_batch`` of step 0 at ``TRAIN_SHAPE`` (``batch/<k>``),
 and ``jax.value_and_grad(api.loss)``'s ``loss``, its metrics
 (``nll``, ``aux``) and every gradient leaf in the JAX layout
 (``grads/<path>``, per-layer leaves stacked).
+
+``golden_mesh.npz``: the JAX package on a 2 x 2 (data, model) host mesh
+(four CPU devices, ``REPRO_MESH_DEVICES=4``, in a subprocess: the test
+process keeps one device), per arch of ``MESH_ARCHS`` (the reduced f32
+Llama and Granite MoE) under ``<arch>/``, the params being those of
+``params_file``/``params_prefix`` (``init(jax.random.key(0))``, not stored
+twice): the ``synth_batch`` of step 0 at ``MESH_SHAPE`` (``batch/<k>``);
+per plan of ``MESH_PLANS`` (``MESH_MOE_PLANS`` for the MoE; overrides of
+``default_plan`` on the mesh, the chunked attention path) the loss, its
+metrics and every gradient leaf (``train/<plan>/...``); the first plan's
+one ``build_train`` step
+(``step/loss``, ``step/grad_norm``, ``step/params/<path>``); prefill's last
+logits with a cache of ``MESH_NEW`` more positions and that many greedy
+decode steps (``prefill/logits``, ``decode/tokens``, ``decode/logits0``);
+and the compressed data-parallel step over ``data``
+(``make_compressed_train_step``, as ``launch/train.py --compress`` runs
+it): the first step's averaged gradients, each data shard's residuals and
+the shared scales (``compress/grads``, ``compress/residuals/<shard>``,
+``compress/scales``) and ``MESH_COMPRESS_STEPS`` losses
+(``compress/losses``) on the ``synth_batch`` of each step
+(``compress/batch/<step>/<k>``: stored, since numpy's generators may
+draw other tokens elsewhere).  Granite's layer-0 MoE on a correlated input whose
+routing overflows the capacity (``moe/x``) through ``moe_ep`` and
+``moe_ep_a2a`` (``moe/<impl>/y``, ``moe/<impl>/aux``).  On a 1 x 4 mesh,
+for each case of ``MESH_ODD_HEADS`` (heads that do not divide the model
+axis) under ``odd/<case>/``: its params (``init/<path>``,
+``init(jax.random.key(0))`` of the case's config) and, on Llama's batch,
+prefill, greedy decode and the loss with its gradients as above
+(``mesh/...``).  ``config`` holds the settings as JSON.  Each arch and
+the 1 x 4 cases run in a subprocess of their own, the three at once.
 """
 from __future__ import annotations
 
@@ -625,7 +655,309 @@ def compute_golden_train() -> dict[str, np.ndarray]:
     return out
 
 
-if __name__ == "__main__":
+GOLDEN_MESH = os.path.join(DATA, "golden_mesh.npz")
+#: the mesh golden runs: per arch, where its params stand (file, prefix)
+MESH_ARCHS = {"llama3.2-1b": ("golden_lm.npz", "params/"),
+              "granite-moe-1b-a400m": ("golden_lm_families.npz",
+                                       "granite-moe-1b-a400m/params/")}
+#: (seq_len, batch) of the mesh batches, the greedy decode steps, the
+#: compressed steps and their optimizer (the train launcher's)
+MESH_SHAPE = (16, 4)
+MESH_NEW = 4
+MESH_COMPRESS_STEPS = 12
+MESH_COMPRESS_OPT = dict(peak_lr=3e-3, warmup=20, total_steps=100)
+#: the train plans on the mesh: overrides of default_plan (ZeRO-3 over
+#: data, tp over model); every one takes the chunked attention path.  The
+#: MoE family takes the first two.  The first is the one-step plan: data
+#: and tensor parallelism without ZeRO-3, whose backward needs no
+#: reduce-scatter
+MESH_PLANS = {"tp_dp": {"fsdp_axes": ()}, "fsdp": {},
+              "seq": {"act_shard": "seq"}}
+MESH_MOE_PLANS = ("tp_dp", "fsdp")
+MESH_MOE_SHAPE = (2, 64)
+#: the 1 x 4 cases, where the 4-wide model axis does not divide the
+#: reduced Llama's heads: config overrides (``kv``: its 2 kv heads
+#: repeated to its 4 heads, the decode cache sharded on its sequence;
+#: ``pad``: 6 heads of 16 padded to 8)
+MESH_ODD_HEADS = {"kv": {}, "pad": dict(n_heads=6, n_kv_heads=2,
+                                        head_dim=16)}
+
+
+def mesh_moe_input(cfg) -> np.ndarray:
+    """(B, S, d) f32 MoE input whose tokens share one direction, so the
+    router sends most of them to the same experts and each shard's
+    capacity drops some (seed 0)."""
+    rng = np.random.default_rng(0)
+    B, S = MESH_MOE_SHAPE
+    base = rng.standard_normal(cfg.d_model).astype(np.float32)
+    noise = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    return (base * 4.0 + 0.5 * noise).astype(np.float32)
+
+
+#: the parts of the mesh golden run, one subprocess each
+MESH_PARTS = (*MESH_ARCHS, "odd")
+
+
+class GoldenMeshRun:
+    """:func:`compute_golden_mesh` started in the background: one
+    subprocess with four host devices for each of ``MESH_PARTS``, all at
+    once; :meth:`result` waits and merges them, :meth:`stop` kills what
+    still runs."""
+
+    def __init__(self):
+        import subprocess
+        import sys
+        import tempfile
+        self._dir = tempfile.TemporaryDirectory()
+        env = dict(os.environ, REPRO_MESH_DEVICES="4", JAX_PLATFORMS="cpu")
+        self._jobs = {}
+        for i, part in enumerate(MESH_PARTS):
+            out = os.path.join(self._dir.name, f"{i}.npz")
+            self._jobs[out] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-inner",
+                 out, part], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+
+    def result(self, timeout: float = 600) -> dict[str, np.ndarray]:
+        out: dict[str, np.ndarray] = {}
+        try:
+            for path, job in self._jobs.items():
+                stdout, stderr = job.communicate(timeout=timeout)
+                if job.returncode:
+                    raise RuntimeError(f"mesh golden subprocess failed:\n"
+                                       f"{stdout[-2000:]}\n{stderr[-4000:]}")
+                with np.load(path) as z:
+                    out.update({k: z[k] for k in z.files})
+        finally:
+            self.stop()
+        return out
+
+    def stop(self) -> None:
+        for job in self._jobs.values():
+            if job.poll() is None:
+                job.kill()
+                job.wait()
+        self._dir.cleanup()
+
+
+def compute_golden_mesh() -> dict[str, np.ndarray]:
+    """The JAX package's mesh values (see the module docstring), from
+    subprocesses with four host devices."""
+    return GoldenMeshRun().result()
+
+
+def _mesh_golden_inner(part: str) -> dict[str, np.ndarray]:
+    """``part`` of the mesh golden values: an arch of ``MESH_ARCHS`` on
+    the 2 x 2 mesh, or ``odd``, the 1 x 4 cases; each with ``config``."""
+    import dataclasses
+
+    import repro.core.shard  # noqa: F401  (splits the host into
+    #                          REPRO_MESH_DEVICES devices before jax starts)
+    import jax
+    import jax.numpy as jnp
+    from jax import lax
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+    from repro.compat import shard_map
+    from repro.configs import get_config
+    from repro.configs.base import ShapeSpec
+    from repro.data.pipeline import synth_batch
+    from repro.launch import plans as PL
+    from repro.launch import steps as ST
+    from repro.launch.mesh import make_mesh_spec
+    from repro.models import moe as M
+    from repro.models.registry import get_model
+    from repro.train.optimizer import make_optimizer
+    from repro.train.train_step import (TrainState, compressed_psum,
+                                        init_residuals,
+                                        make_compressed_train_step)
+    from repro_torch.models.convert import flatten
+
+    mesh = make_mesh_spec(2, 2)
+    S, B = MESH_SHAPE
+    shape = ShapeSpec("mesh", "train", S, B)
+    out = {"config": np.array(json.dumps(dict(
+        mesh=[2, 2], shape=MESH_SHAPE, new=MESH_NEW,
+        compress_steps=MESH_COMPRESS_STEPS, compress_opt=MESH_COMPRESS_OPT,
+        plans=MESH_PLANS, moe_plans=MESH_MOE_PLANS,
+        moe_shape=MESH_MOE_SHAPE, odd_heads=MESH_ODD_HEADS)))}
+
+    def named(tree, mesh):
+        return jax.tree.map(lambda s: NamedSharding(mesh, s), tree,
+                            is_leaf=lambda x: isinstance(x, P))
+
+    def np_tree(t):
+        return jax.tree.map(lambda a: np.asarray(a, np.float32), t)
+
+    def loss_grads(api, params, jb, plan, mesh, pre):
+        """``pre`` + loss, nll, aux and grads/<path> under ``plan``."""
+        rt = plan.runtime(mesh)
+        p_specs = PL.sanitize_pspecs(PL.param_pspecs(params, plan), params,
+                                     mesh)
+        b_specs = PL.batch_pspecs(jb, plan)
+        fn = jax.jit(jax.value_and_grad(
+            lambda p, b: api.loss(p, b, rt), has_aux=True),
+            in_shardings=(named(p_specs, mesh), named(b_specs, mesh)))
+        (loss, met), grads = fn(params, jb)
+        out.update({pre + "loss": np.asarray(loss, np.float32),
+                    pre + "nll": np.asarray(met["nll"], np.float32),
+                    pre + "aux": np.asarray(met["aux"], np.float32)})
+        out.update(flatten(np_tree(grads), pre + "grads/"))
+
+    def greedy(cfg, api, params, tokens, mesh, pre):
+        """Prefill and MESH_NEW greedy decode steps on the serving plan:
+        ``pre`` + prefill/logits, decode/logits0 and decode/tokens."""
+        sshape = ShapeSpec("mesh", "prefill", S, B)
+        splan = dataclasses.replace(PL.default_plan(cfg, sshape, mesh),
+                                    attn_mode="chunked")
+        srt = splan.runtime(mesh)
+        p_specs = PL.sanitize_pspecs(PL.param_pspecs(params, splan),
+                                     params, mesh)
+        pf = jax.jit(lambda p, t: api.prefill(p, {"tokens": t}, srt,
+                                              max_len=S + MESH_NEW),
+                     in_shardings=(named(p_specs, mesh), None))
+        logits, cache = pf(params, tokens)
+        out[pre + "prefill/logits"] = np.asarray(logits[:, -1], np.float32)
+        c_specs = PL.sanitize_pspecs(
+            PL.cache_pspecs(cache, splan, cfg, mesh), cache, mesh)
+        # onto the cache's own specs (a sequence-sharded cache where the
+        # kv heads do not divide the model axis; else where it already is)
+        cache = jax.device_put(cache, named(c_specs, mesh))
+        dec = jax.jit(lambda p, c, t: api.decode_step(p, c, t, srt),
+                      in_shardings=(named(p_specs, mesh),
+                                    named(c_specs, mesh), None))
+        tok = jnp.argmax(logits[:, -1, :cfg.vocab_size], -1).astype(
+            jnp.int32)
+        toks = []
+        for i in range(MESH_NEW):
+            toks.append(np.asarray(tok))
+            logits, cache = dec(params, cache, tok[:, None])
+            if i == 0:
+                out[pre + "decode/logits0"] = np.asarray(logits[:, -1],
+                                                         np.float32)
+            tok = jnp.argmax(logits[:, -1, :cfg.vocab_size],
+                             -1).astype(jnp.int32)
+        out[pre + "decode/tokens"] = np.stack(toks, 1).astype(np.int32)
+
+    for arch, (pfile, prefix) in MESH_ARCHS.items():
+        if arch != part:
+            continue
+        pre = f"{arch}/"
+        cfg = family_cfg(get_config, arch, {})
+        api = get_model(cfg)
+        params = api.init(jax.random.key(0))
+        batch = synth_batch(cfg, shape, 0)
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        out.update({pre + "params_file": np.array(pfile),
+                    pre + "params_prefix": np.array(prefix)})
+        out.update({f"{pre}batch/{k}": v for k, v in batch.items()})
+        base = dataclasses.replace(PL.default_plan(cfg, shape, mesh),
+                                   attn_mode="chunked")
+        plans = MESH_PLANS if cfg.family == "dense" else {
+            k: MESH_PLANS[k] for k in MESH_MOE_PLANS}
+        with mesh:
+            for name, ov in plans.items():
+                loss_grads(api, params, jb, dataclasses.replace(base, **ov),
+                           mesh, f"{pre}train/{name}/")
+            # one build_train step of the first plan
+            plan = dataclasses.replace(base, **next(iter(plans.values())))
+            built = ST.build_train(cfg, shape, mesh, plan)
+            opt = ST.make_optimizer_for(plan, cfg)
+            mine = jax.tree.map(jnp.copy, params)    # the step donates it
+            state = TrainState(params=mine, opt=opt.init(mine),
+                               step=jnp.zeros((), jnp.int32))
+            new, met = built.fn(state, jb)
+            out.update({pre + "step/loss": np.asarray(met["loss"],
+                                                      np.float32),
+                        pre + "step/grad_norm": np.asarray(met["grad_norm"],
+                                                           np.float32)})
+            out.update(flatten(np_tree(new.params), pre + "step/params/"))
+            # prefill + greedy decode on the serving plans
+            greedy(cfg, api, params, jb["tokens"], mesh, pre)
+            # the compressed data-parallel step over "data"
+            copt = make_optimizer("adamw", **MESH_COMPRESS_OPT)
+            crt = dataclasses.replace(base.runtime(mesh), mesh=None)
+
+            def first(p, r, b):
+                (loss, _), g = jax.value_and_grad(
+                    lambda p, b: api.loss(p, b, crt), has_aux=True)(p, b)
+                pair = jax.tree.map(
+                    lambda g, r: compressed_psum(g, "data", r, 2), g, r)
+                mean = jax.tree.map(lambda t: t[0], pair,
+                                    is_leaf=lambda x: isinstance(x, tuple))
+                res = jax.tree.map(lambda t: t[1][None], pair,
+                                   is_leaf=lambda x: isinstance(x, tuple))
+                sc = jax.tree.map(lambda g, r: lax.pmax(jnp.max(jnp.abs(
+                    g.astype(jnp.float32) + r)), "data") / 127.0 + 1e-30,
+                    g, r)
+                return mean, res, sc, lax.pmean(loss, "data")
+            res0 = init_residuals(params)
+            mean, res, sc, _ = jax.jit(shard_map(
+                first, mesh=mesh, in_specs=(P(), P(), P("data")),
+                out_specs=(P(), P("data"), P(), P()), check_vma=False))(
+                params, res0, jb)
+            out.update(flatten(np_tree(mean), pre + "compress/grads/"))
+            out.update(flatten(np_tree(sc), pre + "compress/scales/"))
+            for s in range(2):
+                out.update(flatten(np_tree(jax.tree.map(lambda a: a[s],
+                                                        res)),
+                                   f"{pre}compress/residuals/{s}/"))
+            step = make_compressed_train_step(api, base.runtime(mesh), copt,
+                                              axis="data", n_shards=2)
+            jstep = jax.jit(shard_map(
+                step, mesh=mesh, in_specs=(P(), P(), P("data")),
+                out_specs=(P(), P(), P()), check_vma=False))
+            mine = jax.tree.map(jnp.copy, params)
+            state = TrainState(params=mine, opt=copt.init(mine),
+                               step=jnp.zeros((), jnp.int32))
+            residuals = init_residuals(mine)
+            losses = []
+            for i in range(MESH_COMPRESS_STEPS):
+                nb = synth_batch(cfg, shape, i)
+                out.update({f"{pre}compress/batch/{i}/{k}": v
+                            for k, v in nb.items()})
+                b = {k: jnp.asarray(v) for k, v in nb.items()}
+                state, residuals, met = jstep(state, residuals, b)
+                losses.append(float(met["loss"]))
+            out[pre + "compress/losses"] = np.asarray(losses, np.float32)
+            if cfg.n_experts:
+                x = jnp.asarray(mesh_moe_input(cfg))
+                lp = jax.tree.map(lambda a: a[0], params["layers"]["moe"])
+                for impl, f in (("ep", M.moe_ep), ("ep_a2a", M.moe_ep_a2a)):
+                    y, aux = jax.jit(lambda p, x: f(
+                        p, x, cfg, mesh, ep_axis="model",
+                        dp_axes=("data",)))(lp, x)
+                    out[f"{pre}moe/{impl}/y"] = np.asarray(y, np.float32)
+                    out[f"{pre}moe/{impl}/aux"] = np.asarray(aux,
+                                                             np.float32)
+                out[pre + "moe/x"] = np.asarray(x)
+    if part != "odd":
+        return out
+    # heads that do not divide the model axis, on a 1 x 4 mesh: the
+    # reduced Llama's batch, each case's own params (odd/<case>/init/)
+    mesh14 = make_mesh_spec(1, 4)
+    arch = next(iter(MESH_ARCHS))
+    jb = {k: jnp.asarray(v) for k, v in synth_batch(
+        family_cfg(get_config, arch, {}), shape, 0).items()}
+    for case, ov in MESH_ODD_HEADS.items():
+        cfg = family_cfg(get_config, arch, ov)
+        api = get_model(cfg)
+        params = api.init(jax.random.key(0))
+        out.update(flatten(np_tree(params), f"odd/{case}/init/"))
+        pre = f"odd/{case}/mesh/"
+        with mesh14:
+            greedy(cfg, api, params, jb["tokens"], mesh14, pre)
+            loss_grads(api, params, jb, dataclasses.replace(
+                PL.default_plan(cfg, shape, mesh14), attn_mode="chunked"),
+                mesh14, pre)
+    return out
+
+
+if __name__ == "__main__" and "--mesh-inner" in __import__("sys").argv:
+    import sys
+    i = sys.argv.index("--mesh-inner")
+    np.savez(sys.argv[i + 1], **_mesh_golden_inner(sys.argv[i + 2]))
+elif __name__ == "__main__":
     os.makedirs(DATA, exist_ok=True)
     np.savez_compressed(GOLDEN, **compute_golden())
     print(f"wrote {GOLDEN} ({os.path.getsize(GOLDEN)} bytes)")
@@ -650,3 +982,5 @@ if __name__ == "__main__":
           f"({os.path.getsize(GOLDEN_ISLANDS)} bytes)")
     np.savez_compressed(GOLDEN_TRAIN, **compute_golden_train())
     print(f"wrote {GOLDEN_TRAIN} ({os.path.getsize(GOLDEN_TRAIN)} bytes)")
+    np.savez_compressed(GOLDEN_MESH, **compute_golden_mesh())
+    print(f"wrote {GOLDEN_MESH} ({os.path.getsize(GOLDEN_MESH)} bytes)")
