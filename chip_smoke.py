@@ -1,5 +1,6 @@
 """Drive the PyTorch port's MCCM and LM serving paths on one NVIDIA card,
-every LM family included, and its training path, and check them.
+every LM family included, its training path, its meshes and its
+dry-run, and check them.
 
     python3 chip_smoke.py [--seed N] [--designs N]
 
@@ -273,16 +274,50 @@ Phases, each printing one JSON line:
    ``golden_mesh.npz`` with the CPU tests' tolerances, and the full-width
    prefill (one ``flash_fwd`` launch a layer on every rank) and decode
    step on 2 x 2: seconds, launches, collectives and peak memory a rank,
-   the logits' distance from (a)'s; (c) one rank a
+   the logits' distance from (a)'s; the same at full width in bf16 for
+   Mamba2, Zamba2, Whisper and InternVL2 on phase 16's requests, each
+   beside its single-device prefill and decode step run in (a) in bf16
+   and in f32 (the reference): every rank's ``flash_fwd`` launches equal
+   to the single device's (one a layer, a shared-block call, an encoder
+   layer or a cross-attention, on the rank's heads), the last logits no
+   further from the reference's than twice the single device's bf16
+   route (or 2^-5 of the reference's scale) and the greedy tokens equal
+   where its top two are not closer than twice that distance, seconds
+   and peak memory a rank; then
+   ``tests/torch_mesh_families_check.py``'s
+   cases (the reduced f32 Mamba2, Zamba2, Whisper and InternVL2 on 2 x 2
+   and 1 x 4: a loss and its gradients, prefill and greedy decode, and
+   the 1 x 4 Zamba2 on a long cell's sequence-sharded cache) against
+   ``golden_mesh_families.npz`` with the CPU tests' tolerances, their
+   ``flash_fwd`` launches (the f32 kernel) counted a rank; (c) one rank a
    card over NCCL where four cards are visible; on one card that is
    reported.
+21. the dry-run (``repro_torch.launch.dryrun``): (a) every assigned cell
+   (``configs.cells``: 10 archs x 4 shapes, ``long_500k`` skipped where
+   the JAX package skips it) on ``single`` (16 x 16, 256 ranks) and
+   ``multi`` (2 x 16 x 16, 512 ranks), Kimi-K2 among them, each walked at
+   full width as rank 0 of a fake world on ``meta`` tensors with the
+   mesh's device type ``cuda``: one subprocess an arch and mesh, seven at
+   once; a line a cell (``walk_s``, FLOPs a device, counted peak GiB,
+   wire GiB, the roofline's dominant term); records under
+   ``chiprun_out/dryrun/`` and each job's output under
+   ``chiprun_out/dryrun_logs/``; (b) Eq. 10's accuracy of
+   ``gpu.cost_model.estimate`` against each record's walk, term by term,
+   as ``benchmarks/tpu_model_accuracy.py`` computes it; (c) one cell's
+   record on ``cuda`` equal to its record on ``cpu``; (d) Llama-3.2-1B's
+   train step at phase 18's cut on a 1 x 1 fake world: its walk equal to
+   phase 18's walk of the real step (FLOPs, bytes, transcendentals,
+   charges), its counted peak beside phases 17 and 18's
+   ``max_memory_allocated``.  Any cell not ``ok`` fails the phase.
 
 Then the ``kernels`` line (one entry per kernel source: the search's
 launches those of phase 4's main path and of phase 19's sharded runs,
 ``flash_fwd``'s
-bf16 source with its launches in phase 9 and phase 20 (a) and its largest
+bf16 source with its launches in phase 9, phase 20 (a) and phase 20
+(b)'s full-width families on four ranks, and its largest
 error over phases 8, 9, 16 and 20, its f32 source with its launches
-in phase 10's long batch), the card's name and power limit as
+in phase 10's long batch and phase 20 (b)'s families' cases), the card's
+name and power limit as
 ``nvidia-smi`` gives them, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before
 the last line.  Without a visible card it exits 2 and prints no result.
@@ -535,6 +570,41 @@ LM_MESH_PARAM_RTOL = 2e-6
 LM_MESH_LOSS_ATOL, LM_MESH_RTOL_OF_SCALE, LM_MESH_MAX_FLIPS = 1e-5, 5e-5, 8
 GOLDEN_MESH = os.path.join(ROOT, "src", "repro_torch", "data",
                            "golden_mesh.npz")
+GOLDEN_MESH_FAMILIES = os.path.join(ROOT, "src", "repro_torch", "data",
+                                    "golden_mesh_families.npz")
+#: phase 20 (b) also runs the families past dense at full width in bf16 on
+#: the 2 x 2 mesh: phase 16's prompts, frames and patches and its seed's
+#: weights, a prefill and one decode step (fed the reference's greedy
+#: token), beside (a)'s single-device route in bf16 and in f32 (the bf16
+#: weights and inputs widened: the reference) on the same inputs.  bf16
+#: alone says little: the full-width Mamba2's bf16 logits wander ~20 % of
+#: their scale from the f32 ones on one device, as on the mesh (each
+#: layer's roundings, in another order where tp's partial sums add).  So
+#: the mesh's last logits must lie no further from the reference's, in
+#: units of its largest |value|, than this factor times the single
+#: device's bf16 route, or this floor (a wrong placement lands at O(1));
+#: a greedy token may differ from the reference's only where its top two
+#: are closer than twice the mesh's distance.
+LM_MESH_FAMILIES = ("mamba2-370m", "zamba2-1.2b", "whisper-base",
+                    "internvl2-2b")
+LM_MESH_FAMILY_FACTOR, LM_MESH_FAMILY_FLOOR = 2.0, 2.0 ** -5
+
+#: Phase 21: the dry-run (``repro_torch.launch.dryrun``) of every assigned
+#: cell on both production meshes, one subprocess an arch and mesh (each
+#: joins its own fake world), ``DRYRUN_JOBS`` at once, the heaviest first
+#: (the 2 x 16 x 16 mesh's, whose DTensor planning costs ~3x); each
+#: subprocess's time limit; the cell run again on ``cpu`` whose record
+#: must equal its ``cuda`` one; Eq. 10's floors (1 ms of the card's bf16
+#: compute, HBM and NVLink: smaller terms are "free" either way, as
+#: ``benchmarks/tpu_model_accuracy.py`` skips them).
+DRYRUN_JOBS, DRYRUN_TIMEOUT_S = 7, 900
+DRYRUN_ORDER = ("kimi-k2-1t-a32b", "qwen2.5-32b", "zamba2-1.2b",
+                "mamba2-370m", "qwen1.5-0.5b", "internvl2-2b",
+                "h2o-danube-1.8b", "granite-moe-1b-a400m", "llama3.2-1b",
+                "whisper-base")
+DRYRUN_EQUAL_CELL = ("whisper-base", "prefill_32k", "single")
+#: the sweep's mesh device type (the tensors are meta either way)
+DRYRUN_DEVICE = "cuda"
 
 
 class PhaseFailed(RuntimeError):
@@ -5300,6 +5370,159 @@ def _lm_mesh_one(device, seed: int, out_dir: str) -> dict:
     return out
 
 
+def _family_inputs(arch: str, device, seed: int):
+    """(cfg, api, batch, B, S) of phase 16's requests of ``arch``: the
+    padded prompts and the stub frames or patches, made on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    cfg = get_config(arch)
+    prompts, extra = _family_prompts(cfg, device, seed)
+    toks = _padded(prompts, device)
+    return cfg, get_model(cfg), {"tokens": toks, **extra}, *toks.shape
+
+
+def _families_single(device, seed: int, a_dir: str) -> dict:
+    """Phase 20 (a) for the families past dense: each arch's full-width
+    prefill and one decode step on one device (the route of phases 16 and
+    18), in f32 (the bf16 weights and inputs widened; its greedy token
+    feeds every route's decode step) and in bf16; the last logits and the
+    token saved under ``a_dir`` for (b)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.plans import default_plan
+    from repro_torch.models.registry import get_model
+    out = {}
+    for arch in LM_MESH_FAMILIES:
+        cfg, api, batch, B, S = _family_inputs(arch, device, seed)
+        m = api.init(torch.Generator(device=device).manual_seed(seed))
+        c32 = cfg.replace(dtype="float32")
+        api32 = get_model(c32)
+        m32 = api32.init(torch.Generator(device=device).manual_seed(seed))
+        with torch.no_grad():
+            for (n32, p32), (n, p) in zip(m32.named_parameters(),
+                                          m.named_parameters()):
+                assert n32 == n, (n32, n)
+                p32.copy_(p)
+        b32 = {k: v.float() if v.is_floating_point() else v
+               for k, v in batch.items()}
+        r = dict(B=B, S=S)
+        tok = None
+        for tag, a, mm, bb, c in (("f32", api32, m32, b32, c32),
+                                  ("bf16", api, m, batch, cfg)):
+            prt = default_plan(c, ShapeSpec("p", "prefill", S, B)).runtime()
+            drt = default_plan(c, ShapeSpec("d", "decode", S + 1, B)
+                               ).runtime()
+            torch.cuda.reset_peak_memory_stats(device)
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                lp, cache = a.prefill(mm, bb, prt, max_len=S + 1)
+                if tok is None:
+                    tok = lp[:, -1, :cfg.vocab_size].argmax(-1)[:, None].int()
+                ld, _ = a.decode_step(mm, cache, tok, drt)
+                torch.cuda.synchronize(device)
+            r[tag] = dict(seconds=time.perf_counter() - t0,
+                          peak_bytes=torch.cuda.max_memory_allocated(device))
+            np.save(os.path.join(a_dir, f"{arch}_{tag}_prefill.npy"),
+                    lp[:, -1].float().cpu().numpy())
+            np.save(os.path.join(a_dir, f"{arch}_{tag}_decode.npy"),
+                    ld[:, -1].float().cpu().numpy())
+            del lp, ld, cache
+        np.save(os.path.join(a_dir, f"{arch}_token.npy"), tok.cpu().numpy())
+        out[arch] = r
+        del m, m32, batch, b32
+        torch.cuda.empty_cache()
+    return out
+
+
+def _logits_vs(mesh, a_dir: str, arch: str, part: str, vocab: int) -> dict:
+    """The mesh's last logits (B, V) against the single device's in f32
+    (the reference) and in bf16 (read from ``a_dir``): each route's
+    distance from the reference in units of its largest |value|, and the
+    greedy tokens, which may differ from the reference's only where its
+    top two are closer than twice the mesh's distance."""
+    import numpy as np
+
+    def load(tag):
+        return np.load(os.path.join(a_dir, f"{arch}_{tag}_{part}.npy")
+                       )[:, :vocab]
+    mesh, ref, bf16 = mesh[:, :vocab], load("f32"), load("bf16")
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(mesh - ref).max())
+    single = float(np.abs(bf16 - ref).max()) / scale
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    same = mesh.argmax(-1) == ref.argmax(-1)
+    near = (top2[:, 1] - top2[:, 0]) <= 2 * err
+    return dict(mesh_rel=err / scale, single_bf16_rel=single,
+                mesh_vs_single_bf16_rel=float(np.abs(mesh - bf16).max())
+                / scale,
+                tokens_equal_f32=int(same.sum()),
+                tokens_equal_bf16=int((mesh.argmax(-1)
+                                       == bf16.argmax(-1)).sum()),
+                tokens=len(same), tokens_ok=bool((same | near).all()),
+                ok=err / scale <= max(LM_MESH_FAMILY_FACTOR * single,
+                                      LM_MESH_FAMILY_FLOOR))
+
+
+def _families_full_rank(device, seed: int, a_dir: str) -> dict:
+    """The families past dense at full width in bf16 on this world's 2 x 2
+    mesh: each arch's prefill and one decode step through ``build_step``,
+    their seconds, ``flash_fwd`` launches (and the single-device count
+    they must equal), collectives and peak memory, and (rank 0) their
+    logits and tokens against (a)'s single-device route."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import steps as ST
+    from torch.utils._pytree import tree_map
+    mesh = MESH.make_mesh_spec(2, 2, device="cuda")
+    out = {}
+    for arch in LM_MESH_FAMILIES:
+        t0 = time.perf_counter()
+        cfg, api, batch, B, S = _family_inputs(arch, device, seed)
+        enc = batch["frames"].shape[1] if "frames" in batch else 0
+        want = flash_launches(cfg, S, enc)
+        pb = ST.build_step(cfg, ShapeSpec("p", "prefill", S, B), mesh)
+        db = ST.build_step(cfg, ShapeSpec("d", "decode", S + 1, B), mesh)
+        m = pb.place_model(api.init(torch.Generator(device=device)
+                                    .manual_seed(seed)))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        # the counted prefill warms the timed one
+        (lp, cache), p_s, p_launch, p_coll = _counted(
+            lambda: pb.fn(m, batch, max_len=S + 1), device, warm=False,
+            reps=1)
+        lp = lp.full_tensor()
+        tok = torch.from_numpy(np.load(os.path.join(
+            a_dir, f"{arch}_token.npy"))).to(device)
+        # a decode step moves an SSM's state on: the counted step runs on
+        # the prefill's cache, the timed one on a copy taken before it
+        spare = tree_map(lambda t: t.clone() if isinstance(
+            t, torch.Tensor) else t, cache)
+        (ld, _), _, d_launch, d_coll = _counted(
+            lambda: db.fn(m, cache, tok), device, warm=False, reps=0)
+        d_s = [_time_once(lambda: db.fn(m, spare, tok), device)]
+        ld = ld.full_tensor()
+        r = dict(B=B, S=S, enc_frames=enc or None, prefill_s=p_s,
+                 decode_s=d_s, prefill_flash=p_launch, decode_flash=d_launch,
+                 want_flash=list(want),
+                 collectives=dict(prefill=p_coll, decode=d_coll),
+                 peak_bytes=torch.cuda.max_memory_allocated(device),
+                 finite=bool(torch.isfinite(lp).all())
+                 and bool(torch.isfinite(ld).all()))
+        if dist.get_rank() == 0:
+            for part, lg in (("prefill", lp), ("decode", ld)):
+                r[part] = _logits_vs(lg[:, -1].float().cpu().numpy(), a_dir,
+                                     arch, part, cfg.vocab_size)
+        r["arch_s"] = time.perf_counter() - t0
+        out[arch] = r
+        del m, cache, spare, lp, ld, batch, pb, db
+        torch.cuda.empty_cache()
+    return out
+
+
 def _lm_mesh_full_rank(device, seed: int, a_dir: str) -> dict:
     """Full-width Llama-3.2-1B bf16 prefill and one decode step on this
     world's 2 x 2 mesh: seconds, launches, collectives, peak memory, and
@@ -5366,6 +5589,8 @@ def _lm_mesh_rank(rank: int, world: int, backend: str, init: str,
     from repro_torch.launch import mesh as MESH
     sys.path.append(os.path.join(ROOT, "tests"))
     import torch_mesh_check as mesh_check
+    import torch_mesh_families_check as fam_check
+    from repro_torch.kernels import launches
     faulthandler.enable()           # a crash in a rank prints its stack
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5381,11 +5606,22 @@ def _lm_mesh_rank(rank: int, world: int, backend: str, init: str,
         mine["full_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        mine["families_full"] = _families_full_rank(device, seed, a_dir)
+        mine["families_full_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         got = mesh_check.run_2x2(mesh_check.golden(), "cuda",
                                  os.path.join(out_dir, "ckpt"))
         mine["golden_s"] = time.perf_counter() - t0
         if rank == 0:
             np.savez(os.path.join(out_dir, "golden_cases.npz"), **got)
+        del got
+        t0 = time.perf_counter()
+        before = launches()["flash_fwd"]
+        got = fam_check.run(fam_check.golden(), "cuda")
+        mine["families_flash"] = launches()["flash_fwd"] - before
+        mine["families_s"] = time.perf_counter() - t0
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "families_cases.npz"), **got)
         del got
         mine["bad_modules"] = [m for m in sys.modules
                                if m in ("jax", "repro")
@@ -5476,6 +5712,74 @@ def _mesh_golden_check(got: dict) -> dict:
             for impl in ("ep", "ep_a2a")})
 
 
+def _families_golden_check(got: dict) -> dict:
+    """The SSM, hybrid, enc-dec and VLM families' mesh cases run on the
+    card against ``golden_mesh_families.npz``, with
+    tests/test_torch_mesh_families.py's tolerances; fails past any.
+    Returns the worst error of each (mesh, arch, part)."""
+    import numpy as np
+    with np.load(GOLDEN_MESH_FAMILIES) as z:
+        g = {k: z[k] for k in z.files}
+    worst: dict = {}
+    fails = []
+    for k, w in g.items():
+        if not k.startswith(("2x2/", "1x4/")):
+            continue
+        if k not in got or got[k].shape != w.shape:
+            fails.append(f"{k}: not run, or of another shape")
+            continue
+        a = got[k]
+        if w.dtype.kind in "iu":
+            if not np.array_equal(a, w):
+                fails.append(f"{k}: {a.tolist()} != {w.tolist()}")
+            continue
+        if k.endswith(("/loss", "/nll", "/aux")):
+            err, tol = float(np.abs(a - w).max()), LM_MESH_LOSS_ATOL
+        else:
+            err = float(np.abs(a - w).max()) / max(1.0, float(
+                np.abs(w).max(initial=0.0)))
+            tol = LM_MESH_RTOL_OF_SCALE
+        grp = "/".join(k.split("/")[:3])
+        worst[grp] = max(worst.get(grp, 0.0), err)
+        if err > tol:
+            fails.append(f"{k}: {err} > {tol}")
+    if fails:
+        raise PhaseFailed(f"lm_mesh families' cases: {fails[:10]}")
+    return worst
+
+
+def _families_full_check(ranks: list) -> dict:
+    """The families' full-width 2 x 2 runs of every rank: each rank's
+    ``flash_fwd`` launches equal to the single-device count (one a layer
+    on its heads), finite logits, and rank 0's logits and tokens as near
+    (a)'s f32 reference as ``_logits_vs`` asks; fails past any.  Returns each arch's
+    rank-0 comparison, seconds, launches and peak bytes of every rank."""
+    fails, out = [], {}
+    for arch in LM_MESH_FAMILIES:
+        rs = [r[arch] for r in ranks]
+        got = [(r["prefill_flash"], r["decode_flash"]) for r in rs]
+        if any(g != tuple(rs[0]["want_flash"]) for g in got):
+            fails.append(f"{arch}: flash_fwd launches a rank {got}, want "
+                         f"{rs[0]['want_flash']}")
+        if not all(r["finite"] for r in rs):
+            fails.append(f"{arch}: non-finite logits")
+        for part in ("prefill", "decode"):
+            c = rs[0][part]
+            if not (c["ok"] and c["tokens_ok"]):
+                fails.append(f"{arch} {part}: {c}")
+        out[arch] = dict(
+            B=rs[0]["B"], S=rs[0]["S"], enc_frames=rs[0]["enc_frames"],
+            prefill=rs[0]["prefill"], decode=rs[0]["decode"],
+            flash_a_rank=got[0], prefill_s=[r["prefill_s"] for r in rs],
+            decode_s=[r["decode_s"] for r in rs],
+            peak_bytes=[r["peak_bytes"] for r in rs],
+            collectives=rs[0]["collectives"],
+            arch_s=[r["arch_s"] for r in rs])
+    if fails:
+        raise PhaseFailed(f"lm_mesh families at full width: {fails}")
+    return out
+
+
 def _lm_mesh_world(backend: str, world: int, a_dir: str, seed: int) -> dict:
     """Spawn ``world`` ranks of ``backend`` and gather their results: the
     golden cases held against ``golden_mesh.npz``, the reshard bit-equal,
@@ -5498,6 +5802,8 @@ def _lm_mesh_world(backend: str, world: int, a_dir: str, seed: int) -> dict:
                 ranks.append(json.load(f))
         with np.load(os.path.join(out_dir, "golden_cases.npz")) as z:
             got = {k: z[k] for k in z.files}
+        with np.load(os.path.join(out_dir, "families_cases.npz")) as z:
+            fam = {k: z[k] for k in z.files}
         # kept beside the run's output, for a failure to be read there
         os.makedirs(OUT_DIR, exist_ok=True)
         np.savez_compressed(os.path.join(
@@ -5506,6 +5812,10 @@ def _lm_mesh_world(backend: str, world: int, a_dir: str, seed: int) -> dict:
                                   "arrays.npz")) as z:
             saved = {k: z[k] for k in z.files}
     golden = _mesh_golden_check(got)
+    families = _families_golden_check(fam)
+    fam_flash = sum(r["families_flash"] for r in ranks)
+    if fam_flash <= 0:
+        raise PhaseFailed("lm_mesh families' cases launched no flash_fwd")
     off = [k for k, v in saved.items()
            if not np.array_equal(got[f"reshard/4x1/{k}"].astype(v.dtype), v)]
     if off:
@@ -5521,9 +5831,19 @@ def _lm_mesh_world(backend: str, world: int, a_dir: str, seed: int) -> dict:
         raise PhaseFailed(f"lm_mesh full-width prefill: flash_fwd launches "
                           f"a rank {[f['prefill_flash'] for f in full]}, "
                           f"want {layers} (one a layer)")
+    fam_full = _families_full_check([r["families_full"] for r in ranks])
     return dict(backend=backend, world=world, mesh={"data": 2, "model": 2},
                 wall_s=wall, golden=golden, reshard_4x1_bit_equal=True,
                 golden_s=[r["golden_s"] for r in ranks],
+                families=families,
+                families_s=[r["families_s"] for r in ranks],
+                families_flash=[r["families_flash"] for r in ranks],
+                families_launches=fam_flash,
+                families_full=fam_full,
+                families_full_s=[r["families_full_s"] for r in ranks],
+                families_full_launches=sum(
+                    f["prefill_flash"] + f["decode_flash"]
+                    for r in ranks for f in r["families_full"].values()),
                 full=full, full_s=[r["full_s"] for r in ranks],
                 launches=sum(f["prefill_flash"] + f["decode_flash"]
                              for f in full))
@@ -5537,6 +5857,11 @@ def phase_lm_mesh(card: str, device, seed: int) -> dict:
         one = _lm_mesh_one(device, seed, a_dir)
         emit("lm_mesh", part="(a) 1 x 1", **one)
         torch.cuda.empty_cache()
+        t_fam = time.perf_counter()
+        one["families_single"] = _families_single(device, seed, a_dir)
+        one["families_single_s"] = time.perf_counter() - t_fam
+        emit("lm_mesh", part="(a) families, one device",
+             **one["families_single"])
         t_b = time.perf_counter()
         four = _lm_mesh_world("gloo", LM_MESH_RANKS, a_dir, seed)
         count = torch.cuda.device_count()
@@ -5552,9 +5877,230 @@ def phase_lm_mesh(card: str, device, seed: int) -> dict:
                                rtol_of_scale=LM_MESH_RTOL_OF_SCALE,
                                compressed="one quantum"),
                 a_s=t_b - t_phase, b_s=time.perf_counter() - t_b,
-                launches=one["launches"],
+                launches=one["launches"] + four["families_full_launches"],
+                families_launches=four["families_launches"],
                 phase_s=time.perf_counter() - t_phase)
     emit("lm_mesh", **info)
+    return info
+
+
+# --------------------------------------------------------------------------
+# phase 21
+# --------------------------------------------------------------------------
+def _dryrun_one_card(out_path: str, device: str = "cuda") -> None:
+    """Phase 21 (d), in a process of its own (a fake world is its default
+    group): Llama-3.2-1B's train step at phase 18's cut (B ``STEP_B`` x S
+    ``STEP_S``) under phase 18's plan and optimizer, through
+    ``build_step`` on a 1 x 1 mesh of a fake world of one, walked on meta
+    tensors by ``launch.dryrun.walk_step``; its walk and counted memory
+    written to ``out_path`` as JSON."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch.plans import default_plan
+    from repro_torch.launch.steps import build_step
+    from repro_torch.train.optimizer import make_optimizer
+    torch.set_grad_enabled(True)
+    MESH.join_fake_world(1)
+    mesh = MESH.make_mesh_spec(1, 1, device=device)
+    cfg = get_config(TRAIN_ARCH)
+    plan = default_plan(cfg, SHAPES["train_4k"])
+    opt = make_optimizer("adamw", peak_lr=3e-3, warmup=20, total_steps=100,
+                         state_dtype=plan.opt_state_dtype,
+                         factored=plan.opt_factored,
+                         momentum=plan.opt_momentum)
+    built = build_step(cfg, ShapeSpec("train_4k_cut", "train", STEP_S,
+                                      STEP_B), mesh, plan, opt=opt)
+    t0 = time.perf_counter()
+    costs, memory = dryrun.walk_step(built)
+    with open(out_path, "w") as f:
+        json.dump(dict(flops=costs.flops, bytes=costs.bytes_accessed,
+                       transcendentals=costs.transcendentals,
+                       charges=costs.charges, memory=memory,
+                       walk_s=time.perf_counter() - t0), f)
+
+
+def _run_jobs(jobs: dict, log_dir: str) -> dict:
+    """Run each job ({name: argv}) as a subprocess from the checkout's
+    root, ``DRYRUN_JOBS`` at once in the dict's order, each within
+    ``DRYRUN_TIMEOUT_S``; its output goes to ``log_dir/<name>.txt``.
+    Returns {name: (exit code, seconds)}; a job past its limit is killed
+    (code None)."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "OMP_NUM_THREADS": "1"}
+    os.makedirs(log_dir, exist_ok=True)
+    todo, running, done = list(jobs.items()), {}, {}
+    try:
+        while todo or running:
+            while todo and len(running) < DRYRUN_JOBS:
+                name, argv = todo.pop(0)
+                log = open(os.path.join(log_dir, name + ".txt"), "w")
+                running[name] = (subprocess.Popen(
+                    argv, cwd=ROOT, env=env, stdout=log,
+                    stderr=subprocess.STDOUT), log, time.perf_counter())
+            time.sleep(0.5)
+            for name, (proc, log, t0) in list(running.items()):
+                late = time.perf_counter() - t0 > DRYRUN_TIMEOUT_S
+                if proc.poll() is None and not late:
+                    continue
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+                done[name] = (None if late else proc.returncode,
+                              time.perf_counter() - t0)
+                del running[name]
+    finally:
+        for proc, log, _ in running.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+    return done
+
+
+def _eq10(recs: list) -> dict:
+    """Eq. 10's accuracy of ``gpu.cost_model.estimate`` against each
+    record's walk, term by term (FLOPs, HBM bytes, wire bytes), as the JAX
+    package's ``benchmarks/tpu_model_accuracy.py`` computes it: each
+    cell's ``default_plan`` on a stand-in of its mesh's shape, terms below
+    their floor (1 ms of the card's rate) skipped."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.gpu.chip import H100
+    from repro_torch.gpu.cost_model import estimate
+    from repro_torch.launch.plans import default_plan
+
+    class _MeshView:
+        def __init__(self, shape: dict):
+            self.shape = shape
+    floor = {"flops": H100.peak_flops_bf16 * 1e-3,
+             "hbm": H100.hbm_bytes_per_s * 1e-3,
+             "wire": H100.link_bytes_per_s * H100.links * 1e-3}
+    acc: dict = {k: [] for k in floor}
+    cells = {}
+    for rec in recs:
+        cfg, shape = get_config(rec["arch"]), SHAPES[rec["shape"]]
+        mesh = _MeshView(rec["mesh_shape"])
+        est = estimate(cfg, shape, default_plan(cfg, shape, mesh), mesh=mesh)
+        walk = rec["walk"]
+        pairs = {"flops": (walk["flops"], est.useful_flops),
+                 "hbm": (walk["bytes_accessed"], est.hbm_bytes),
+                 "wire": (walk["total_wire_bytes"], est.wire_bytes)}
+        row = {}
+        for k, (oracle, model) in pairs.items():
+            if oracle < floor[k]:
+                row[k] = None
+                continue
+            a = 100.0 * (1.0 - abs(oracle - model) / oracle)
+            acc[k].append(a)
+            row[k] = a
+        cells[rec["cell"]] = row
+    summary = {k: dict(mean=statistics.mean(v), min=min(v), n=len(v))
+               for k, v in acc.items() if v}
+    return dict(summary=summary, cells=cells, floors=floor)
+
+
+def phase_dryrun(card: str, train: dict | None, step: dict | None) -> dict:
+    """Phase 21: the dry-run (the module docstring's item 21)."""
+    from repro_torch.configs import cells
+    from repro_torch.roofline.analysis import analyze_cell
+    t_phase = time.perf_counter()
+    out = os.path.join(OUT_DIR, "dryrun")
+    cpu_out = os.path.join(OUT_DIR, "dryrun_cpu")
+    one_path = os.path.join(OUT_DIR, "dryrun_one_card.json")
+    dry = [sys.executable, "-m", "repro_torch.launch.dryrun", "--force"]
+    jobs = {f"{arch}__{mesh}": dry + ["--device", DRYRUN_DEVICE, "--arch",
+                                      arch, "--mesh", mesh, "--out", out]
+            for mesh in ("multi", "single") for arch in DRYRUN_ORDER}
+    arch, shape, mesh = DRYRUN_EQUAL_CELL
+    jobs["cpu_cell"] = dry + ["--device", "cpu", "--arch", arch, "--shape",
+                              shape, "--mesh", mesh, "--out", cpu_out]
+    jobs["one_card"] = [sys.executable, "-c",
+                        "import chip_smoke; chip_smoke._dryrun_one_card("
+                        f"{one_path!r}, {DRYRUN_DEVICE!r})"]
+    done = _run_jobs(jobs, os.path.join(OUT_DIR, "dryrun_logs"))
+    sweep_s = time.perf_counter() - t_phase
+    want = [(a, s, m) for a, s, skip in cells(include_skipped=True)
+            if not skip and a in DRYRUN_ORDER for m in ("single", "multi")]
+    recs, fails = [], []
+    for a, s, m in want:
+        path = os.path.join(out, f"{a}__{s}__{m}.json")
+        if not os.path.exists(path):
+            fails.append(f"{a}__{s}__{m}: no record (job "
+                         f"{done.get(f'{a}__{m}')})")
+            continue
+        with open(path) as f:
+            rec = json.load(f)
+        if not rec["ok"]:
+            fails.append(f"{rec['cell']}: {rec.get('error')}")
+            continue
+        recs.append(rec)
+        roof = analyze_cell(rec)
+        emit("dryrun", part="cell", cell=rec["cell"], ok=True,
+             walk_s=rec["walk_s"], flops_per_device=rec["walk"]["flops"],
+             peak_gib=rec["memory"]["peak_memory_in_bytes"] / 2**30,
+             wire_gib=rec["collectives"]["total_wire"] / 2**30,
+             dominant=roof.dominant, compute_s=roof.compute_s,
+             memory_s=roof.memory_s, collective_s=roof.collective_s,
+             useful_ratio=roof.useful_ratio)
+    bad_jobs = {k: v for k, v in done.items() if v[0] != 0}
+    # (c) one cell's records on cuda and on cpu
+    same = None
+    cuda_p = os.path.join(out, "__".join(DRYRUN_EQUAL_CELL) + ".json")
+    cpu_p = os.path.join(cpu_out, "__".join(DRYRUN_EQUAL_CELL) + ".json")
+    if os.path.exists(cuda_p) and os.path.exists(cpu_p):
+        with open(cuda_p) as f:
+            a_rec = json.load(f)
+        with open(cpu_p) as f:
+            b_rec = json.load(f)
+        keys = ("ok", "mesh_shape", "plan", "memory", "collectives", "walk")
+        same = {k: a_rec.get(k) == b_rec.get(k) for k in keys}
+    # (d) phase 18's train cut on a 1 x 1 fake world
+    one = None
+    if os.path.exists(one_path):
+        with open(one_path) as f:
+            one = json.load(f)
+    one_vs = None
+    if one is not None and step is not None:
+        real = step["cells"]["train"]
+        one_vs = {k: (one[k], real[k]) for k in ("flops", "bytes",
+                                                 "transcendentals",
+                                                 "charges")}
+        # the walk's count against the allocator's peak of the real step
+        peak = one["memory"]["peak_memory_in_bytes"]
+        one_vs["peak_counted_vs_phase18"] = (
+            peak, real["max_memory_allocated"],
+            peak / real["max_memory_allocated"])
+        if train is not None:
+            p17 = train["full"]["max_memory_allocated"]
+            one_vs["peak_counted_vs_phase17"] = (peak, p17, peak / p17)
+    eq10 = _eq10(recs)
+    kimi = [r["cell"] for r in recs if r["arch"] == "kimi-k2-1t-a32b"]
+    info = dict(card=card, cells=len(want), ok=len(recs), jobs=done,
+                sweep_s=sweep_s, left_out=[], kimi_cells=kimi,
+                eq10=eq10["summary"], eq10_floors=eq10["floors"],
+                eq10_cells=eq10["cells"], cuda_cpu_equal=same,
+                cuda_cpu_cell="__".join(DRYRUN_EQUAL_CELL),
+                one_card=one, one_card_vs_real=one_vs,
+                walk_s_total=sum(r["walk_s"] for r in recs),
+                phase_s=time.perf_counter() - t_phase)
+    emit("dryrun", **info)
+    if fails or bad_jobs:
+        raise PhaseFailed(f"dryrun: {len(fails)} cells not ok "
+                          f"{fails[:6]}; jobs {bad_jobs}")
+    if len(kimi) != 6:
+        raise PhaseFailed(f"dryrun: Kimi-K2's cells {kimi}")
+    if same is None or not all(same.values()):
+        raise PhaseFailed(f"dryrun: the cuda and cpu records of "
+                          f"{DRYRUN_EQUAL_CELL} differ: {same}")
+    if one is None:
+        raise PhaseFailed("dryrun: the 1 x 1 fake world's walk is missing")
+    walk_keys = ("flops", "bytes", "transcendentals", "charges")
+    if one_vs is not None and any(one_vs[k][0] != one_vs[k][1]
+                                  for k in walk_keys):
+        raise PhaseFailed(f"dryrun: the 1 x 1 fake world's walk differs "
+                          f"from phase 18's: {one_vs}")
     return info
 
 
@@ -5562,7 +6108,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--designs", type=int, default=100_000)
-    ap.add_argument("--only", choices=("lm_mesh",), default=None,
+    ap.add_argument("--only", choices=("lm_mesh", "dryrun"), default=None,
                     help="run the kernels' build and this phase alone, and "
                          "print no kernels line and no ok line (debugging)")
     args = ap.parse_args(argv)
@@ -5580,6 +6126,9 @@ def main(argv=None) -> int:
     phase_build(card)
     if args.only == "lm_mesh":
         phase_lm_mesh(card, device, args.seed)
+        return 0
+    if args.only == "dryrun":
+        phase_dryrun(card, None, None)
         return 0
     err = phase_kernel(card, device)
     phase_main_vs_golden(card, device)
@@ -5602,13 +6151,15 @@ def main(argv=None) -> int:
     phase_multinet(card, device, args.seed)
     phase_wire_islands(card, device, submit, dse)
     families = phase_families(card, device, args.seed)
-    phase_train(card, device, args.seed)
-    phase_step_model(card, device, args.seed)
+    train = phase_train(card, device, args.seed)
+    step_model = phase_step_model(card, device, args.seed)
     mesh = phase_mesh(card, device, search.pop("arrays"), args.seed,
                       args.designs)
     search["launches"] += mesh["launches"]
     lm_mesh = phase_lm_mesh(card, device, args.seed)
     flash["launches"] += lm_mesh["launches"]
+    flash_f32["launches"] += lm_mesh["families_launches"]
+    phase_dryrun(card, train, step_model)
     flash["max_abs_err"] = max(flash["max_abs_err"],
                                lm_mesh["one_by_one"]["serve"][
                                    "layer0_max_abs_err"])

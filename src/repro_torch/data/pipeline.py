@@ -75,9 +75,11 @@ def synth_batch(cfg: ModelConfig, shape: ShapeSpec, step: int, *,
 
 def to_device(batch: dict, device) -> dict:
     """A batch's arrays as tensors on ``device``: a numpy array is copied
-    there once, a tensor already on it is taken as it is."""
-    return {k: (torch.from_numpy(np.ascontiguousarray(a))
-                if isinstance(a, np.ndarray) else a).to(device)
+    there once, a tensor already on it is taken as it is, and a ``meta``
+    tensor (the dry-run's stand-ins, which hold no data) stays ``meta``."""
+    return {k: a if isinstance(a, torch.Tensor) and a.is_meta else
+            (torch.from_numpy(np.ascontiguousarray(a))
+             if isinstance(a, np.ndarray) else a).to(device)
             for k, a in batch.items()}
 
 

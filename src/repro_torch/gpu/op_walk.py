@@ -37,6 +37,13 @@ What it counts, per device (a process drives one card):
   and all-to-all (n-1)/n of the larger side, a broadcast, send or receive
   as a collective-permute, 1x), with n the op's own group size.
 
+On a mesh each count is this rank's: a DTensor's op is counted as the
+ops it runs on the rank's shards and the collectives it issues (the walk
+steps aside, ``NotImplemented``, and DTensor desugars the op), and the
+ops that DTensor's sharding propagation runs on fake tensors of the
+global shape are not counted.  :class:`MemCount` counts the bytes the
+rank holds the same way.
+
 Hand-written kernels are launched through ``ctypes`` and never pass the
 dispatcher, so no mode sees them.  Each kernel's route function therefore
 charges its kernel's cost by formula through :func:`charge`, on the card
@@ -51,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 from collections import defaultdict
 from dataclasses import dataclass, field
 
@@ -99,6 +107,20 @@ _COLLECTIVES = {
     "c10d.send": ("collective-permute", 0, None),
     "c10d.recv_": ("collective-permute", 0, 0),
 }
+
+
+def _subclasses() -> tuple[type, type]:
+    """``DTensor`` and ``FakeTensor``, imported on first use."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+    return DTensor, FakeTensor
+
+
+def _is_fake(types, out, fake: type) -> bool:
+    """Whether an op ran on fake tensors, or made one (a factory op has
+    no tensor argument to tell)."""
+    return any(issubclass(t, fake) for t in types) or any(
+        isinstance(t, fake) for t in tree_leaves(out))
 
 
 def _nbytes(x) -> int:
@@ -183,8 +205,17 @@ class OpWalk(TorchDispatchMode):
         self._quiet: dict[int, int] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        dtensor, fake = _subclasses()
+        if any(issubclass(t, dtensor) for t in types):
+            # a DTensor's op runs as ops on this rank's shards, which the
+            # walk then sees and counts: the costs are a device's
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if _is_fake(types, out, fake):
+            # DTensor's sharding propagation runs the op on fake tensors of
+            # the global shape, for the output's metadata alone
+            return out
         if self._quiet.get(threading.get_ident()):
             return out
         name = str(func.overloadpacket)
@@ -271,6 +302,84 @@ class OpWalk(TorchDispatchMode):
                     "coll_operand", "coll_wire", "coll_count",
                     "flops_by_dtype", "census", "flops_by_op",
                     "bytes_by_op", "charges")})
+
+
+class MemCount(TorchDispatchMode):
+    """The bytes a device holds while a step runs, counted from the
+    tensors its aten ops make (``meta`` tensors too, which hold none): a
+    ``TorchDispatchMode`` for the dry-run, where no allocator can be asked.
+
+    Each op's output storages are live from the op that made them to the
+    death of the last tensor that holds them (a weak reference's
+    callback); :meth:`hold` registers the step's arguments (parameters,
+    optimizer state, batch, cache) first.  A DTensor's op is counted as
+    the ops on this rank's shards, as :class:`OpWalk` counts it, and the
+    fake tensors of DTensor's sharding propagation not at all.  What it
+    cannot see: the allocator's rounding and caching, workspaces a
+    library allocates inside a call, and a hand kernel's scratch."""
+
+    def __init__(self):
+        super().__init__()
+        self._lock = threading.Lock()
+        self._live: dict[int, list] = {}       # storage -> [bytes, refs]
+        self.now = self.peak = self.held = 0
+
+    def hold(self, tensors) -> None:
+        """Count ``tensors`` (a tree of tensors or DTensors, their local
+        shards) as live arguments, each its own elements' bytes (a shard
+        cut from a whole tensor that every rank holds is a view of it)."""
+        for t in tree_leaves(tensors):
+            if isinstance(t, _subclasses()[0]):
+                t = t._local_tensor
+            if isinstance(t, torch.Tensor):
+                self._track(t, t.numel() * t.element_size())
+        self.held = self.now
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        dtensor, fake = _subclasses()
+        if any(issubclass(t, dtensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if not _is_fake(types, out, fake):
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    self._track(t)
+        return out
+
+    def _track(self, t: torch.Tensor, nbytes: int | None = None) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        with self._lock:
+            e = self._live.get(key)
+            if e is None:
+                e = self._live[key] = [st.nbytes() if nbytes is None
+                                       else nbytes, 0]
+                self.now += e[0]
+                self.peak = max(self.peak, self.now)
+            e[1] += 1
+        weakref.finalize(t, self._drop, key)
+
+    def _drop(self, key: int) -> None:
+        with self._lock:
+            e = self._live.get(key)
+            if e is None:
+                return
+            e[1] -= 1
+            if e[1] == 0:
+                self.now -= e[0]
+                del self._live[key]
+
+    def memory(self) -> dict:
+        """The JAX dry-run's memory keys for one device: the arguments
+        held, the bytes made in the step and still live (its outputs), the
+        most made beyond the arguments at once, and the peak."""
+        with self._lock:
+            out = max(self.now - self.held, 0)
+            return {"argument_size_in_bytes": int(self.held),
+                    "output_size_in_bytes": int(out),
+                    "temp_size_in_bytes": int(max(self.peak - self.held
+                                                  - out, 0)),
+                    "peak_memory_in_bytes": int(self.peak)}
 
 
 _NO_CHARGE = contextlib.nullcontext()

@@ -251,10 +251,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     q (B, Sq, H, D); k/v (B, Sk, Hkv, D), GQA heads read in place -> (B, Sq,
     H, D) in q's dtype, contiguous.  A CPU tensor runs the plain recurrence
     (``flash_fwd_ref``); a CUDA tensor launches the kernel of its dtype,
-    and an error there propagates.  The JAX package's block sizes and
-    ``interpret`` flag have no counterpart: the kernels' tiles are fixed,
-    and the CPU runs the plain version.  Inside an ``op_walk.OpWalk`` either
-    route is charged :func:`cost` as ``flash_fwd``.
+    and an error there propagates; a ``meta`` tensor (the dry-run's
+    stand-ins, which hold no data) computes nothing and returns an empty
+    ``meta`` tensor of the output's shape and dtype.  Any other device
+    raises.  The JAX package's block sizes and ``interpret`` flag have no
+    counterpart: the kernels' tiles are fixed, and the CPU runs the plain
+    version.  Inside an ``op_walk.OpWalk`` every route is charged
+    :func:`cost` as ``flash_fwd``.
     """
     with op_walk.charge("flash_fwd", lambda: cost(
             q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
@@ -263,10 +266,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
             return flash_attention_cuda(q, k, v, causal=causal,
                                         window=window, scale=scale,
                                         q_offset=q_offset)
+        _check(q, k, v, window)
+        if q.device.type == "meta":
+            return torch.empty(q.shape, dtype=q.dtype, device="meta")
         if q.device.type != "cpu":
             raise ValueError(f"no flash_attention route for a tensor on "
-                             f"{q.device}; use a CPU or CUDA tensor")
-        _check(q, k, v, window)
+                             f"{q.device}; use a CPU, CUDA or meta tensor")
         # contiguous, as the kernel returns it: the callers' reshapes then
         # run the same ops on both routes
         return flash_fwd_ref(q, k, v, causal=causal, window=window,

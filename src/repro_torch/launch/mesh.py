@@ -21,13 +21,18 @@ module touches no process group.
   the world must be exactly their product.
 * :func:`make_host_mesh`: an (n, 1) (data, model) mesh; n is the explicit
   count, else ``REPRO_MESH_DEVICES``, else the world size.
+* :func:`make_production_mesh`: the JAX package's production mesh, 16 x
+  16 (data, model), or two such pods (pod, data, model).
+* :func:`join_fake_world`: this process as rank 0 of a world of n ranks
+  that do not exist (PyTorch's ``fake`` backend: its collectives return at
+  once and move nothing), for the dry-run (``launch/dryrun.py``), which
+  runs rank 0's step on ``meta`` tensors.  A torch without the backend
+  raises; nothing stands in for it.
 
 A mesh holds ``cuda`` tensors unless the caller passes ``device="cpu"``
 (the CPU tests); ``cuda`` without a visible card raises.  Gloo runs on
 CUDA tensors too, its ranks sharing a card.
 
-``make_production_mesh`` (16 x 16, two pods) comes with the dry-runs
-(``ROADMAP.md`` item 13(d)).
 """
 from __future__ import annotations
 
@@ -113,3 +118,33 @@ def make_host_mesh(ndevices: int | None = None, *,
     if n is None:
         n = dist.get_world_size()
     return make_mesh_spec(n, 1, device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
+    """16 x 16 (data, model), or with ``multi_pod`` 2 x 16 x 16 (pod,
+    data, model): the JAX package's production mesh (a TPU v5e-256 pod, or
+    two), over a world of 256 or 512 ranks."""
+    if multi_pod:
+        return make_mesh_spec(16, 16, pod=2, device=device)
+    return make_mesh_spec(16, 16, device=device)
+
+
+def join_fake_world(world_size: int) -> int:
+    """Make this process rank 0 of a ``fake`` process group of
+    ``world_size`` ranks (the default group; one a process) and return
+    the world size.  Its collectives complete at once and move nothing, so
+    a step on ``meta`` tensors runs as rank 0 would run it.  Raises where
+    the installed torch has no ``fake`` backend."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            f"torch {torch.__version__} has no fake process-group backend "
+            f"(torch.testing._internal.distributed.fake_pg): the dry-run "
+            f"needs it") from e
+    if dist.is_initialized():
+        raise RuntimeError("this process already belongs to a process "
+                           "group; a fake world needs a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    return world_size

@@ -5,17 +5,16 @@ assembles a distributed train, prefill or decode step from the model API,
 the optimizer and the plan's shardings.  Where the JAX package returns a
 jitted function with its ``in_shardings``, the port returns the step as a
 Python function over DTensors (the port has no jit, so there is no
-``lower()``; the dry-runs come with ``ROADMAP.md`` item 13(d)):
-``arg_specs`` are ``models/registry.py``'s meta-tensor stand-ins and
-``in_shardings`` their DTensor placements (``launch/plans.py``).  Every
-rank calls the step with the same full inputs (the same seed, the same
-batch) or with DTensors already placed; :meth:`BuiltStep.place_model`
-puts a model's parameters on the mesh.
+``lower()``: ``launch/dryrun.py`` runs the step on ``meta`` tensors in its
+place): ``arg_specs`` are ``models/registry.py``'s meta-tensor stand-ins
+and ``in_shardings`` their DTensor placements (``launch/plans.py``).
+Every rank calls the step with the same full inputs (the same seed, the
+same batch) or with DTensors already placed; :meth:`BuiltStep.place_model`
+puts a model's parameters on the mesh, :func:`place_cache` a cache.
 
 Shape convention: ``decode_*`` / ``long_*`` cells run ``decode_step``
 (one new token against a KV cache of ``seq_len``), ``prefill_*`` cells the
-prompt pass, ``train_*`` cells a train step.  The dense and MoE families
-build; the others raise (``ROADMAP.md`` item 13(d)).
+prompt pass, ``train_*`` cells a train step, for every family.
 """
 from __future__ import annotations
 
@@ -26,7 +25,7 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeSpec
 from ..models import registry as model_registry
-from ..models.runtime import Runtime, placements, single_device_only
+from ..models.runtime import Runtime, placements
 from ..train.optimizer import AdamW, make_optimizer
 from ..train.train_step import make_train_step, shard_batch
 from . import plans as PL
@@ -59,9 +58,31 @@ def make_optimizer_for(plan: PL.ParallelPlan, cfg: ModelConfig) -> AdamW:
                           momentum=plan.opt_momentum)
 
 
-def _families(cfg: ModelConfig, mesh) -> None:
-    if cfg.family not in ("dense", "moe"):
-        single_device_only(Runtime(mesh=mesh), cfg.family)
+def place_cache(cache: dict, specs: dict, mesh) -> dict:
+    """A cache (a dict tree; ``len`` an int) with every tensor on its spec
+    of ``specs`` on ``mesh``: a DTensor redistributed there, a plain
+    tensor (the same on every rank) distributed without a send."""
+    from torch.distributed.tensor import DTensor
+
+    from ..models.runtime import distribute
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out[k] = place_cache(v, specs[k], mesh)
+        elif isinstance(v, DTensor):
+            out[k] = v.redistribute(mesh, placements(specs[k], mesh))
+        elif isinstance(v, torch.Tensor):
+            out[k] = distribute(v, mesh, placements(specs[k], mesh))
+        else:
+            out[k] = v
+    return out
+
+
+def cache_specs_of(cache: dict, plan: PL.ParallelPlan, cfg: ModelConfig,
+                   mesh) -> dict:
+    """The sanitized specs of a cache's leaves (``plans.cache_pspecs``)."""
+    return PL.sanitize_pspecs(PL.cache_pspecs(cache, plan, cfg, mesh),
+                              cache, mesh)
 
 
 def _param_specs(cfg, plan, mesh) -> tuple[dict, dict]:
@@ -77,7 +98,6 @@ def build_train(cfg: ModelConfig, shape: ShapeSpec, mesh,
     """step(state, batch) -> (state, metrics) on ``mesh``: the state's
     model placed by :meth:`BuiltStep.place_model`, its optimizer state
     made after that (``opt.init`` takes the parameters' placements)."""
-    _families(cfg, mesh)
     plan = plan or PL.default_plan(cfg, shape, mesh)
     rt = plan.runtime(mesh)
     api = model_registry.get_model(cfg)
@@ -94,9 +114,9 @@ def build_train(cfg: ModelConfig, shape: ShapeSpec, mesh,
 
 def build_prefill(cfg: ModelConfig, shape: ShapeSpec, mesh,
                   plan: PL.ParallelPlan | None = None) -> BuiltStep:
-    """fn(model, batch, max_len=None) -> (last logits, cache): the cache on
-    ``cache_pspecs``' placements, ready for the decode step."""
-    _families(cfg, mesh)
+    """fn(model, batch, max_len=None) -> (last logits, cache): every
+    cache leaf on ``cache_pspecs``' placements, ready for the decode
+    step."""
     plan = plan or PL.default_plan(cfg, shape, mesh)
     rt = plan.runtime(mesh)
     api = model_registry.get_model(cfg)
@@ -106,15 +126,9 @@ def build_prefill(cfg: ModelConfig, shape: ShapeSpec, mesh,
 
     def prefill_fn(model, batch, max_len=None):
         batch = shard_batch(dict(batch), rt)
-        tokens = batch["tokens"]
-        n = max(tokens.shape[1], max_len or 0)
-        cache_sds = model_registry.cache_specs(
-            cfg, ShapeSpec(shape.name, "decode", n, tokens.shape[0]), rt)
-        c_specs = PL.sanitize_pspecs(
-            PL.cache_pspecs(cache_sds, plan, cfg, mesh), cache_sds, mesh)
-        pl = {k: placements(c_specs[k], mesh) for k in ("k", "v")}
-        return api.prefill(model, batch, rt, max_len=max_len,
-                           cache_placements=pl)
+        logits, cache = api.prefill(model, batch, rt, max_len=max_len)
+        return logits, place_cache(cache, cache_specs_of(cache, plan, cfg,
+                                                         mesh), mesh)
     in_sh = (PL.to_placements(p_specs, mesh), PL.to_placements(b_specs, mesh))
     return BuiltStep("prefill", prefill_fn, (params_sds, batch_sds), in_sh,
                      plan, rt, cfg, shape)
@@ -125,14 +139,12 @@ def build_decode(cfg: ModelConfig, shape: ShapeSpec, mesh,
     """fn(model, cache, tokens) -> (logits, cache): one new token against
     a KV cache of ``seq_len``, the cache updated in place on its
     placements.  ``tokens`` (B, 1), the same on every rank or a DTensor."""
-    _families(cfg, mesh)
     plan = plan or PL.default_plan(cfg, shape, mesh)
     rt = plan.runtime(mesh)
     api = model_registry.get_model(cfg)
     params_sds, p_specs = _param_specs(cfg, plan, mesh)
     cache_sds = model_registry.cache_specs(cfg, shape, rt)
-    c_specs = PL.sanitize_pspecs(PL.cache_pspecs(cache_sds, plan, cfg, mesh),
-                                 cache_sds, mesh)
+    c_specs = cache_specs_of(cache_sds, plan, cfg, mesh)
     tok_sds = torch.empty((shape.global_batch, 1), dtype=torch.int32,
                           device="meta")
     t_spec = (plan.dp_axes or None, None)

@@ -13,6 +13,13 @@ keys and values from the cached encoder output: there is no cross-KV
 cache.  ``encode`` serves without autograd; ``encode_fwd``,
 ``decode_train`` and ``loss`` run with it, each layer checkpointed under
 the runtime's remat.
+
+On a mesh (``rt.mesh``) the self- and cross-attentions run in
+``layers.attention_region`` on each rank's heads, the decoder's decode
+step in ``layers.decode_region`` on the stacked self-attention cache, the
+token embedding in ``layers.embed_rows``; the residual streams are
+constrained to ``rt.act_spec(3)`` where the JAX package constrains them
+(after the adapter, the embedding and each block).
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ from torch import nn
 
 from . import layers as L
 from .runtime import resolve_device
-from .transformer import cross_entropy
+from .transformer import cross_entropy, mesh_context, stack_padded
 
 
 class EncDecLM(L.Params):
@@ -54,26 +61,32 @@ def _init_dec_block(gen: torch.Generator, cfg) -> nn.ModuleDict:
 
 
 def _enc_block_fwd(p, x, cfg, rt):
-    x = x + L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
-                            cfg, causal=False, mode=rt.attn_mode)
-    return x + L.mlp_fwd(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    x = rt.residual(x, L.attention_fwd(
+        p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg, causal=False,
+        mode=rt.attn_mode, rt=rt))
+    x = rt.residual(x, L.mlp_fwd(p["mlp"], L.rms_norm(x, p["ln2"],
+                                                      cfg.norm_eps), cfg))
+    return rt.constrain(x, *rt.act_spec(3))
 
 
-def _cross_and_mlp(p, x, enc_out, cfg):
+def _cross_and_mlp(p, x, enc_out, cfg, rt):
     """A decoder block past its self-attention: cross-attention to the
     encoder output, then the MLP."""
-    x = x + L.cross_attention_fwd(p["xattn"],
-                                  L.rms_norm(x, p["lnx"], cfg.norm_eps),
-                                  enc_out, cfg)
-    return x + L.mlp_fwd(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    x = rt.residual(x, L.cross_attention_fwd(
+        p["xattn"], L.rms_norm(x, p["lnx"], cfg.norm_eps), enc_out, cfg,
+        rt=rt))
+    x = rt.residual(x, L.mlp_fwd(p["mlp"], L.rms_norm(x, p["ln2"],
+                                                      cfg.norm_eps), cfg))
+    return rt.constrain(x, *rt.act_spec(3))
 
 
 def _dec_block_fwd(p, x, enc_out, cfg, rt):
     """A full-sequence decoder block: causal self-attention (chunked past
     2048 positions under ``auto``), then :func:`_cross_and_mlp`."""
-    x = x + L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
-                            cfg, causal=True, mode=rt.attn_mode)
-    return _cross_and_mlp(p, x, enc_out, cfg)
+    x = rt.residual(x, L.attention_fwd(
+        p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg, causal=True,
+        mode=rt.attn_mode, rt=rt))
+    return _cross_and_mlp(p, x, enc_out, cfg, rt)
 
 
 # --------------------------------------------------------------------------
@@ -108,7 +121,7 @@ def encode_fwd(model, frames, cfg, rt):
     """:func:`encode` with autograd wherever the caller records it."""
     S = frames.shape[1]
     x = frames.to(cfg.torch_dtype) @ model["adapter"]["w"]
-    x = x + model["enc_pos"][:S]
+    x = rt.constrain(x + model["enc_pos"][:S], *rt.act_spec(3))
     x = L.run_layers(model["enc_layers"],
                      lambda p, x: _enc_block_fwd(p, x, cfg, rt), x, rt.remat)
     return L.rms_norm(x, model["enc_norm"], cfg.norm_eps)
@@ -118,13 +131,15 @@ def encode_fwd(model, frames, cfg, rt):
 def encode(model, frames, cfg, rt):
     """frames: (B, S_enc, frontend_dim) precomputed stub embeddings ->
     the encoder output (B, S_enc, d_model)."""
-    return encode_fwd(model, frames, cfg, rt)
+    with mesh_context(rt):
+        return encode_fwd(model, frames, cfg, rt)
 
 
 def decode_train(model, enc_out, tokens, cfg, rt):
     """The decoder over a whole token sequence (B,S_dec), teacher-forced,
     cross-attending enc_out -> logits (B,S_dec,V) fp32."""
-    x = L.embed(model["embed"], tokens, cfg)
+    x = rt.constrain(L.embed(model["embed"], tokens, cfg, rt=rt),
+                     *rt.act_spec(3))
     x = L.run_layers(model["dec_layers"],
                      lambda p, x: _dec_block_fwd(p, x, enc_out, cfg, rt), x,
                      rt.remat)
@@ -135,12 +150,13 @@ def decode_train(model, enc_out, tokens, cfg, rt):
 def loss(model, batch, cfg, rt):
     """batch: {frames (B,S_enc,F), tokens (B,S_dec), labels (B,S_dec)
     [, mask]} -> (nll, metrics {nll, aux = 0})."""
-    enc_out = encode_fwd(model, batch["frames"], cfg, rt)
-    logits = decode_train(model, enc_out, batch["tokens"], cfg, rt)
-    nll = cross_entropy(logits, batch["labels"], batch.get("mask"))
-    return nll, {"nll": nll,
-                 "aux": torch.zeros((), dtype=torch.float32,
-                                    device=nll.device)}
+    with mesh_context(rt):
+        enc_out = encode_fwd(model, batch["frames"], cfg, rt)
+        logits = decode_train(model, enc_out, batch["tokens"], cfg, rt)
+        nll = cross_entropy(logits, batch["labels"], batch.get("mask"))
+        return nll, {"nll": nll,
+                     "aux": torch.zeros((), dtype=torch.float32,
+                                        device=nll.device)}
 
 
 # --------------------------------------------------------------------------
@@ -167,26 +183,40 @@ def init_cache(cfg, batch: int, max_len: int, rt, dtype=None, enc_len=None,
 def prefill(model, batch, cfg, rt, *, max_len: int | None = None):
     """Encode ``batch["frames"]`` and run the decoder prompt
     ``batch["tokens"]`` -> (last logits, cache).  The decoder's
-    self-attention is dense here, as in the JAX package."""
+    self-attention is dense here, as in the JAX package (on a mesh in
+    ``layers.attention_region``).  On a mesh the cache's leaves are
+    DTensors as the layers leave them (``launch/steps.py::build_prefill``
+    places them)."""
     enc_out = encode(model, batch["frames"], cfg, rt)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = L.embed(model["embed"], tokens, cfg)
-    n = max(S, max_len or 0)
-    shape = (cfg.n_dec_layers, B, n, cfg.n_kv_heads, cfg.head_dim)
-    ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    for i, p in enumerate(model["dec_layers"]):
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = L._qkv(p["attn"], h, cfg)
-        o = L.dense_attention(q, k, v, causal=True, window=None)
-        x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
-        x = _cross_and_mlp(p, x, enc_out, cfg)
-        ks[i, :, :S] = k
-        vs[i, :, :S] = v
-    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
-    logits = L.unembed(model["embed"], model.lm_head(), x[:, -1:], cfg)
+    ks, vs = [], []
+    with mesh_context(rt):
+        x = rt.constrain(L.embed(model["embed"], tokens, cfg, rt=rt),
+                         *rt.act_spec(3))
+        for p in model["dec_layers"]:
+            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+            q, k, v = L._qkv(p["attn"], h, cfg)
+            o = _self_attend(q, k, v, rt)
+            x = x + o.reshape(B, S, -1) @ L.attn_wo(p["attn"], cfg, rt)
+            x = _cross_and_mlp(p, x, enc_out, cfg, rt)
+            ks.append(k)
+            vs.append(v)
+        n = max(S, max_len or 0)
+        ks, vs = stack_padded(ks, n), stack_padded(vs, n)
+        x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+        logits = L.unembed(model["embed"], model.lm_head(), x[:, -1:], cfg)
     return logits, {"enc_out": enc_out, "k": ks, "v": vs, "len": S}
+
+
+def _self_attend(q, k, v, rt):
+    """The prompt's dense causal self-attention, on a mesh on each rank's
+    heads."""
+    def fn(q, k, v):
+        return L.dense_attention(q, k, v, causal=True, window=None)
+    if rt.mesh is None:
+        return fn(q, k, v)
+    return L.attention_region(rt, fn, q, k, v)
 
 
 @torch.no_grad()
@@ -195,12 +225,15 @@ def decode_step(model, cache, tokens, cfg, rt):
     the cached encoder states.  The self-attention cache is updated in
     place; the returned dict holds it with ``len`` + 1."""
     pos = cache["len"]
-    x = model["embed"]["table"][tokens] + model["embed"]["pos"][pos:pos + 1]
-    for i, p in enumerate(model["dec_layers"]):
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        att, _, _ = L.attention_decode(p["attn"], h, cfg, cache["k"][i],
-                                       cache["v"][i], pos)
-        x = _cross_and_mlp(p, x + att, cache["enc_out"], cfg)
-    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
-    logits = L.unembed(model["embed"], model.lm_head(), x, cfg)
+    with mesh_context(rt):
+        x = L.embed_rows(model["embed"]["table"], tokens, rt) \
+            + model["embed"]["pos"][pos:pos + 1]
+        x = rt.constrain(x, *rt.act_spec(3))
+        for i, p in enumerate(model["dec_layers"]):
+            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+            att, _, _ = L.attention_decode(p["attn"], h, cfg, cache["k"],
+                                           cache["v"], pos, rt=rt, layer=i)
+            x = _cross_and_mlp(p, x + att, cache["enc_out"], cfg, rt)
+        x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+        logits = L.unembed(model["embed"], model.lm_head(), x, cfg)
     return logits, {**cache, "len": pos + 1}

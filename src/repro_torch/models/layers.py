@@ -25,9 +25,10 @@ rank's local tensors, because a DTensor cannot reach the kernel (its
 
 * the attention (:func:`attention_region`): q/k/v with batch over the dp
   axes and heads over tp, so each rank runs ``flash_fwd`` (or the dense
-  path) on its own heads; heads that do not divide tp are padded to the
-  next multiple, kv heads that do not divide it repeated first, as the
-  JAX package's ``chunked_attention`` does;
+  path) on its own heads, causal or not, self- or cross-attention (the
+  keys' length may differ from the queries'); heads that do not divide
+  tp are padded to the next multiple, kv heads that do not divide it
+  repeated first, as the JAX package's ``chunked_attention`` does;
 * the decode step's cache write and attention (:func:`decode_region`), on
   the cache's own layout: heads over tp, or, where the kv heads do not
   divide tp (or the plan shards the cache's sequence), the sequence, with
@@ -433,17 +434,25 @@ def attention_fwd(params: Params, x, cfg, *, positions=None, causal=True,
     def fn(q, k, v):
         return attn(q, k, v, causal=causal, window=window,
                     q_offset=q_offset)
-    wo = params["wo"]
     if rt is not None and rt.mesh is not None:
         out = attention_region(rt, fn, q, k, v)
-        if _padded_heads(rt, cfg.n_heads):
-            # heads padded over tp leave whole (attention_region); so does
-            # wo, whose rows tp would split inside a head
-            wo = wo.redistribute(rt.mesh, placements((), rt.mesh))
     else:
         out = fn(q, k, v)
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ wo
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ attn_wo(params,
+                                                                  cfg, rt)
     return (out, k, v) if return_kv else out
+
+
+def attn_wo(params: Params, cfg, rt=None):
+    """The output projection of an attention's heads, as it meets
+    :func:`attention_region`'s output: where the heads are padded over tp
+    that output leaves whole, and so does wo, whose rows tp would split
+    inside a head."""
+    wo = params["wo"]
+    if rt is not None and rt.mesh is not None \
+            and _padded_heads(rt, cfg.n_heads):
+        wo = wo.redistribute(rt.mesh, placements((), rt.mesh))
+    return wo
 
 
 def _padded_heads(rt, n_heads: int) -> bool:
@@ -549,12 +558,14 @@ def attention_decode(params: Params, x, cfg, cache_k, cache_v,
 
 
 def _decode_attend(q, k, v, cache_k, cache_v, cache_len: int, cfg,
-                   seq0: int = 0, reduce=None):
+                   seq0: int = 0, reduce=None, score_sum=None):
     """Write k, v (B,1,Hkv,hd) at ``cache_len`` into the cache (B, S,
     Hkv, hd) that holds positions [seq0, seq0 + S), and attend q (B,1,H,
     hd) over it -> (B,1,H,hd).  ``reduce(t, op)`` combines the softmax's
     max and sums and the weighted values across ranks that hold the
-    sequence's other positions (None: this cache is the whole of it)."""
+    sequence's other positions (None: this cache is the whole of it);
+    ``score_sum(t)`` sums the scores across ranks that hold the head
+    dim's other parts (None: the cache holds all of it)."""
     B = q.shape[0]
     S_loc, Hkv, hd = cache_k.shape[1], cache_k.shape[2], cache_k.shape[3]
     i = cache_len - seq0
@@ -565,8 +576,11 @@ def _decode_attend(q, k, v, cache_k, cache_v, cache_len: int, cfg,
     rep = H // Hkv
     # grouped-GQA einsum: the kv cache is never repeated
     qg = q.reshape(B, 1, Hkv, rep, hd)
-    scale = 1.0 / math.sqrt(hd)
-    s = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), cache_k.float()) * scale
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    s = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), cache_k.float())
+    if score_sum is not None:
+        s = score_sum(s)
+    s = s * scale
     kpos = torch.arange(S_loc, device=q.device) + seq0
     valid = kpos <= cache_len
     if cfg.sliding_window is not None:
@@ -593,7 +607,10 @@ def decode_region(rt, cfg, q, k, v, cache_k, cache_v, cache_len: int,
     on the cache's own placements (no copy of the cache is made): heads
     over tp where the cache is head-sharded; else q and the new k, v
     replicated over the axes that shard the cache's sequence, each rank
-    writing the position it holds and the softmax reduced across them."""
+    writing the position it holds and the softmax reduced across them;
+    where the cache's head dim is sharded too (a long cache whose kv heads
+    do not divide tp), q, k, v and the output are split on it like the
+    cache, and the scores summed across its ranks."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = rt.mesh
@@ -606,16 +623,24 @@ def decode_region(rt, cfg, q, k, v, cache_k, cache_v, cache_len: int,
                       if p == Shard(lead + 2))
     batch_axes = tuple(names[i] for i, p in enumerate(cpl)
                        if p == Shard(lead))
+    hd_axes = tuple(names[i] for i, p in enumerate(cpl)
+                    if p == Shard(lead + 3))
     if any(p != Replicate() and p not in (Shard(lead), Shard(lead + 1),
-                                          Shard(lead + 2))
+                                          Shard(lead + 2), Shard(lead + 3))
            for p in cpl):
         raise NotImplementedError(f"decode on a cache placed {cpl}")
-    spec = (batch_axes or None, None, head_axes or None, None)
+    spec = (batch_axes or None, None, head_axes or None, hd_axes or None)
     pl = placements(spec, mesh)
 
     def local(q, k, v, ck, cv):
         if layer is not None:
             ck, cv = ck[layer], cv[layer]
+        score_sum = None
+        if hd_axes:
+            def score_sum(t):
+                for a in hd_axes:
+                    t = C.all_reduce(t, "sum", mesh, a)
+                return t
         seq0, reduce = 0, None
         if seq_axes:
             idx = 0
@@ -627,28 +652,42 @@ def decode_region(rt, cfg, q, k, v, cache_k, cache_v, cache_len: int,
                 for a in seq_axes:
                     t = C.all_reduce(t, op, mesh, a)
                 return t
-        return _decode_attend(q, k, v, ck, cv, cache_len, cfg, seq0, reduce)
-    return local_map(local, out_placements=list(pl),
-                     in_placements=(pl, pl, pl, cpl, cpl), device_mesh=mesh,
-                     redistribute_inputs=True)(q, k, v, cache_k, cache_v)
+        return _decode_attend(q, k, v, ck, cv, cache_len, cfg, seq0, reduce,
+                              score_sum)
+    out = local_map(local, out_placements=list(pl),
+                    in_placements=(pl, pl, pl, cpl, cpl), device_mesh=mesh,
+                    redistribute_inputs=True)(q, k, v, cache_k, cache_v)
+    if hd_axes:
+        # whole over the head dim before the heads merge (torch 2.11 will
+        # not flatten a sharded inner dim)
+        out = out.redistribute(mesh, placements(spec[:3] + (None,), mesh))
+    return out
 
 
-def cross_attention_fwd(params: Params, x, enc_out, cfg):
+def cross_attention_fwd(params: Params, x, enc_out, cfg, rt=None):
     """Decoder cross-attention: queries from x (B,Sq,D), keys and values
     from enc_out (B,Sk,D), no mask.  Past 2048 positions on either side it
-    takes the chunked path (the kernel on a CUDA tensor), else dense."""
+    takes the chunked path (the kernel on a CUDA tensor), else dense.  With
+    a mesh in ``rt`` the attention runs in :func:`attention_region`."""
     B, Sq, _ = x.shape
     Sk = enc_out.shape[1]
-    q = (x @ params["wq"]).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
-    k = (enc_out @ params["wk"]).reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ params["wv"]).reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _heads(x @ params["wq"], H, hd)
+    k = _heads(enc_out @ params["wk"], Hkv, hd)
+    v = _heads(enc_out @ params["wv"], Hkv, hd)
     if cfg.qkv_bias:
-        q = q + params["bq"].reshape(1, 1, cfg.n_heads, cfg.head_dim)
-        k = k + params["bk"].reshape(1, 1, cfg.n_kv_heads, cfg.head_dim)
-        v = v + params["bv"].reshape(1, 1, cfg.n_kv_heads, cfg.head_dim)
+        q = q + params["bq"].reshape(1, 1, H, hd)
+        k = k + params["bk"].reshape(1, 1, Hkv, hd)
+        v = v + params["bv"].reshape(1, 1, Hkv, hd)
     attn = chunked_attention if max(Sq, Sk) > 2048 else dense_attention
-    out = attn(q, k, v, causal=False, window=None)
-    return out.reshape(B, Sq, cfg.n_heads * cfg.head_dim) @ params["wo"]
+
+    def fn(q, k, v):
+        return attn(q, k, v, causal=False, window=None)
+    if rt is not None and rt.mesh is not None:
+        out = attention_region(rt, fn, q, k, v)
+    else:
+        out = fn(q, k, v)
+    return out.reshape(B, Sq, H * hd) @ attn_wo(params, cfg, rt)
 
 
 # --------------------------------------------------------------------------
@@ -708,7 +747,7 @@ def embed_rows(table, tokens, rt=None):
     from torch.distributed.tensor import Shard
     from torch.distributed.tensor.experimental import local_map
     mesh, tp = rt.mesh, rt.tp_axis
-    vocab_tp = bool(tp) and table.placements[
+    vocab_tp = bool(tp) and rt.size(tp) > 1 and table.placements[
         mesh.mesh_dim_names.index(tp)] == Shard(0)
     dp = rt.dp_axes or None
     tspec = _spec(rt, tokens.ndim, {0: dp}, tokens.shape)
@@ -736,14 +775,29 @@ def embed_rows(table, tokens, rt=None):
 
 def unembed(params_emb: Params, params_head: Params | None, x, cfg):
     """Project to vocab logits (fp32). Tied or separate head.  On a mesh
-    the product runs on the vocab-sharded table and the logits leave
-    gathered, the vocab whole on every rank, for the cross-entropy's
+    the weight's FSDP shards are gathered first, so the product runs on
+    each rank's own rows against the vocab-sharded weight (else DTensor
+    may gather the rows of every dp rank and sum the products' partials,
+    every rank holding the logits of the global batch), and the logits
+    leave gathered, the vocab whole on every rank, for the cross-entropy's
     gather and log-sum-exp."""
     if params_head is None:
-        logits = x.float() @ params_emb["table"].float().T
+        logits = x.float() @ _vocab_sharded(params_emb["table"], 0).float().T
     else:
-        logits = x.float() @ params_head["w"].float()
+        logits = x.float() @ _vocab_sharded(params_head["w"], 1).float()
     return _whole_last_dim(logits)
+
+
+def _vocab_sharded(w, vdim: int):
+    """A DTensor weight with only its vocab dim ``vdim`` left sharded;
+    anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(w, DTensor):
+        return w
+    pl = tuple(p if isinstance(p, Shard) and p.dim == vdim else Replicate()
+               for p in w.placements)
+    return w if pl == tuple(w.placements) else w.redistribute(
+        w.device_mesh, pl)
 
 
 def _whole_last_dim(t):

@@ -166,7 +166,15 @@ def moe_local(params: Params, x, cfg):
 
 
 def _shared(params: Params, x, cfg, y):
+    """y plus the shared experts' output on x.  On a mesh y first takes
+    x's placements (``moe_ep_a2a``'s leaves sequence-sharded), so the sum
+    and the gradient that reaches the shared experts' products keep x's
+    layout: torch 2.11 cannot flatten a (B, S, D) gradient sharded on both
+    B and S into the products' rows."""
     if cfg.n_shared_experts:
+        from torch.distributed.tensor import DTensor
+        if isinstance(y, DTensor) and y.placements != x.placements:
+            y = y.redistribute(x.device_mesh, x.placements)
         sp = params["shared"]
         y = y + (F.silu(x @ sp["wg"]) * (x @ sp["wu"])) @ sp["wd"]
     return y

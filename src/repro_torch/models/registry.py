@@ -4,14 +4,14 @@ wrapping the family module.
 The PyTorch port of the JAX package's ``models/registry.py``, for every
 family: dense and MoE (``transformer``), SSM and hybrid (``ssm_lm``),
 enc-dec (``encdec``) and VLM (``vlm``), serving and training
-(``loss(model, batch, rt) -> (loss, metrics)``).  The SSM, hybrid,
-enc-dec and VLM families refuse a runtime with a mesh (they come with the
-dry-runs, ``ROADMAP.md`` item 13(d)).
+(``loss(model, batch, rt) -> (loss, metrics)``), on one device or on a
+mesh.
 
 ``input_specs``, ``cache_specs`` and ``param_specs`` are the JAX
 package's ``ShapeDtypeStruct`` stand-ins as ``meta``-device tensors: the
 shapes and dtypes of a step's inputs, of the decode cache and of the
-parameters (keyed by the port's parameter names), with nothing allocated.
+parameters (keyed by the port's parameter names), with nothing allocated;
+``meta_model`` is a model built of ``param_specs``' tensors.
 """
 from __future__ import annotations
 
@@ -22,7 +22,6 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeSpec
 from . import encdec, ssm_lm, transformer, vlm
-from .runtime import single_device_only
 
 #: the module of each family
 FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm_lm,
@@ -50,27 +49,22 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         raise KeyError(f"unknown family {cfg.family!r}") from None
     tok_only = cfg.family in TOKEN_ONLY
 
-    def on(rt):
-        if m is not transformer:
-            single_device_only(rt, cfg.family)
-        return rt
-
     def _prefill(model, batch, rt, **kw):
         inp = batch["tokens"] if (tok_only and isinstance(batch, dict)) \
             else batch
-        return m.prefill(model, inp, cfg, on(rt), **kw)
+        return m.prefill(model, inp, cfg, rt, **kw)
 
     return ModelApi(
         cfg=cfg,
         init=lambda gen: m.init(gen, cfg),
-        loss=lambda model, batch, rt: m.loss(model, batch, cfg, on(rt)),
+        loss=lambda model, batch, rt: m.loss(model, batch, cfg, rt),
         init_cache=lambda batch, max_len, rt, **kw: m.init_cache(
-            cfg, batch, max_len, on(rt), **kw),
+            cfg, batch, max_len, rt, **kw),
         prefill=_prefill,
         decode_step=lambda model, cache, tokens, rt: m.decode_step(
-            model, cache, tokens, cfg, on(rt)),
+            model, cache, tokens, cfg, rt),
         forward=(lambda model, tokens, rt, **kw: m.forward(
-            model, tokens, cfg, on(rt), **kw))
+            model, tokens, cfg, rt, **kw))
         if hasattr(m, "forward") else None,
     )
 
@@ -147,6 +141,47 @@ def param_specs(cfg: ModelConfig) -> dict:
             name = ".".join([parts[0], *map(str, idx), *parts[1:]])
             out[name] = _meta(leaf, dt)
     return out
+
+
+def meta_model(cfg: ModelConfig):
+    """``cfg``'s model with :func:`param_specs`' ``meta`` tensors as its
+    parameters (requiring no gradient, as ``init`` makes them): the same
+    modules and names as ``get_model(cfg).init``'s, with nothing drawn or
+    allocated (the dry-run's model, at any width)."""
+    from torch import nn
+
+    from .layers import Params
+    from .transformer import Block, TransformerLM
+    tree: dict = {}
+    for name, t in param_specs(cfg).items():
+        *head, last = name.split(".")
+        node = tree
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = t
+
+    def build(node: dict, path: tuple):
+        if any(isinstance(v, torch.Tensor) for v in node.values()):
+            return Params(**{k: v if isinstance(v, torch.Tensor)
+                             else build(v, path + (k,))
+                             for k, v in node.items()})
+        if all(k.isdigit() for k in node):
+            return nn.ModuleList(build(node[str(i)], path + (str(i),))
+                                 for i in range(len(node)))
+        kids = {k: build(v, path + (k,)) for k, v in node.items()}
+        return Block(kids) if path[:1] == ("layers",) and len(path) == 2 \
+            else nn.ModuleDict(kids)
+    # init's order of the top-level modules
+    order = ("adapter", "enc_pos", "embed", "layers", "enc_layers",
+             "enc_norm", "dec_layers", "final_norm", "groups", "shared",
+             "tail", "head", "projector")
+    top = {k: tree[k] if isinstance(tree[k], torch.Tensor)
+           else build(tree[k], (k,)) for k in order if k in tree}
+    if cfg.family in ("ssm", "hybrid"):
+        return ssm_lm.SSMLM(top)
+    if cfg.family == "encdec":
+        return encdec.EncDecLM(**top)
+    return TransformerLM(top)
 
 
 #: the parameters the JAX package keeps in f32 whatever the config's dtype

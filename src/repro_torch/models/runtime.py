@@ -14,9 +14,9 @@ On a mesh, the parameters and activations are DTensors: a JAX
 dim) becomes DTensor placements through :func:`placements` (``Shard(d)``
 on each mesh dim that tensor dim ``d`` names, else ``Replicate()``), and
 :meth:`Runtime.constrain`, the JAX package's ``with_sharding_constraint``,
-is ``DTensor.redistribute`` to them.  The dense and MoE families run on a
-mesh; the SSM, hybrid, enc-dec and VLM families wait for the dry-run slice
-(``ROADMAP.md`` item 13(d)) and raise there (:func:`single_device_only`).
+is ``DTensor.redistribute`` to them.  Every family runs on a mesh.  A
+mesh's tensors lie on its device type, or are ``meta`` tensors: the
+dry-run's stand-ins (``launch/dryrun.py``), which hold no data.
 """
 from __future__ import annotations
 
@@ -69,8 +69,9 @@ def distribute(t: torch.Tensor, mesh, pl) -> torch.Tensor:
 
 
 def check_mesh_device(t: torch.Tensor, mesh) -> None:
-    """Raise unless ``t`` lies on ``mesh``'s device type."""
-    if t.device.type != mesh.device_type:
+    """Raise unless ``t`` lies on ``mesh``'s device type or is a ``meta``
+    tensor (the dry-run's stand-ins, which hold no data to move)."""
+    if t.device.type not in (mesh.device_type, "meta"):
         raise ValueError(
             f"a {t.device.type} tensor cannot go onto a {mesh.device_type} "
             f"mesh: move it to {mesh.device_type} first, or build the mesh "
@@ -138,11 +139,30 @@ class Runtime:
         its axes do not divide the dim; ``x`` itself without a mesh."""
         if self.mesh is None:
             return x
-        # a dim its axes do not divide stays whole (a decode step's one
-        # position under act_shard="seq")
-        spec = tuple(e if x.shape[d] % self.size(e) == 0 else None
-                     for d, e in enumerate(spec))
-        return x.redistribute(self.mesh, placements(spec, self.mesh))
+        return x.redistribute(self.mesh, self._fit(x, spec))
+
+    def _fit(self, x, spec) -> tuple:
+        """``spec``'s placements for ``x``: a dim its axes do not divide
+        stays whole (a decode step's one position under
+        act_shard="seq")."""
+        return placements(tuple(e if x.shape[d] % self.size(e) == 0
+                                else None for d, e in enumerate(spec)),
+                          self.mesh)
+
+    def residual(self, x, y):
+        """The stream ``x`` plus a block's output ``y``.  On a mesh ``y``
+        is put on the stream's placements (``act_spec``: its partial sums
+        over tp reduced, Megatron's g) and its gradient is made whole over
+        tp on the way back, so the output projection that made ``y``
+        multiplies a whole gradient by its weight's shard.  DTensor, left
+        to itself, meets a partial gradient there with an all-gather of
+        the weight, and every rank multiplies the whole weight."""
+        if self.mesh is None:
+            return x + y
+        spec = self.act_spec(y.ndim)
+        whole = (spec[0],) + (None,) * (y.ndim - 1)
+        return x + _ToStream.apply(y, self._fit(y, spec),
+                                   self._fit(y, whole))
 
     def act_spec(self, ndim: int):
         """Activation spec for the (B, S, ...) residual stream: batch over
@@ -154,16 +174,21 @@ class Runtime:
         return (self.dp_axes, seq) + (None,) * (ndim - 2)
 
 
+class _ToStream(torch.autograd.Function):
+    """A DTensor redistributed to ``fwd`` placements, its gradient to
+    ``bwd`` ones (:meth:`Runtime.residual`)."""
+
+    @staticmethod
+    def forward(ctx, y, fwd, bwd):
+        ctx.bwd = bwd
+        return y.redistribute(y.device_mesh, fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.bwd), None, None
+
+
 LOCAL = Runtime()
-
-
-def single_device_only(rt, family: str) -> None:
-    """Raise for a family that does not run on a mesh yet."""
-    if rt is not None and rt.mesh is not None:
-        raise NotImplementedError(
-            f"the {family} family on a mesh is not ported yet: it comes with "
-            f"the dry-runs (ROADMAP.md item 13(d)); the dense and MoE "
-            f"families run on a mesh")
 
 
 def resolve_device(device, who: str) -> torch.device:

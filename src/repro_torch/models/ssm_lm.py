@@ -17,6 +17,13 @@ autograd under the runtime's remat, as the JAX package's ``_backbone``:
 each Mamba block checkpointed, and each group (its blocks and the shared
 block) checkpointed around them; the tail by groups of ``remat_group``
 blocks where that divides it, else block by block.
+
+On a mesh (``rt.mesh``) the mixers run in ``models/ssm.py``'s regions,
+the shared block's attention in ``layers.attention_region`` and its
+decode step in ``layers.decode_region`` on the stacked ``shared_k`` /
+``shared_v`` caches, the embedding in ``layers.embed_rows``; the residual
+stream is constrained to ``rt.act_spec(3)`` where the JAX package
+constrains it (after the embedding and after the shared block).
 """
 from __future__ import annotations
 
@@ -46,8 +53,8 @@ def init_mamba_block(gen: torch.Generator, cfg) -> nn.ModuleDict:
 
 
 def mamba_block_fwd(p, x, cfg, rt):
-    return x + mamba_fwd(p["mixer"], L.rms_norm(x, p["ln"], cfg.norm_eps),
-                         cfg, chunk=rt.ssd_chunk)
+    return rt.residual(x, mamba_fwd(p["mixer"], L.rms_norm(
+        x, p["ln"], cfg.norm_eps), cfg, chunk=rt.ssd_chunk, rt=rt))
 
 
 def init_shared_attn_block(gen: torch.Generator, cfg) -> nn.ModuleDict:
@@ -58,17 +65,19 @@ def init_shared_attn_block(gen: torch.Generator, cfg) -> nn.ModuleDict:
         "mlp": L.init_mlp(gen, cfg)})
 
 
-def _shared_mlp(p, x, cfg):
-    return x + L.mlp_fwd(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+def _shared_mlp(p, x, cfg, rt):
+    return rt.residual(x, L.mlp_fwd(p["mlp"], L.rms_norm(x, p["ln2"],
+                                                         cfg.norm_eps), cfg))
 
 
 def shared_attn_fwd(p, x, cfg, rt, *, return_kv: bool = False):
     """The shared block on x; with ``return_kv`` also its roped keys and
     values for the KV cache."""
     out = L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
-                          cfg, mode=rt.attn_mode, return_kv=return_kv)
+                          cfg, mode=rt.attn_mode, return_kv=return_kv, rt=rt)
     att, kv = (out[0], out[1:]) if return_kv else (out, None)
-    x = _shared_mlp(p, x + att, cfg)
+    x = rt.constrain(_shared_mlp(p, rt.residual(x, att), cfg, rt),
+                     *rt.act_spec(3))
     return (x, kv) if return_kv else x
 
 
@@ -128,9 +137,7 @@ def _backbone(model, x, cfg, rt):
 
 
 def _hidden(model, tokens, cfg, rt, embeds=None):
-    x = L.embed(model["embed"], tokens, cfg)
-    if embeds is not None:
-        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    x = T._embed(model, tokens, cfg, embeds, rt)
     return L.rms_norm(_backbone(model, x, cfg, rt), model["final_norm"],
                       cfg.norm_eps)
 
@@ -139,19 +146,22 @@ def _hidden(model, tokens, cfg, rt, embeds=None):
 def forward(model, tokens, cfg, rt, *, embeds=None):
     """tokens (B,S) int -> (logits (B,S',V) fp32, aux = 0), ``embeds``
     (B,P,D) ahead of the tokens."""
-    x = _hidden(model, tokens, cfg, rt, embeds)
-    return (L.unembed(model["embed"], model.lm_head(), x, cfg),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    with T.mesh_context(rt):
+        x = _hidden(model, tokens, cfg, rt, embeds)
+        return (L.unembed(model["embed"], model.lm_head(), x, cfg),
+                torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def loss(model, batch, cfg, rt):
     """batch: {tokens (B,S), labels (B,S)[, mask]} -> (nll, metrics
     {nll, aux = 0}); the NLL chunked where ``rt.loss_chunk`` is set."""
-    x = _hidden(model, batch["tokens"], cfg, rt)
-    nll = T.nll_of(model, x, batch["labels"], cfg, rt, batch.get("mask"))
-    return nll, {"nll": nll,
-                 "aux": torch.zeros((), dtype=torch.float32,
-                                    device=x.device)}
+    with T.mesh_context(rt):
+        x = _hidden(model, batch["tokens"], cfg, rt)
+        nll = T.nll_of(model, x, batch["labels"], cfg, rt,
+                       batch.get("mask"))
+        return nll, {"nll": nll,
+                     "aux": torch.zeros((), dtype=torch.float32,
+                                        device=x.device)}
 
 
 # --------------------------------------------------------------------------
@@ -182,15 +192,13 @@ def init_cache(cfg, batch: int, max_len: int, rt, dtype=None,
     return cache
 
 
-def _step_blocks(blocks, x, states, cfg):
+def _step_blocks(blocks, x, states, cfg, rt, index=()):
     """Each block's recurrent step in turn; its new state is written into
-    ``states`` (the stacked cache tensors) in place."""
+    ``states`` (the stacked cache tensors, the blocks' own at ``index``)
+    in place."""
     for j, blk in enumerate(blocks):
         h = L.rms_norm(x, blk["ln"], cfg.norm_eps)
-        y, nc = mamba_step(blk["mixer"], h, {k: v[j] for k, v in
-                                             states.items()}, cfg)
-        for k, v in nc.items():
-            states[k][j] = v
+        y, _ = mamba_step(blk["mixer"], h, states, cfg, rt, index + (j,))
         x = x + y
     return x
 
@@ -202,21 +210,23 @@ def decode_step(model, cache, tokens, cfg, rt):
     The cache's tensors are updated in place; the returned dict holds them
     with ``len`` + 1."""
     pos = cache["len"]
-    x = model["embed"]["table"][tokens]
-    if "groups" in model:
-        sp = model["shared"]
-        for gi, group in enumerate(model["groups"]):
-            x = _step_blocks(group, x, {k: v[gi] for k, v in
-                                        cache["groups"].items()}, cfg)
-            h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
-            att, _, _ = L.attention_decode(sp["attn"], h, cfg,
-                                           cache["shared_k"][gi],
-                                           cache["shared_v"][gi], pos)
-            x = _shared_mlp(sp, x + att, cfg)
-    if "tail" in model:
-        x = _step_blocks(model["tail"], x, cache["tail"], cfg)
-    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
-    logits = L.unembed(model["embed"], model.lm_head(), x, cfg)
+    with T.mesh_context(rt):
+        x = rt.constrain(L.embed_rows(model["embed"]["table"], tokens, rt),
+                         *rt.act_spec(3))
+        if "groups" in model:
+            sp = model["shared"]
+            for gi, group in enumerate(model["groups"]):
+                x = _step_blocks(group, x, cache["groups"], cfg, rt, (gi,))
+                h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
+                att, _, _ = L.attention_decode(
+                    sp["attn"], h, cfg, cache["shared_k"], cache["shared_v"],
+                    pos, rt=rt, layer=gi)
+                x = rt.constrain(_shared_mlp(sp, x + att, cfg, rt),
+                                 *rt.act_spec(3))
+        if "tail" in model:
+            x = _step_blocks(model["tail"], x, cache["tail"], cfg, rt)
+        x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+        logits = L.unembed(model["embed"], model.lm_head(), x, cfg)
     return logits, {**cache, "len": pos + 1}
 
 
@@ -226,7 +236,7 @@ def _prefill_blocks(blocks, x, cfg, rt):
     for blk in blocks:
         h = L.rms_norm(x, blk["ln"], cfg.norm_eps)
         y, st = mamba_fwd(blk["mixer"], h, cfg, chunk=rt.ssd_chunk,
-                          return_state=True)
+                          return_state=True, rt=rt)
         x = x + y
         states.append(st)
     return x, {k: torch.stack([st[k] for st in states]) for k in states[0]}
@@ -237,29 +247,29 @@ def prefill(model, tokens, cfg, rt, *, max_len: int | None = None):
     """Prompt pass -> (last logits, cache).  The chunked SSD gives each
     block's final recurrent state and the conv cache is the last K-1
     pre-conv activations, so the cache is exact.  The shared block's
-    attention is chunked past 2048 tokens under ``auto``."""
-    x = model["embed"]["table"][tokens]
+    attention is chunked past 2048 tokens under ``auto``.  On a mesh the
+    cache's leaves are DTensors as the blocks leave them
+    (``launch/steps.py::build_prefill`` places them)."""
     B, S = tokens.shape
     cache = {"len": S}
-    if "groups" in model:
-        sts, ks, vs = [], [], []
-        for group in model["groups"]:
-            x, st = _prefill_blocks(group, x, cfg, rt)
-            x, (k, v) = shared_attn_fwd(model["shared"], x, cfg, rt,
-                                        return_kv=True)
-            sts.append(st)
-            ks.append(k)
-            vs.append(v)
-        cache["groups"] = {k: torch.stack([st[k] for st in sts])
-                           for k in sts[0]}
-        n = max(S, max_len or 0)
-        shape = (len(ks), B, n, cfg.n_kv_heads, cfg.head_dim)
-        for name, kv in (("shared_k", ks), ("shared_v", vs)):
-            cache[name] = kv[0].new_zeros(shape)
-            for gi, t in enumerate(kv):
-                cache[name][gi, :, :S] = t
-    if "tail" in model:
-        x, cache["tail"] = _prefill_blocks(model["tail"], x, cfg, rt)
-    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
-    logits = L.unembed(model["embed"], model.lm_head(), x[:, -1:], cfg)
+    with T.mesh_context(rt):
+        x = T._embed(model, tokens, cfg, None, rt)
+        if "groups" in model:
+            sts, ks, vs = [], [], []
+            for group in model["groups"]:
+                x, st = _prefill_blocks(group, x, cfg, rt)
+                x, (k, v) = shared_attn_fwd(model["shared"], x, cfg, rt,
+                                            return_kv=True)
+                sts.append(st)
+                ks.append(k)
+                vs.append(v)
+            cache["groups"] = {k: torch.stack([st[k] for st in sts])
+                               for k in sts[0]}
+            n = max(S, max_len or 0)
+            cache["shared_k"] = T.stack_padded(ks, n)
+            cache["shared_v"] = T.stack_padded(vs, n)
+        if "tail" in model:
+            x, cache["tail"] = _prefill_blocks(model["tail"], x, cfg, rt)
+        x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+        logits = L.unembed(model["embed"], model.lm_head(), x[:, -1:], cfg)
     return logits, cache

@@ -28,8 +28,8 @@ constrained to ``rt.act_spec(3)`` where the JAX package constrains it
 (after the embedding and after each residual add; with ``act_shard="seq"``
 its sequence over tp, gathered where a block reads it), the attention, decode and embedding run in
 ``layers``' ``local_map`` regions, and prefill's cache is built by
-stacking the layers' keys and values and redistributing them to the
-cache's placements (``launch/plans.py::cache_pspecs``).  Plain tensors
+stacking the layers' keys and values (``launch/steps.py::build_prefill``
+redistributes it to ``launch/plans.py::cache_pspecs``).  Plain tensors
 that the code makes (positions, masks, zeros) act as replicated
 (:func:`mesh_context`).
 """
@@ -99,12 +99,11 @@ def block_fwd(p: Block, x, cfg, rt, *, return_kv: bool = False):
     out = L.attention_fwd(p["attn"], h, cfg, mode=rt.attn_mode,
                           return_kv=return_kv, rt=rt)
     attn_out, kv = (out[0], out[1:]) if return_kv else (out, None)
-    x = x + attn_out
+    x = rt.residual(x, attn_out)
     x = _whole_sequence(rt.constrain(x, *rt.act_spec(3)), rt)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(p, h, cfg, rt)
-    x = x + y
-    x = rt.constrain(x, *rt.act_spec(3))
+    x = rt.constrain(rt.residual(x, y), *rt.act_spec(3))
     return (x, aux, kv) if return_kv else (x, aux)
 
 
@@ -206,10 +205,28 @@ def forward(model, tokens, cfg, rt, *, embeds=None):
 # --------------------------------------------------------------------------
 # training: losses
 # --------------------------------------------------------------------------
+def label_logits(logits, labels):
+    """Each position's logit of its label: ``logits`` (B,S,V), ``labels``
+    (B,S) int -> (B,S).  A DTensor's on each rank's own rows, under
+    ``local_map`` on the logits' placements (their vocab whole): DTensor's
+    own gather has a backward that makes a zero tensor of the global
+    (B,S,V) shape on every rank."""
+    from torch.distributed.tensor import DTensor
+    idx = labels[..., None].long()
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, idx)[..., 0]
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(logits.placements)
+    return local_map(lambda lg, i: torch.gather(lg, -1, i),
+                     out_placements=list(pl), in_placements=(pl, pl),
+                     device_mesh=logits.device_mesh,
+                     redistribute_inputs=True)(logits, idx)[..., 0]
+
+
 def cross_entropy(logits, labels, mask=None):
     """Mean token NLL in fp32. logits (B,S,V), labels (B,S) int."""
     lse = torch.logsumexp(logits.float(), dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ll = label_logits(logits, labels)
     nll = lse - ll.float()
     if mask is None:
         return nll.mean()
@@ -221,7 +238,7 @@ def _xent_chunk(x, labels, mask, emb, head, cfg):
     """One chunk's summed NLL and its count of unmasked tokens."""
     logits = L.unembed(emb, head, x, cfg)
     lse = torch.logsumexp(logits.float(), dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ll = label_logits(logits, labels)
     m = mask.float()
     return ((lse - ll.float()) * m).sum(), m.sum()
 
@@ -285,13 +302,14 @@ def init_cache(cfg, batch: int, max_len: int, rt, dtype=None,
 
 @torch.no_grad()
 def prefill(model, tokens, cfg, rt, *, embeds=None,
-            max_len: int | None = None, cache_placements=None):
+            max_len: int | None = None):
     """Run the prompt (``embeds`` ahead of the tokens), return
     (last-position logits, filled cache).
 
     ``max_len`` pads the KV cache's sequence axis so ``decode_step`` can
     append up to ``max_len - prompt_len`` generated tokens.  On a mesh the
-    cache takes ``cache_specs``' placements (``cache_placements``)."""
+    cache is the layers' keys and values stacked as DTensors
+    (``launch/steps.py`` puts it on the cache's placements)."""
     with mesh_context(rt):
         x = _embed(model, tokens, cfg, embeds, rt)
         x, _, kvs = _blocks(model, x, cfg, rt, return_kv=True)
@@ -299,36 +317,29 @@ def prefill(model, tokens, cfg, rt, *, embeds=None,
                        cfg.norm_eps)
         logits = L.unembed(model["embed"], model.lm_head(), x[:, -1:, :],
                            cfg)
-        S = x.shape[1]
-        n = max(S, max_len or 0)
-        if rt.mesh is not None:
-            return logits, _mesh_cache(kvs, n, cache_placements)
-        cache = init_cache(cfg, x.shape[0], n, rt, dtype=kvs[0][0].dtype,
-                           device=x.device)       # (L, B, n, Hkv, hd)
-        for i, (k, v) in enumerate(kvs):
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
-        cache["len"] = S
-        return logits, cache
+        n = max(x.shape[1], max_len or 0)
+        cache = {name: stack_padded([kv[j] for kv in kvs], n)
+                 for j, name in enumerate(("k", "v"))}   # (L, B, n, Hkv, hd)
+        return logits, {**cache, "len": x.shape[1]}
 
 
-def _mesh_cache(kvs, n: int, pl: dict | None):
-    """The stacked (L, B, n, Hkv, hd) cache of the layers' DTensor keys
-    and values, padded to n positions, on the placements ``pl`` gives
-    (``{"k": ..., "v": ...}``; None: as stacking leaves them)."""
-    out = {}
-    for j, name in enumerate(("k", "v")):
-        t = torch.stack([kv[j] for kv in kvs])
-        S = t.shape[2]
-        if n > S:
-            z = torch.zeros(t.shape[:2] + (n - S,) + t.shape[3:],
-                            dtype=t.dtype, device=t.device)
-            t = torch.cat([t, z], dim=2)
-        if pl is not None:
-            t = t.redistribute(t.device_mesh, pl[name])
-        out[name] = t
-    out["len"] = kvs[0][0].shape[1]
-    return out
+def stack_padded(ts, n: int):
+    """(B, S, ...) tensors stacked to (L, B, n, ...), zeros past S.  Plain
+    tensors are copied into one buffer of that size; DTensors (which have
+    no write into a slice) are stacked, then padded by a concatenation."""
+    from torch.distributed.tensor import DTensor
+    t0, S = ts[0], ts[0].shape[1]
+    if not isinstance(t0, DTensor):
+        out = t0.new_zeros((len(ts), t0.shape[0], n) + t0.shape[2:])
+        for i, t in enumerate(ts):
+            out[i, :, :S] = t
+        return out
+    t = torch.stack(ts)
+    if n > S:
+        z = torch.zeros(t.shape[:2] + (n - S,) + t.shape[3:], dtype=t.dtype,
+                        device=t.device)
+        t = torch.cat([t, z], dim=2)
+    return t
 
 
 @torch.no_grad()
@@ -340,15 +351,10 @@ def decode_step(model, cache, tokens, cfg, rt):
         x = L.embed_rows(model["embed"]["table"], tokens, rt)
         if cfg.pos_emb == "abs":
             x = x + model["embed"]["pos"][pos:pos + 1]
-        if rt.mesh is not None:
-            x = rt.constrain(x, *rt.act_spec(3))
+        x = rt.constrain(x, *rt.act_spec(3))
         for i, p in enumerate(model["layers"]):
-            if rt.mesh is not None:
-                x, _, _ = block_decode(p, x, cfg, rt, cache["k"],
-                                       cache["v"], pos, layer=i)
-            else:
-                x, _, _ = block_decode(p, x, cfg, rt, cache["k"][i],
-                                       cache["v"][i], pos)
+            x, _, _ = block_decode(p, x, cfg, rt, cache["k"], cache["v"], pos,
+                                   layer=i)
         x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
         logits = L.unembed(model["embed"], model.lm_head(), x, cfg)
     return logits, {"k": cache["k"], "v": cache["v"], "len": pos + 1}

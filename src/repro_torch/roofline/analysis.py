@@ -32,6 +32,8 @@ from .constants import HBM_BW, LINK_BW, LINKS, PEAK_BF16
 #: where phase 18 of ``chip_smoke.py`` writes its records (not committed)
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "chiprun_out", "roofline")
+#: where ``launch/dryrun.py`` writes its records (not committed)
+DRYRUN_DIR = os.path.join(os.path.dirname(ART_DIR), "dryrun")
 #: the mesh name and shape of a record of one card
 ONE_CARD, ONE_CARD_SHAPE = "1xH100", {"gpu": 1}
 
@@ -103,15 +105,19 @@ _RECS = {
 
 def cell_record(cell: str, arch: str, shape: str, kind: str,
                 costs: WalkCosts, memory: dict, plan: dict | None = None,
-                shape_cut: dict | None = None) -> dict:
+                shape_cut: dict | None = None, mesh: str = ONE_CARD,
+                mesh_shape: dict | None = None) -> dict:
     """One walked step as a record in the JAX dry-run's layout
-    (``launch/dryrun.py``), on one card: ``costs`` a finished walk's
-    ``OpWalk.costs()``, ``memory`` the dry-run's memory keys
+    (``launch/dryrun.py``): ``costs`` a finished walk's ``OpWalk.costs()``
+    (one device's), ``memory`` the dry-run's memory keys
     (``argument_size_in_bytes``, ``temp_size_in_bytes``, ...) as the card's
-    allocator reported them, ``shape_cut`` the fields of ``SHAPES[shape]``
-    the cell changed (``seq_len``, ``global_batch``)."""
-    rec = {"cell": cell, "arch": arch, "shape": shape, "mesh": ONE_CARD,
-           "mesh_shape": dict(ONE_CARD_SHAPE), "kind": kind, "plan": plan,
+    allocator or the dry-run's count reported them, ``shape_cut`` the
+    fields of ``SHAPES[shape]`` the cell changed (``seq_len``,
+    ``global_batch``), ``mesh`` and ``mesh_shape`` ({axis: width}) the
+    mesh's name and shape (one card unless given)."""
+    rec = {"cell": cell, "arch": arch, "shape": shape, "mesh": mesh,
+           "mesh_shape": dict(ONE_CARD_SHAPE if mesh_shape is None
+                              else mesh_shape), "kind": kind, "plan": plan,
            "ok": True, "memory": dict(memory),
            "collectives": collective_stats(costs).as_dict(),
            "walk": costs.as_dict()}
@@ -148,8 +154,10 @@ def analyze_cell(rec: dict) -> CellRoofline:
     )
 
 
-def load_artifacts(art_dir: str = ART_DIR, mesh: str | None = None
+def load_artifacts(art_dir: str = DRYRUN_DIR, mesh: str | None = None
                    ) -> list[dict]:
+    """The ``ok`` untagged records of ``art_dir`` (the dry-run's, or
+    phase 18's ``ART_DIR``), of ``mesh`` where it is given."""
     recs = []
     if not os.path.isdir(art_dir):
         return recs

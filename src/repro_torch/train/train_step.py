@@ -62,7 +62,12 @@ def init_state(api, opt: AdamW, gen: torch.Generator | None = None, *,
 
 
 def _check_device(model: nn.Module, device: torch.device) -> None:
+    """Raise unless every parameter is on ``device`` or is a ``meta``
+    DTensor (the dry-run's stand-in on a mesh)."""
+    from torch.distributed.tensor import DTensor
     for name, p in model.named_parameters():
+        if p.is_meta and isinstance(p, DTensor):
+            continue
         if p.device.type != device.type or (
                 device.index is not None and p.device != device):
             raise ValueError(f"parameter {name} is on {p.device}, the step "

@@ -33,7 +33,6 @@ from repro.models import transformer as JT
 from repro.models.runtime import Runtime as JaxRuntime
 from repro.serve.engine import ServeEngine as JaxEngine
 from repro_torch.configs import ARCH_NAMES, get_config
-from repro_torch.configs.base import ShapeSpec
 from repro_torch.kernels import launches, reset_launches
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import get_model, transformer
@@ -252,32 +251,18 @@ def test_port_walk_reaches_the_lm_subpackages():
             "repro_torch.models.encdec", "repro_torch.models.vlm"} <= names
 
 
-def test_unported_parts_raise():
-    """What still raises: the SSM, hybrid, enc-dec and VLM families on a
-    mesh (they come with the dry-runs, ROADMAP.md item 13(d)), and an NCCL
-    mesh with more ranks than visible cards.  The dense and MoE families
-    run on a mesh (tests/test_torch_mesh.py); every family serves and
-    trains on one device."""
+def test_nccl_and_runtime_refusals_raise():
+    """What still raises: an NCCL mesh with more ranks than visible cards,
+    and a runtime naming an axis its mesh lacks or a setting it does not
+    know.  Every family runs on a mesh (tests/test_torch_mesh.py,
+    tests/test_torch_mesh_families.py) and on one device."""
     from repro_torch.launch import mesh as launch_mesh
-    from repro_torch.launch import steps as launch_steps
     from repro_torch.launch import train as launch_train
 
     class Mesh:                       # a 2 x 2 stand-in: no ranks needed
         mesh_dim_names = ("data", "model")
         shape = {"data": 2, "model": 2}
         device_type = "cpu"
-    rt = Runtime(mesh=Mesh(), dp_axes=("data",), tp_axis="model")
-    shape = ShapeSpec("p", "prefill", 16, 2)
-    for arch in ("mamba2-370m", "zamba2-1.2b", "whisper-base",
-                 "internvl2-2b"):
-        cfg = get_config(arch).reduced()
-        api = get_model(cfg)
-        with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
-            api.prefill(None, {"tokens": None}, rt)
-        with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
-            api.loss(None, {}, rt)
-        with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
-            launch_steps.build_step(cfg, shape, Mesh())
     with pytest.raises(RuntimeError, match="NCCL refuses"):
         launch_mesh.check_cards(torch.cuda.device_count() + 1)
     with pytest.raises(RuntimeError, match="NCCL refuses"):

@@ -11,7 +11,9 @@ dense),
 ``src/repro_torch/data/golden_multinet.npz`` (multinet co-scheduling) and
 ``src/repro_torch/data/golden_islands.npz`` (the island search) and
 ``src/repro_torch/data/golden_train.npz`` (the training losses and
-gradients) and ``src/repro_torch/data/golden_mesh.npz`` (the LM mesh).
+gradients) and ``src/repro_torch/data/golden_mesh.npz`` (the LM mesh) and
+``src/repro_torch/data/golden_mesh_families.npz`` (the other families on
+the LM mesh).
 Regenerate them after a change to the JAX package's model with::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py
@@ -135,6 +137,19 @@ axis) under ``odd/<case>/``: its params (``init/<path>``,
 prefill, greedy decode and the loss with its gradients as above
 (``mesh/...``).  ``config`` holds the settings as JSON.  Each arch and
 the 1 x 4 cases run in a subprocess of their own, the three at once.
+
+``golden_mesh_families.npz``: the JAX package on four host devices (one
+subprocess), per arch of ``MESH_FAMILY_ARCHS`` (the reduced f32 Mamba2,
+Zamba2, Whisper and InternVL2 of ``TRAIN_ARCHS``, whose params stand in
+``golden_lm_families.npz``): the ``synth_batch`` of step 0 at
+``MESH_FAMILY_SHAPE`` (``<arch>/batch/<k>``), and on each mesh of
+``MESH_FAMILY_MESHES`` (2 x 2; 1 x 4, where the 4-wide model axis does not
+divide the kv heads) under ``<mesh>/<arch>/``: ``default_plan``'s loss,
+its metrics and every gradient leaf (``train/...``, the arch's attention
+path of ``TRAIN_ARCHS``), and on the serving plan (the chunked attention)
+prefill's last logits with a cache of ``MESH_NEW`` more positions and that
+many greedy decode steps (``prefill/logits``, ``decode/logits0``,
+``decode/tokens``).  ``config`` holds the settings as JSON.
 """
 from __future__ import annotations
 
@@ -697,21 +712,55 @@ def mesh_moe_input(cfg) -> np.ndarray:
 #: the parts of the mesh golden run, one subprocess each
 MESH_PARTS = (*MESH_ARCHS, "odd")
 
+GOLDEN_MESH_FAMILIES = os.path.join(DATA, "golden_mesh_families.npz")
+#: the families' mesh golden run: the archs (their configs, params and
+#: attention paths those of TRAIN_ARCHS), (seq_len, batch) of the batch,
+#: and the meshes
+MESH_FAMILY_ARCHS = ("mamba2-370m", "zamba2-1.2b", "whisper-base",
+                     "internvl2-2b")
+MESH_FAMILY_SHAPE = {"whisper-base": (64, 4)}
+MESH_FAMILY_SHAPE_DEFAULT = (32, 4)
+MESH_FAMILY_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+#: the serving plans of each case: (key, overrides of the serving plan,
+#: the meshes and archs it runs on); ``long`` is default_plan's long_500k
+#: branch (the cache's sequence over data, no dp axes), whose 1 x 4
+#: Zamba2 cache shards its shared block's head dim over model
+MESH_FAMILY_SERVE = (("", {}, None),
+                     ("long/", {"seq_shard_cache": True, "dp_axes": []},
+                      {"1x4": ["zamba2-1.2b"]}))
+
+
+def mesh_family_case(get_config, arch: str):
+    """(config, train ShapeSpec, train attention path) of an arch's case
+    in ``golden_mesh_families.npz``, from either package's
+    ``get_config``."""
+    cfg, _, rt_kw = train_case(get_config, arch)
+    S, B = MESH_FAMILY_SHAPE.get(arch, MESH_FAMILY_SHAPE_DEFAULT)
+    from repro_torch.configs.base import ShapeSpec
+    return cfg, ShapeSpec("mesh", "train", S, B), rt_kw["attn_mode"]
+
+
+def serve_inputs(cfg, batch: dict) -> dict:
+    """A family's prefill inputs of a train batch: the tokens and the
+    frontend stub's frames or patches."""
+    return {k: v for k, v in batch.items() if k != "labels"}
+
 
 class GoldenMeshRun:
     """:func:`compute_golden_mesh` started in the background: one
-    subprocess with four host devices for each of ``MESH_PARTS``, all at
-    once; :meth:`result` waits and merges them, :meth:`stop` kills what
-    still runs."""
+    subprocess with four host devices for each of ``parts``
+    (``MESH_PARTS``, or ``("families",)`` for
+    ``golden_mesh_families.npz``), all at once; :meth:`result` waits and
+    merges them, :meth:`stop` kills what still runs."""
 
-    def __init__(self):
+    def __init__(self, parts: tuple = MESH_PARTS):
         import subprocess
         import sys
         import tempfile
         self._dir = tempfile.TemporaryDirectory()
         env = dict(os.environ, REPRO_MESH_DEVICES="4", JAX_PLATFORMS="cpu")
         self._jobs = {}
-        for i, part in enumerate(MESH_PARTS):
+        for i, part in enumerate(parts):
             out = os.path.join(self._dir.name, f"{i}.npz")
             self._jobs[out] = subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--mesh-inner",
@@ -746,10 +795,127 @@ def compute_golden_mesh() -> dict[str, np.ndarray]:
     return GoldenMeshRun().result()
 
 
+def compute_golden_mesh_families() -> dict[str, np.ndarray]:
+    """The JAX package's families on its meshes (see the module
+    docstring), from one subprocess with four host devices."""
+    return GoldenMeshRun(("families",)).result()
+
+
+def _mesh_families_inner() -> dict[str, np.ndarray]:
+    """``golden_mesh_families.npz``'s values (module docstring)."""
+    import dataclasses
+
+    import repro.core.shard  # noqa: F401  (four host devices first)
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+    from repro.configs import get_config
+    from repro.configs.base import ShapeSpec
+    from repro.data.pipeline import synth_batch
+    from repro.launch import plans as PL
+    from repro.launch.mesh import make_mesh_spec
+    from repro.models.registry import get_model
+    from repro_torch.models.convert import flatten
+
+    out = {"config": np.array(json.dumps(dict(
+        archs=MESH_FAMILY_ARCHS, meshes=MESH_FAMILY_MESHES, new=MESH_NEW,
+        shape=MESH_FAMILY_SHAPE, shape_default=MESH_FAMILY_SHAPE_DEFAULT,
+        serve=MESH_FAMILY_SERVE)))}
+
+    def named(tree, mesh):
+        return jax.tree.map(lambda s: NamedSharding(mesh, s), tree,
+                            is_leaf=lambda x: isinstance(x, P))
+
+    def np32(t):
+        return jax.tree.map(lambda a: np.asarray(a, np.float32), t)
+
+    def serve(cfg, api, params, inputs, mesh, S, pre, ov):
+        """Prefill and MESH_NEW greedy decode steps on the serving plan
+        (the chunked attention, ``ov``'s overrides): ``pre`` +
+        prefill/logits, decode/logits0 and decode/tokens."""
+        sshape = ShapeSpec("mesh", "prefill", S, inputs["tokens"].shape[0])
+        splan = dataclasses.replace(
+            PL.default_plan(cfg, sshape, mesh), attn_mode="chunked",
+            **{k: tuple(v) if isinstance(v, list) else v
+               for k, v in ov.items()})
+        srt = splan.runtime(mesh)
+        sp_specs = PL.sanitize_pspecs(
+            PL.param_pspecs(params, splan), params, mesh)
+        # the JAX VLM's cache counts the patches in max_len
+        max_len = S + MESH_NEW + (cfg.n_patches
+                                  if cfg.family == "vlm" else 0)
+        pf = jax.jit(lambda p, b: api.prefill(p, b, srt,
+                                              max_len=max_len),
+                     in_shardings=(named(sp_specs, mesh), None))
+        logits, cache = pf(params, inputs)
+        out[pre + "prefill/logits"] = np.asarray(logits[:, -1],
+                                                 np.float32)
+        c_specs = PL.sanitize_pspecs(
+            PL.cache_pspecs(cache, splan, cfg, mesh), cache, mesh)
+        cache = jax.device_put(cache, named(c_specs, mesh))
+        dec = jax.jit(lambda p, c, t: api.decode_step(p, c, t, srt),
+                      in_shardings=(named(sp_specs, mesh),
+                                    named(c_specs, mesh), None))
+        tok = jnp.argmax(logits[:, -1, :cfg.vocab_size],
+                         -1).astype(jnp.int32)
+        toks = []
+        for i in range(MESH_NEW):
+            toks.append(np.asarray(tok))
+            logits, cache = dec(params, cache, tok[:, None])
+            if i == 0:
+                out[pre + "decode/logits0"] = np.asarray(
+                    logits[:, -1], np.float32)
+            tok = jnp.argmax(logits[:, -1, :cfg.vocab_size],
+                             -1).astype(jnp.int32)
+        out[pre + "decode/tokens"] = np.stack(toks, 1).astype(
+            np.int32)
+
+    for arch in MESH_FAMILY_ARCHS:
+        cfg, tshape, attn = mesh_family_case(get_config, arch)
+        shape = ShapeSpec("mesh", "train", tshape.seq_len,
+                          tshape.global_batch)
+        api = get_model(cfg)
+        params = api.init(jax.random.key(0))
+        batch = synth_batch(cfg, shape, 0)
+        out.update({f"{arch}/batch/{k}": v for k, v in batch.items()})
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        inputs = serve_inputs(cfg, jb)
+        S = inputs["tokens"].shape[1]
+        for mname, dims in MESH_FAMILY_MESHES.items():
+            mesh = make_mesh_spec(*dims)
+            pre = f"{mname}/{arch}/"
+            with mesh:
+                plan = dataclasses.replace(PL.default_plan(cfg, shape, mesh),
+                                           attn_mode=attn)
+                rt = plan.runtime(mesh)
+                p_specs = PL.sanitize_pspecs(PL.param_pspecs(params, plan),
+                                             params, mesh)
+                fn = jax.jit(jax.value_and_grad(
+                    lambda p, b: api.loss(p, b, rt), has_aux=True),
+                    in_shardings=(named(p_specs, mesh),
+                                  named(PL.batch_pspecs(jb, plan), mesh)))
+                (loss, met), grads = fn(params, jb)
+                out.update({pre + "train/loss": np.asarray(loss, np.float32),
+                            pre + "train/nll": np.asarray(met["nll"],
+                                                          np.float32),
+                            pre + "train/aux": np.asarray(met["aux"],
+                                                          np.float32)})
+                out.update(flatten(np32(grads), pre + "train/grads/"))
+                for key, ov, where in MESH_FAMILY_SERVE:
+                    if where is None or arch in where.get(mname, ()):
+                        serve(cfg, api, params, inputs, mesh, S,
+                              f"{pre}{key}", ov)
+    return out
+
+
 def _mesh_golden_inner(part: str) -> dict[str, np.ndarray]:
     """``part`` of the mesh golden values: an arch of ``MESH_ARCHS`` on
-    the 2 x 2 mesh, or ``odd``, the 1 x 4 cases; each with ``config``."""
+    the 2 x 2 mesh, ``odd``, the 1 x 4 cases, or ``families``
+    (``golden_mesh_families.npz``); each with ``config``."""
     import dataclasses
+    if part == "families":
+        return _mesh_families_inner()
 
     import repro.core.shard  # noqa: F401  (splits the host into
     #                          REPRO_MESH_DEVICES devices before jax starts)
@@ -984,3 +1150,7 @@ elif __name__ == "__main__":
     print(f"wrote {GOLDEN_TRAIN} ({os.path.getsize(GOLDEN_TRAIN)} bytes)")
     np.savez_compressed(GOLDEN_MESH, **compute_golden_mesh())
     print(f"wrote {GOLDEN_MESH} ({os.path.getsize(GOLDEN_MESH)} bytes)")
+    np.savez_compressed(GOLDEN_MESH_FAMILIES,
+                        **compute_golden_mesh_families())
+    print(f"wrote {GOLDEN_MESH_FAMILIES} "
+          f"({os.path.getsize(GOLDEN_MESH_FAMILIES)} bytes)")
