@@ -1,8 +1,9 @@
 """Drive the PyTorch port's MCCM and LM serving paths on one NVIDIA card,
-every LM family included, its training path, its meshes and its
-dry-run, and check them.
+every LM family included, its training path, its meshes, its dry-run and
+its examples, and check them.
 
     python3 chip_smoke.py [--seed N] [--designs N]
+    python3 chip_smoke.py --only {lm_mesh,dryrun,examples}
 
 Phases, each printing one JSON line:
 
@@ -309,10 +310,25 @@ Phases, each printing one JSON line:
    phase 18's walk of the real step (FLOPs, bytes, transcendentals,
    charges), its counted peak beside phases 17 and 18's
    ``max_memory_allocated``.  Any cell not ``ok`` fails the phase.
+22. the port's runnable examples (``examples/torch/``), each run in this
+   process as a user runs it (``__main__``, its arguments in
+   ``sys.argv``), on the card, the launch counts set to 0 before each:
+   ``quickstart``, ``dse_explore --n 2048``, ``multinet_deploy --n 256``,
+   ``serve_lm``, ``train_lm --steps 4`` (a checkpoint at step 4 in a
+   temporary directory, then a run to step 5 that resumes from it) and
+   ``autoplan_gpu``: each exits 0; the three MCCM twins, run again with
+   ``--device cpu`` in subprocesses beside them, print the same report on
+   the card as on the CPU (the scalar Builder's lines character for
+   character, the rest within rtol 1e-5 or one unit of the last printed
+   digit, timings masked, the DSE's fronts as sets); ``serve_lm``'s
+   generation function in f32 gives the same greedy tokens on the card as
+   on the CPU on one model; the search kernel launched; seconds, exit
+   codes and launches of each twin, the reports under
+   ``chiprun_out/examples/``.
 
 Then the ``kernels`` line (one entry per kernel source: the search's
-launches those of phase 4's main path and of phase 19's sharded runs,
-``flash_fwd``'s
+launches those of phase 4's main path, of phase 19's sharded runs and of
+phase 22's examples, ``flash_fwd``'s
 bf16 source with its launches in phase 9, phase 20 (a) and phase 20
 (b)'s full-width families on four ranks, and its largest
 error over phases 8, 9, 16 and 20, its f32 source with its launches
@@ -6104,11 +6120,245 @@ def phase_dryrun(card: str, train: dict | None, step: dict | None) -> dict:
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 22
+# --------------------------------------------------------------------------
+#: the port's runnable examples and the arguments phase 22 runs each with
+#: (budgets cut from their defaults: 20,000 designs an explore, 2,048
+#: deployments an arm, 300 training steps); train_lm's ``--ckpt-dir``,
+#: ``--ckpt-every`` and its resumed run are added by the phase
+EXAMPLES_DIR = os.path.join(ROOT, "examples", "torch")
+EXAMPLE_RUNS = (("quickstart", ()), ("dse_explore", ("--n", "2048")),
+                ("multinet_deploy", ("--n", "256")), ("serve_lm", ()),
+                ("train_lm", ("--steps", "4")), ("autoplan_gpu", ()))
+#: the MCCM twins whose report on the card must equal the CPU's; the lines
+#: of each held character for character (the scalar Builder's: quickstart
+#: all but its batched latencies, dse_explore its best template), and the
+#: lines held as a set (the DSE's fronts: a near-tie may swap two rows)
+EXAMPLE_EXACT = {
+    "quickstart": ("CNN", "design", "SegmentedRR", "Hybrid", "Segmented ",
+                   "per-segment", "  seg", "custom", "  latency "),
+    "dse_explore": ("template best",), "multinet_deploy": ()}
+EXAMPLE_SETS = {"dse_explore": ("  tp ",)}
+#: a report's numbers agree within this (rtol), or by one unit of their
+#: last printed digit where they straddle a rounding boundary
+REPORT_RTOL = 1e-5
+#: a number a report prints as a time: seconds ("1.7s") or µs a unit
+REPORT_TIMING = re.compile(r"\d+(?:\.\d+)?(?=s\b)|\d+(?= µs/)")
+_REPORT_NUMBER = re.compile(r"\d+(?:\.\d+)?")
+EXAMPLE_CPU_TIMEOUT_S = 600
+
+
+def _report_fields(line: str) -> tuple[str, list[str]]:
+    """(the line with its timings masked and its numbers taken out, the
+    numbers as printed)."""
+    line = REPORT_TIMING.sub("<t>", line)
+    return _REPORT_NUMBER.sub("#", line), _REPORT_NUMBER.findall(line)
+
+
+def _same_number(got: str, want: str) -> bool:
+    """Integers equal; decimals within REPORT_RTOL, or one unit of the last
+    printed digit apart."""
+    if "." not in got or "." not in want:
+        return got == want
+    a, b = float(got), float(want)
+    ulp = 10.0 ** -len(want.split(".")[1])
+    return abs(a - b) <= REPORT_RTOL * max(abs(a), abs(b)) + ulp * (1 + 1e-9)
+
+
+def same_report_line(got: str, want: str) -> bool:
+    (gt, gn), (wt, wn) = _report_fields(got), _report_fields(want)
+    return gt == wt and len(gn) == len(wn) and all(
+        _same_number(a, b) for a, b in zip(gn, wn))
+
+
+def report_diff(got: str, want: str, exact=(), sets=()) -> list[str]:
+    """Where report ``got`` differs from ``want`` (empty: the same report):
+    every line by :func:`same_report_line`, the lines starting with a
+    prefix of ``exact`` character for character once timings are masked,
+    each run of lines starting with a prefix of ``sets`` as a set."""
+    g, w = got.splitlines(), want.splitlines()
+    if len(g) != len(w):
+        return [f"{len(g)} lines, want {len(w)}"]
+    out, i = [], 0
+    while i < len(w):
+        if sets and w[i].startswith(sets):
+            j = i
+            while j < len(w) and w[j].startswith(sets):
+                j += 1
+            rest = list(g[i:j])
+            for line in w[i:j]:
+                hit = next((k for k, x in enumerate(rest)
+                            if same_report_line(x, line)), None)
+                if hit is None:
+                    out.append(f"{line!r} not among lines {i}-{j - 1}")
+                else:
+                    rest.pop(hit)
+            i = j
+            continue
+        if not same_report_line(g[i], w[i]) or (
+                exact and w[i].startswith(exact)
+                and REPORT_TIMING.sub("<t>", g[i])
+                != REPORT_TIMING.sub("<t>", w[i])):
+            out.append(f"line {i}: {g[i]!r} != {w[i]!r}")
+        i += 1
+    return out
+
+
+def _run_example(name: str, args) -> dict:
+    """One twin run in this process as ``__main__`` with ``args`` (its
+    stdout captured), the launch counts set to 0 just before and read just
+    after: exit code, seconds, launches, stdout."""
+    import contextlib
+    import io
+    import runpy
+    import traceback
+    from repro_torch.kernels import launches, reset_launches
+    path = os.path.join(EXAMPLES_DIR, f"{name}.py")
+    buf, code, err = io.StringIO(), 0, None
+    argv = sys.argv
+    sys.argv = [path, *args]
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    except SystemExit as e:
+        code = e.code or 0
+    except Exception:  # noqa: BLE001 — reported, and fails the phase
+        code, err = 1, traceback.format_exc()[-2000:]
+    finally:
+        sys.argv = argv
+    seconds = time.perf_counter() - t0
+    return dict(exit=code, s=seconds, launches=launches(),
+                stdout=buf.getvalue(), error=err)
+
+
+def _serve_f32(device, seed: int) -> dict:
+    """serve_lm's generation function in f32 on the card and on the CPU,
+    one model of the port's init (a CPU generator seeded ``seed``): the
+    greedy tokens must be equal."""
+    import contextlib
+    import copy
+    import io
+    import runpy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    serve = runpy.run_path(os.path.join(EXAMPLES_DIR, "serve_lm.py"))["serve"]
+    cfg = get_config("llama3.2-1b").reduced().replace(dtype="float32")
+    model = get_model(cfg).init(torch.Generator().manual_seed(seed))
+    out = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            res, _ = serve(cfg, copy.deepcopy(model).to(dev), dev.type)
+            out[where] = res.tokens
+    return dict(tokens_equal=out["card"] == out["cpu"],
+                tokens_card=[t[:10] for t in out["card"]],
+                tokens_cpu=[t[:10] for t in out["cpu"]])
+
+
+def phase_examples(card: str, device, seed: int) -> dict:
+    """Phase 22: the port's examples (the module docstring's item 22)."""
+    from repro_torch import configs as port_configs
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(OUT_DIR, "examples")
+    os.makedirs(out_dir, exist_ok=True)
+    args = dict(EXAMPLE_RUNS)
+    # the CPU's reports of the MCCM twins, beside the card's runs
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "OMP_NUM_THREADS": "2", "CUDA_VISIBLE_DEVICES": ""}
+    cpu = {name: subprocess.Popen(
+        [sys.executable, os.path.join(EXAMPLES_DIR, f"{name}.py"),
+         *args[name], "--device", "cpu"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLE_EXACT}
+    runs, fails = {}, []
+    try:
+        with tempfile.TemporaryDirectory() as ck:
+            for name, a in EXAMPLE_RUNS:
+                if name == "train_lm":
+                    a = (*a, "--ckpt-every", "4", "--ckpt-dir", ck)
+                runs[name] = _run_example(name, a)
+            # train_lm again, one step past its checkpoint: it resumes
+            runs["train_lm_resumed"] = _run_example(
+                "train_lm", ("--steps", "5", "--ckpt-dir", ck))
+        # train_lm registered its config in this process's registry
+        port_configs.ARCHS.pop("lm-100m", None)
+        serve_f32 = _serve_f32(device, seed)
+        cpu_out = {}
+        for name, proc in cpu.items():
+            try:
+                o, e = proc.communicate(timeout=EXAMPLE_CPU_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                o, e = proc.communicate()
+            cpu_out[name] = o
+            if proc.returncode != 0:
+                fails.append(f"{name} --device cpu: exit {proc.returncode}"
+                             f" {e[-600:]}")
+    finally:
+        for proc in cpu.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, r in runs.items():
+        with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
+            f.write(r["stdout"] + (r["error"] or ""))
+        if r["exit"] != 0:
+            fails.append(f"{name}: exit {r['exit']} {r['error']}")
+    versus = {}
+    for name, want in cpu_out.items():
+        with open(os.path.join(out_dir, f"{name}_cpu.txt"), "w") as f:
+            f.write(want)
+        diff = report_diff(runs[name]["stdout"], want, EXAMPLE_EXACT[name],
+                           EXAMPLE_SETS.get(name, ()))
+        versus[name] = dict(equal=not diff and bool(want.strip()),
+                            lines=len(want.splitlines()), diff=diff[:4])
+        if not versus[name]["equal"]:
+            fails.append(f"{name}: card != cpu {diff[:2]}")
+    train, resumed = runs["train_lm"]["stdout"], \
+        runs["train_lm_resumed"]["stdout"]
+    checks = {
+        "train committed step 4": "[ckpt] committed step 4" in train,
+        "train done: 4 steps": "done: 4 steps" in train,
+        "train resumed from step 4":
+            "[restore] resumed from committed step 4" in resumed,
+        "train resumed done: 1 steps": "done: 1 steps" in resumed,
+        "serve 4 requests": len(re.findall(
+            r"^request \d: ", runs["serve_lm"]["stdout"], re.M)) == 4,
+        "serve f32 tokens card == cpu": serve_f32["tokens_equal"],
+        "autoplan table": "faster than the worst candidate"
+                          in runs["autoplan_gpu"]["stdout"],
+        "search launched": sum(r["launches"]["parallelism_search"]
+                               for r in runs.values()) > 0,
+    }
+    fails += [k for k, ok in checks.items() if not ok]
+    lost = [m for m in sys.modules if m in ("jax", "repro")
+            or m.startswith(("jax.", "repro."))]
+    if lost:
+        fails.append(f"imported {lost}")
+    search = sum(r["launches"]["parallelism_search"] for r in runs.values())
+    info = dict(
+        card=card,
+        twins={name: dict(exit=r["exit"], s=r["s"], launches=r["launches"],
+                          timings=[ln for ln in r["stdout"].splitlines()
+                                   if REPORT_TIMING.search(ln)][:8])
+               for name, r in runs.items()},
+        card_vs_cpu=versus, serve_f32=serve_f32, checks=checks,
+        search_launches=search, phase_s=time.perf_counter() - t_phase)
+    emit("examples", **info)
+    if fails:
+        raise PhaseFailed(f"examples: {fails}")
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--designs", type=int, default=100_000)
-    ap.add_argument("--only", choices=("lm_mesh", "dryrun"), default=None,
+    ap.add_argument("--only", choices=("lm_mesh", "dryrun", "examples"),
+                    default=None,
                     help="run the kernels' build and this phase alone, and "
                          "print no kernels line and no ok line (debugging)")
     args = ap.parse_args(argv)
@@ -6129,6 +6379,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "dryrun":
         phase_dryrun(card, None, None)
+        return 0
+    if args.only == "examples":
+        phase_examples(card, device, args.seed)
         return 0
     err = phase_kernel(card, device)
     phase_main_vs_golden(card, device)
@@ -6160,6 +6413,8 @@ def main(argv=None) -> int:
     flash["launches"] += lm_mesh["launches"]
     flash_f32["launches"] += lm_mesh["families_launches"]
     phase_dryrun(card, train, step_model)
+    search["launches"] += phase_examples(card, device, args.seed)[
+        "search_launches"]
     flash["max_abs_err"] = max(flash["max_abs_err"],
                                lm_mesh["one_by_one"]["serve"][
                                    "layer0_max_abs_err"])

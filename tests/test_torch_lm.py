@@ -251,6 +251,19 @@ def test_port_walk_reaches_the_lm_subpackages():
             "repro_torch.models.encdec", "repro_torch.models.vlm"} <= names
 
 
+def test_models_package_exports_the_jax_names():
+    """``repro_torch.models`` exports what ``repro.models`` does, each the
+    port's own object."""
+    import repro.models
+    import repro_torch.models as M
+    from repro_torch.models import registry, runtime
+    assert sorted(M.__all__) == sorted(repro.models.__all__)
+    for name in M.__all__:
+        assert getattr(M, name) is getattr(
+            registry if hasattr(registry, name) else runtime, name), name
+    assert M.LOCAL == Runtime() and M.LOCAL.mesh is None
+
+
 def test_nccl_and_runtime_refusals_raise():
     """What still raises: an NCCL mesh with more ranks than visible cards,
     and a runtime naming an axis its mesh lacks or a setting it does not

@@ -215,13 +215,26 @@ def test_session_list_and_batch_errors_use_the_taxonomy(case, monkeypatch):
 
 def test_port_imports_neither_jax_nor_repro():
     """Importing the port and every one of its modules leaves jax and the
-    JAX package out of sys.modules."""
+    JAX package out of sys.modules.  A bare ``import repro_torch`` loads
+    nothing but the package itself (not torch), and its top-level names
+    (``repro_torch.Session``, ``EvalConfig``, ``SessionStats``,
+    ``default_session``, ``telemetry``) resolve lazily to the front
+    door's."""
     code = (
         "import importlib, pkgutil, sys, repro_torch\n"
+        "assert [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'repro', 'repro_torch')] == ['repro_torch'], "
+        "sorted(sys.modules)\n"
+        "ses = repro_torch.Session\n"
+        "assert 'torch' in sys.modules\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import repro_torch.api\n"
+        "for name in repro_torch.__all__:\n"
+        "    assert getattr(repro_torch, name) is "
+        "getattr(repro_torch.api, name), name\n"
+        "assert ses is repro_torch.api.Session\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "mods = sorted(m for m in sys.modules if m.startswith('repro_torch'))"
