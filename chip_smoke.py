@@ -984,6 +984,15 @@ def phase_load(card: str, device, seed: int, n_designs: int) -> dict:
     return kernel
 
 
+def _device_rows(rows) -> list:
+    """The rows of ``key_averages()`` that are device work: the program's
+    spans, mirrored on the device's timeline as user annotations, are
+    none."""
+    from torch.autograd import DeviceType
+    return [e for e in rows if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _profile(ses, batch, net, wall_unprofiled: float) -> dict:
     """Device time over one evaluate of ``batch``, from torch.profiler:
     busy time as the sum of the kernels' device times (one stream, so they
@@ -1001,7 +1010,7 @@ def _profile(ses, batch, net, wall_unprofiled: float) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = prof.key_averages()
-    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    kernels = _device_rows(rows)
     ops = [e for e in rows if e.device_type == DeviceType.CPU
            and e.self_device_time_total > 0]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
@@ -1610,7 +1619,6 @@ def _device_profile(fn, name: str, top: int = 8,
     the kernel named ``share_of``, the kernels that took the most of it, and
     the full table in chiprun_out/profile_<name>.txt."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1620,7 +1628,7 @@ def _device_profile(fn, name: str, top: int = 8,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = prof.key_averages()
-    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    kernels = _device_rows(rows)
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
@@ -4327,7 +4335,7 @@ def _train_profile(fn, name: str, vocab: int, top: int = 10) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = prof.key_averages()
-    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    kernels = _device_rows(rows)
     busy_us = sum(e.self_device_time_total for e in kernels)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:

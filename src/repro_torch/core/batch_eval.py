@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..kernels.mccm_eval import pair_tables, parallelism_search
+from . import telemetry
 from .blocks import CANDIDATES_DEFAULT
 from .device import DeviceSpec
 from .dse.encoding import NC, NS, DesignBatch, encode_specs
@@ -827,11 +828,19 @@ def eval_design_block(design: DesignBatch, tables: NetTables,
                       dev: DeviceTables, search: SearchTables, *,
                       fm_tile_rows: int = 2) -> dict[str, torch.Tensor]:
     """Evaluation of one design block (no blocking or padding):
-    CE maps -> fused ⟨pf, ph, pw⟩ search -> Eqs. 2–9."""
-    m = _ce_maps(design, tables, dev)
-    pf, ph, pw, _cost = parallelism_search(m.pes_ce, _search_ce(m), *search)
-    st = layer_state(design, tables, dev, m, (pf, ph, pw), fm_tile_rows)
-    return compose_metrics(design, tables, dev, m, st)
+    CE maps -> fused ⟨pf, ph, pw⟩ search -> Eqs. 2–9, each stage a
+    span (``batch.block`` and its children)."""
+    with telemetry.span("batch.block"):
+        with telemetry.span("batch.ce_maps"):
+            m = _ce_maps(design, tables, dev)
+        with telemetry.span("batch.search"):
+            pf, ph, pw, _cost = parallelism_search(m.pes_ce, _search_ce(m),
+                                                   *search)
+        with telemetry.span("batch.layer_state"):
+            st = layer_state(design, tables, dev, m, (pf, ph, pw),
+                             fm_tile_rows)
+        with telemetry.span("batch.compose"):
+            return compose_metrics(design, tables, dev, m, st)
 
 
 def _pad_rows(design: DesignBatch, n: int) -> DesignBatch:
@@ -893,18 +902,19 @@ def _blocks(design: DesignBatch, tables: NetTables,
     boards cut to the block's rows when ``dev`` holds one board per row.
     """
     device = tables.device
-    if pairs is None:
-        dev, pairs = search_setup(tables, dev, full_pes)
-    if design.batch == 0:
-        raise ValueError("no designs to evaluate (empty DesignBatch)")
-    if dev.per_row and dev.pes.shape[0] != design.batch:
-        raise ValueError(f"{dev.pes.shape[0]} board rows for "
-                         f"{design.batch} designs")
-    design = design.to(device)
-    rows = tile if device.type == "cpu" else chunk
-    return dev, pairs, [(design.take(slice(s, s + rows)),
-                         dev.take(slice(s, s + rows)))
-                        for s in range(0, design.batch, rows)]
+    with telemetry.span("batch.setup"):
+        if pairs is None:
+            dev, pairs = search_setup(tables, dev, full_pes)
+        if design.batch == 0:
+            raise ValueError("no designs to evaluate (empty DesignBatch)")
+        if dev.per_row and dev.pes.shape[0] != design.batch:
+            raise ValueError(f"{dev.pes.shape[0]} board rows for "
+                             f"{design.batch} designs")
+        design = design.to(device)
+        rows = tile if device.type == "cpu" else chunk
+        return dev, pairs, [(design.take(slice(s, s + rows)),
+                             dev.take(slice(s, s + rows)))
+                            for s in range(0, design.batch, rows)]
 
 
 def _cat_blocks(outs: list[dict]) -> dict:

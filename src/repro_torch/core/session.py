@@ -493,25 +493,32 @@ class Session:
             return m
         cfg = self.config
         if isinstance(designs, DesignBatch):
-            try:
-                ok = validate_batch(designs, len(net), min_ces=1, max_ces=NC)
-            except (ValueError, TypeError, IndexError) as e:
-                raise EvalError(EvalError.INVALID_INPUT,
-                                f"{type(e).__name__}: {e}") from e
-            if not ok.all():
-                bad = np.nonzero(~ok)[0]
-                raise EvalError(
-                    EvalError.INVALID_INPUT,
-                    f"{bad.size} invalid DesignBatch row(s), first at "
-                    f"index {int(bad[0])} (non-canonical segments or CE "
-                    f"count outside [1, {NC}])")
+            with telemetry.span("session.validate"):
+                try:
+                    ok = validate_batch(designs, len(net), min_ces=1,
+                                        max_ces=NC)
+                except (ValueError, TypeError, IndexError) as e:
+                    raise EvalError(EvalError.INVALID_INPUT,
+                                    f"{type(e).__name__}: {e}") from e
+                if not ok.all():
+                    bad = np.nonzero(~ok)[0]
+                    raise EvalError(
+                        EvalError.INVALID_INPUT,
+                        f"{bad.size} invalid DesignBatch row(s), first at "
+                        f"index {int(bad[0])} (non-canonical segments or "
+                        f"CE count outside [1, {NC}])")
             sp.set_attr("kind", "design_batch")
             sp.set_attr("designs", designs.batch)
             self.stats.bump("batch_designs", designs.batch)
-            return self._resilient_call(lambda: evaluate_batch(
-                designs.to(self.device), self.tables(net),
-                self.device_tables(dev), cfg.fm_tile_rows, tile=cfg.tile,
-                chunk=cfg.chunk, mesh=self.mesh))
+
+            def call():
+                with telemetry.span("session.to_device"):
+                    on_device = designs.to(self.device)
+                return evaluate_batch(
+                    on_device, self.tables(net), self.device_tables(dev),
+                    cfg.fm_tile_rows, tile=cfg.tile, chunk=cfg.chunk,
+                    mesh=self.mesh)
+            return self._resilient_call(call)
         try:
             specs = [parse(d, len(net), inter_segment_pipelining=
                            inter_segment_pipelining)

@@ -2,13 +2,16 @@
 
 A copy of the JAX package's ``core/telemetry.py`` with the same names, env
 variables and trace-line schema, so one dashboard or trace reader serves
-both packages.  Three pieces, stdlib-only:
+both packages.  Three pieces:
 
 * **spans** -- :func:`span` is a context manager recording monotonic
   wall time, nesting (thread-local stack -> parent/trace ids) and
   per-span attributes; :func:`event` attaches point-in-time events
   (retries, breaker transitions, checkpoint writes, search generations)
-  to the current span;
+  to the current span.  While a ``torch.profiler`` records, every span
+  also opens a ``record_function`` range of its name, so the profiler's
+  trace shows the program's spans on the timeline of its kernels (and
+  a gap in the device's work is put down to the span open across it);
 * **metrics registry** -- process-wide counters, gauges and fixed-bucket
   histograms (:func:`count` / :func:`gauge` / :func:`observe`).  The
   bucket ladder makes p50/p99/p999 derivable without storing samples;
@@ -19,13 +22,18 @@ both packages.  Three pieces, stdlib-only:
 
 Telemetry is **off by default and cheap when off**: every entry point
 checks one module-level flag and returns a shared singleton, so the
-disabled path allocates nothing.  Enable it with the env var::
+disabled path allocates nothing.  :func:`span` reads one more flag,
+PyTorch's own ``torch.autograd.profiler._is_profiler_enabled``; with a
+profiler recording and telemetry off, a span opens the profiler's range
+and records nothing else (no registry write, no JSONL line).  Beyond
+the standard library the module uses only PyTorch's profiler (that flag
+and ``record_function``).  Enable it with the env var::
 
     REPRO_TELEMETRY_DIR=/tmp/traces python ...   # metrics + JSONL trace
 
 or programmatically with :func:`enable` (no directory = in-process
 metrics only).  :func:`profile` is the opt-in deep dive: a
-``torch.profiler`` Chrome trace of a block.
+``torch.profiler`` Chrome trace of a block, the spans in it.
 """
 from __future__ import annotations
 
@@ -34,6 +42,8 @@ import json
 import os
 import threading
 import time
+
+from torch.autograd import profiler as _torch_profiler
 
 __all__ = [
     "TELEMETRY_DIR_ENV", "enable", "disable", "enabled", "reset",
@@ -225,11 +235,36 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
+class _ProfilerRange:
+    """A span while a ``torch.profiler`` records and telemetry is off:
+    the profiler's ``record_function`` range of the span's name, and
+    nothing else (attributes and events are dropped, as when off)."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str):
+        self._range = _torch_profiler.record_function(name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return False
+
+    def set_attr(self, name, value):
+        pass
+
+    def add_event(self, name, **attrs):
+        pass
+
+
 class Span:
     """One timed unit of work.  Use via :func:`span`."""
 
     __slots__ = ("name", "attrs", "span_id", "parent_id", "trace_id",
-                 "events", "t_wall", "_t0", "dur_s")
+                 "events", "t_wall", "_t0", "dur_s", "_range")
 
     def __init__(self, name: str, attrs: dict | None):
         self.name = name
@@ -241,6 +276,7 @@ class Span:
         self.t_wall = 0.0
         self._t0 = 0.0
         self.dur_s = 0.0
+        self._range = None
 
     def set_attr(self, name: str, value) -> None:
         self.attrs[name] = value
@@ -258,12 +294,18 @@ class Span:
         else:
             self.trace_id = self.span_id
         st.append(self)
+        if _torch_profiler._is_profiler_enabled:
+            self._range = _torch_profiler.record_function(self.name)
+            self._range.__enter__()
         self.t_wall = time.time()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         self.dur_s = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         st = _stack()
         if st and st[-1] is self:
             st.pop()
@@ -282,11 +324,14 @@ class Span:
 
 
 def span(name: str, attrs: dict | None = None):
-    """A context manager timing one named unit of work.  Returns the
-    shared no-op singleton while telemetry is disabled — zero allocation
-    on the disabled path."""
+    """A context manager timing one named unit of work, and a
+    ``record_function`` range of its name while a ``torch.profiler``
+    records.  Returns the shared no-op singleton while telemetry is
+    disabled and no profiler records — zero allocation on that path."""
     if not _ENABLED:
-        return _NOOP
+        if not _torch_profiler._is_profiler_enabled:
+            return _NOOP
+        return _ProfilerRange(name)
     return Span(name, attrs)
 
 

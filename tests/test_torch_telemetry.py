@@ -4,8 +4,11 @@ it reports, against the JAX package's, on the CPU.
 The two modules give the same histograms, Prometheus text and trace lines
 for the same calls; the port's ``Session.evaluate`` and ``explore`` emit
 the span, counter, gauge, histogram and event names (and the counts) the
-JAX package's emit on the same calls; every trace line passes both
-packages' schema check; the disabled path records nothing.  A faulted
+JAX package's emit on the same calls, plus the port's own batch-path
+spans; every trace line passes both packages' schema check; the disabled
+path records nothing.  The port's spans reach a ``torch.profiler`` trace
+with telemetry off, each inside its parent, and chain to
+``session.evaluate`` when telemetry is on.  A faulted
 kernel is retried and trips the breaker as the JAX package's Session does
 with ``fallback_backend=None``, then raises ``BACKEND_FAULT``.
 """
@@ -35,6 +38,20 @@ from repro_torch.fpga.archs import make_arch
 
 NET, BOARD = "mobilenetv2", "zc706"
 
+#: the spans the port opens on any batch evaluation that the JAX package
+#: does not: the batch path's stages
+BATCH_SPANS = ("batch.setup", "batch.block", "batch.ce_maps",
+               "batch.search", "batch.layer_state", "batch.compose")
+#: each new span's parent on one ``evaluate`` of a DesignBatch, which also
+#: opens ``session.validate`` and ``session.to_device``
+PARENT = {"session.validate": "session.evaluate",
+          "session.to_device": "session.evaluate",
+          "batch.setup": "session.evaluate",
+          "batch.block": "session.evaluate",
+          "batch.ce_maps": "batch.block", "batch.search": "batch.block",
+          "batch.layer_state": "batch.block",
+          "batch.compose": "batch.block"}
+
 
 @pytest.fixture()
 def both_enabled(tmp_path):
@@ -60,6 +77,15 @@ def disabled():
     yield
     tel.disable()
     tel.reset()
+
+
+def _with_port_spans(names: dict, spans) -> dict:
+    """The JAX package's ``names`` (``_names``) with the port's own
+    ``spans`` added, and the ``span.<name>.s`` histogram of each."""
+    assert not set(spans) & set(names["spans"])
+    return dict(names, spans=sorted(set(names["spans"]) | set(spans)),
+                histograms=sorted(set(names["histograms"])
+                                  | {f"span.{s}.s" for s in spans}))
 
 
 def _names(mod) -> dict:
@@ -183,7 +209,7 @@ def test_session_emits_the_same_names_as_jax(both_enabled):
         ses.explore(n, n=128, strategy="search",
                     config=cfg(pop_size=64, seed=0))
     want, got = _names(jtel), _names(tel)
-    assert got == want
+    assert got == _with_port_spans(want, BATCH_SPANS)
     assert {"session.evaluate", "session.explore"} <= set(got["spans"])
     assert got["events"] == ["dse.generation"]
     assert got["counters"]["dse.generations"] == 2
@@ -199,6 +225,89 @@ def test_session_emits_the_same_names_as_jax(both_enabled):
     assert obs["stats"]["explore_calls"] == 2
     assert obs["telemetry"]["counters"]["session.explore_calls"] == 2
     assert obs["caches"]["net_tables"]["size"] == 1
+
+
+# --------------------------------------------------------------------------
+# the spans on the device trace's clock
+# --------------------------------------------------------------------------
+def _design_batch(net, n: int = 6):
+    from repro_torch.core.dse import sample_mixed
+    return sample_mixed(np.random.default_rng(3), len(net), n)
+
+
+def _profiled_spans(fn) -> dict:
+    """``fn()`` under ``torch.profiler``: each host event of a span name
+    (``PARENT``'s and ``session.evaluate``) as name -> [(start, end)]."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    names = set(PARENT) | {"session.evaluate"}
+    out: dict[str, list] = {}
+    for e in prof.events():
+        if e.name in names:
+            out.setdefault(e.name, []).append((e.time_range.start,
+                                               e.time_range.end))
+    return out
+
+
+def test_the_profiler_flag_exists():
+    """The spans reach the profiler through PyTorch's own flag; a PyTorch
+    that drops or renames it must fail here, not drop the spans."""
+    import torch.autograd.profiler as P
+    from torch.profiler import ProfilerActivity, profile
+    assert P._is_profiler_enabled is False
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert P._is_profiler_enabled is True
+    assert P._is_profiler_enabled is False
+
+
+def test_spans_reach_the_profiler_with_telemetry_off(disabled):
+    """Under ``torch.profiler`` with telemetry off, one ``evaluate`` of a
+    DesignBatch puts every span on the trace, each inside its parent,
+    and records nothing in the registry or a trace file."""
+    net = get_cnn(NET)
+    ses = Session(get_board(BOARD), device="cpu")
+    batch = _design_batch(net)
+    got = _profiled_spans(lambda: ses.evaluate(batch, net))
+    assert set(got) == set(PARENT) | {"session.evaluate"}
+    for name, parent in PARENT.items():
+        for a, b in got[name]:
+            assert any(pa <= a and b <= pb for pa, pb in got[parent]), \
+                (name, parent)
+    assert _REGISTRY.size() == 0
+    assert tel.trace_path() is None
+
+
+@pytest.mark.parametrize("name", ["session.evaluate", *PARENT])
+def test_a_span_is_the_noop_without_telemetry_or_profiler(disabled, name):
+    assert tel.span(name) is _NOOP
+    assert tel.span(name, {"k": 1}) is _NOOP
+
+
+def test_spans_chain_to_session_evaluate(both_enabled):
+    """With telemetry on, the new spans' trace lines pass both packages'
+    schema, their parent ids lead to ``session.evaluate``, each has its
+    histogram, and under a profiler they reach its trace as well."""
+    net = get_cnn(NET)
+    ses = Session(get_board(BOARD), device="cpu")
+    batch = _design_batch(net)
+    got = _profiled_spans(lambda: ses.evaluate(batch, net))
+    assert set(got) == set(PARENT) | {"session.evaluate"}
+    lines = [l for l in tel.read_trace(tel.trace_path())
+             if l["type"] == "span"]
+    by_id = {l["span"]: l for l in lines}
+    [root] = [l for l in lines if l["name"] == "session.evaluate"]
+    assert root["parent"] is None
+    for l in lines:
+        assert tel.validate_trace_line(l) == []
+        assert jtel.validate_trace_line(l) == []
+        if l["name"] in PARENT:
+            assert by_id[l["parent"]]["name"] == PARENT[l["name"]]
+            assert l["trace"] == root["trace"]
+    assert set(PARENT) <= {l["name"] for l in lines}
+    hist = tel.snapshot()["histograms"]
+    for name in PARENT:
+        assert hist[f"span.{name}.s"]["count"] == 1
 
 
 # --------------------------------------------------------------------------
