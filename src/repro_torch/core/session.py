@@ -54,7 +54,8 @@ from .cache import DEFAULT_MAX_TABLES, TABLES_ENV, BoundedLRU, env_bound
 from .coalesce import ArrivalEstimator, plan_megabatch
 from .device import DeviceSpec
 from .dse.driver import DEFAULT_OBJECTIVES, DSEResult, _explore
-from .dse.encoding import NC, DesignBatch, encode_specs, validate_batch
+from .dse.encoding import (NC, DesignBatch, check_planes, encode_specs,
+                           validate_batch_torch)
 from .dse.search import SearchConfig
 from .evaluator import _evaluate_design, build_design
 from .multinet.driver import JointDSEResult, _joint_explore
@@ -78,6 +79,22 @@ def _taxonomy():
         raise
     except Exception as e:  # noqa: BLE001 — taxonomy boundary
         raise wrap(e) from e
+
+
+def _check_rows(batch: DesignBatch, n_layers: int) -> None:
+    """Raise ``EvalError(INVALID_INPUT)`` unless every row of ``batch`` is
+    canonical with 1 to ``NC`` CEs, checked on the batch's device with one
+    read to the host; the count and the first bad index are read only
+    when a row fails."""
+    ok = validate_batch_torch(batch, n_layers, min_ces=1, max_ces=NC)
+    if bool(ok.all()):
+        return
+    bad = torch.nonzero(~ok)[:, 0]
+    raise EvalError(
+        EvalError.INVALID_INPUT,
+        f"{bad.numel()} invalid DesignBatch row(s), first at index "
+        f"{int(bad[0])} (non-canonical segments or CE count outside "
+        f"[1, {NC}])")
 
 
 @dataclass(frozen=True)
@@ -493,27 +510,27 @@ class Session:
             return m
         cfg = self.config
         if isinstance(designs, DesignBatch):
-            with telemetry.span("session.validate"):
-                try:
-                    ok = validate_batch(designs, len(net), min_ces=1,
-                                        max_ces=NC)
-                except (ValueError, TypeError, IndexError) as e:
-                    raise EvalError(EvalError.INVALID_INPUT,
-                                    f"{type(e).__name__}: {e}") from e
-                if not ok.all():
-                    bad = np.nonzero(~ok)[0]
-                    raise EvalError(
-                        EvalError.INVALID_INPUT,
-                        f"{bad.size} invalid DesignBatch row(s), first at "
-                        f"index {int(bad[0])} (non-canonical segments or "
-                        f"CE count outside [1, {NC}])")
-            sp.set_attr("kind", "design_batch")
-            sp.set_attr("designs", designs.batch)
-            self.stats.bump("batch_designs", designs.batch)
+            try:
+                check_planes(designs)
+            except (ValueError, TypeError) as e:
+                raise EvalError(EvalError.INVALID_INPUT,
+                                f"{type(e).__name__}: {e}") from e
+            checked = False
 
             def call():
+                # the copy and the row check run inside the retried call:
+                # a fault in either is a BACKEND_FAULT, an invalid row an
+                # INVALID_INPUT that passes without a retry
+                nonlocal checked
                 with telemetry.span("session.to_device"):
                     on_device = designs.to(self.device)
+                with telemetry.span("session.validate"):
+                    _check_rows(on_device, len(net))
+                if not checked:
+                    checked = True
+                    sp.set_attr("kind", "design_batch")
+                    sp.set_attr("designs", designs.batch)
+                    self.stats.bump("batch_designs", designs.batch)
                 return evaluate_batch(
                     on_device, self.tables(net), self.device_tables(dev),
                     cfg.fm_tile_rows, tile=cfg.tile, chunk=cfg.chunk,

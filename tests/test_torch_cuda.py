@@ -269,6 +269,60 @@ def test_session_on_card_goes_through_kernel(cuda):
                                        err_msg=k)
 
 
+def _no_host_route(*args, **kwargs):
+    raise AssertionError("the DesignBatch went through the host")
+
+
+@pytest.mark.parametrize("where", ["host", "card"])
+def test_invalid_rows_never_reach_the_batch_path_on_card(cuda, where,
+                                                         monkeypatch):
+    """A DesignBatch with broken rows, handed over from the host or
+    already on the card: the card's Session checks it there and raises
+    the CPU Session's INVALID_INPUT, word for word, before anything of
+    the batch path runs.  A valid batch then evaluates without the
+    numpy route, equal to the CPU's."""
+    from repro_torch.api import EvalError
+    from repro_torch.core import session as port_session
+    from repro_torch.core.dse import encoding as enc
+    net, board = get_cnn("resnet50"), get_board("zcu102")
+    db = sample_mixed(np.random.default_rng(0), len(net), 3000)
+    nce = db.seg_nce.clone()
+    nce[[7, 2500], 0] = 40
+    bad = enc.DesignBatch(db.seg_end, db.seg_pipe, nce, db.inter_pipe)
+    with pytest.raises(EvalError) as want:
+        Session(board, device="cpu").evaluate(bad, net)
+    assert "2 invalid DesignBatch row(s), first at index 7 " \
+        in str(want.value)
+    real, reached = port_session.evaluate_batch, []
+
+    def spy(*args, **kwargs):
+        reached.append(args[0].seg_end.device.type)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(port_session, "evaluate_batch", spy)
+    monkeypatch.setattr(enc, "validate_batch", _no_host_route)
+    monkeypatch.setattr(enc.DesignBatch, "to_numpy", _no_host_route)
+    ses = Session(board, device=str(cuda))
+    if where == "card":
+        bad, db = bad.to(cuda), db.to(cuda)
+    with pytest.raises(EvalError) as got:
+        ses.evaluate(bad, net)
+    assert got.value.code == EvalError.INVALID_INPUT
+    assert str(got.value) == str(want.value)
+    assert reached == [] and ses.stats.batch_designs == 0
+    got = ses.evaluate(db, net)
+    assert reached == [cuda.type] and ses.stats.batch_designs == 3000
+    monkeypatch.undo()
+    want = Session(board, device="cpu").evaluate(db.to("cpu"), net)
+    for k, w in want.items():
+        g = got[k].cpu()
+        if k == "n_ces":
+            assert torch.equal(g, w)
+        else:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                       err_msg=k)
+
+
 def test_mccm_latency_kernel_equals_plain_on_card(cuda):
     """Per-layer ⟨pf, ph, pw⟩ as the batch path chooses them for 3000
     ResNet-50 designs: the kernel equals its plain version and the batch

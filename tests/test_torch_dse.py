@@ -166,7 +166,26 @@ def _broken_rows(rng, L: int, n: int):
     return end, pipe, nce, inter
 
 
-@pytest.mark.parametrize("kind", ["sampled", "mutated", "broken"])
+def _perturbed_rows(rng, L: int, n: int):
+    """Canonical rows with one field of most rows moved by one: an end or
+    a CE count up or down, or a pipe flag flipped, in a live segment or
+    in padding, so that each condition of the check fails on its own
+    (an end moved onto its neighbour leaves an empty segment before a
+    non-empty one)."""
+    end, pipe, nce, inter = (np.array(a) for a in jax_sample_mixed(
+        rng, L, n, min_ces=1, max_ces=16).to_numpy())
+    row, col = np.arange(n), rng.integers(0, 12, n)
+    which, step = rng.integers(0, 4, n), rng.choice([-1, 1], n)
+    for plane, k in ((end, 0), (nce, 1)):
+        at = which == k
+        plane[row[at], col[at]] += step[at]
+    at = which == 2
+    pipe[row[at], col[at]] ^= True
+    return end, pipe, nce, inter
+
+
+@pytest.mark.parametrize("kind", ["sampled", "mutated", "broken",
+                                  "perturbed"])
 @pytest.mark.parametrize("min_ces,max_ces", [(1, 16), (2, 11), (5, 8)])
 def test_repair_and_validate_equal_jax(kind, min_ces, max_ces):
     L, jpar, _ = _parents(7)
@@ -176,8 +195,10 @@ def test_repair_and_validate_equal_jax(kind, min_ces, max_ces):
     elif kind == "mutated":
         arrs = jsearch.make_children(rng, jpar, L, jsearch.SearchConfig(),
                                      300).to_numpy()
-    else:
+    elif kind == "broken":
         arrs = _broken_rows(rng, L, 300)
+    else:
+        arrs = _perturbed_rows(rng, L, 3000)
     jdb = jenc.DesignBatch.from_numpy(*arrs)
     tdb = tenc.DesignBatch.from_numpy(*arrs)
     kw = dict(min_ces=min_ces, max_ces=max_ces)

@@ -45,6 +45,10 @@ def _assert_metrics(got, want, label):
                                        err_msg=f"{label} {k}")
 
 
+def _no_host_route(*args, **kwargs):
+    raise AssertionError("the DesignBatch went through the host")
+
+
 @pytest.mark.parametrize("family,seed", [("mixed", 0), ("mixed", 7),
                                          ("custom", 0), ("custom", 3)])
 def test_samplers_equal_jax(family, seed):
@@ -76,9 +80,11 @@ def test_encode_decode_validate_equal_jax():
         jenc.validate_batch(jenc.DesignBatch.from_numpy(*bad), len(net)))
 
 
-def test_session_evaluate_matches_jax():
+def test_session_evaluate_matches_jax(monkeypatch):
     """Session(device="cpu") on a spec list, on notation strings and on a
-    DesignBatch against the JAX package's batch path."""
+    DesignBatch against the JAX package's batch path.  The DesignBatch is
+    checked as tensors on the session's device: never read back to the
+    host and never through the numpy ``validate_batch``."""
     jnet, net = jax_get_cnn("densenet121"), get_cnn("densenet121")
     specs = [make_arch(a, jnet, n) for a in ARCH_NAMES for n in (2, 5, 11)]
     mixed = jsamplers.sample_mixed(np.random.default_rng(4), len(jnet), 40)
@@ -97,8 +103,10 @@ def test_session_evaluate_matches_jax():
     _assert_metrics(ses.evaluate(strings, net), want_s, "strings")
     want_m = jbe.evaluate_batch(mixed, jbe.make_tables(jnet),
                                 jax_get_board("vcu108"), backend="ref")
-    got_m = ses.evaluate(tenc.DesignBatch.from_numpy(*mixed.to_numpy()),
-                         net)
+    port_mixed = tenc.DesignBatch.from_numpy(*mixed.to_numpy())
+    monkeypatch.setattr(tenc, "validate_batch", _no_host_route)
+    monkeypatch.setattr(tenc.DesignBatch, "to_numpy", _no_host_route)
+    got_m = ses.evaluate(port_mixed, net)
     assert all(v.device.type == "cpu" for v in got_m.values())
     _assert_metrics(_np(got_m), want_m, "design_batch")
     assert ses.stats.net_table_builds == 1
@@ -167,29 +175,90 @@ def _eval_error(*args, **kwargs):
     raise EvalError(EvalError.NONFINITE_METRICS, "already classified")
 
 
+def _corrupt_planes(case: str, n_layers: int) -> list:
+    """Six ``sample_mixed`` rows of a ``n_layers``-layer CNN as host
+    arrays (seg_end, seg_pipe, seg_nce, inter_pipe), broken as ``case``
+    says: rows 0 and 1 are one segment, row 2 is [.., 43), [43, 53) of
+    ResNet-50 on 4 and 3 CEs."""
+    e, p, n, i = (np.array(a) for a in tsamplers.sample_mixed(
+        np.random.default_rng(0), n_layers, 6).to_numpy())
+    if case == "nce_40":
+        n[1, 0] = 40
+    elif case == "seg_end_decreasing":              # two rows
+        e[2, :2] = [43, 40]
+        e[4, 0] = n_layers + 7
+    elif case == "gap_before_segment":
+        e[2, :3], n[2, :3], p[2, :3] = [20, 20, n_layers], [4, 1, 3], \
+            [True, False, True]
+    elif case == "last_end_not_n_layers":
+        e[3][e[3] == n_layers] = n_layers - 1
+    elif case == "pipe_nce_disagree":
+        p[2, 0] = False
+    elif case == "padding_nce":
+        n[2, 5] = 2
+    elif case == "ce_total_over_nc":
+        n[2, :2] = [10, 7]
+    elif case == "plane_lengths":
+        p = p[:-1]
+    elif case == "float_seg_end":
+        e = e.astype(np.float32)
+    return [e, p, n, i]
+
+
+#: corrupted DesignBatches that break rows, and that break the planes
+_BROKEN_ROWS = ("nce_40", "seg_end_decreasing", "gap_before_segment",
+                "last_end_not_n_layers", "pipe_nce_disagree", "padding_nce",
+                "ce_total_over_nc")
+_BROKEN_PLANES = ("plane_lengths", "float_seg_end")
+
+
 @pytest.mark.parametrize("case", ["13_segments", "list_fault",
-                                  "batch_fault", "list_eval_error"])
+                                  "batch_fault", "list_eval_error",
+                                  *_BROKEN_ROWS, *_BROKEN_PLANES])
 def test_session_list_and_batch_errors_use_the_taxonomy(case, monkeypatch):
     """The list and DesignBatch paths raise EvalError too: an input error
     as INVALID_INPUT, the code the JAX package's Session gives on the same
     input; a failure inside the evaluation (a kernel launch on the card)
-    as BACKEND_FAULT, with no retry and no fallback."""
+    as BACKEND_FAULT, with no retry and no fallback.  A corrupted
+    DesignBatch never reaches the batch path and is neither retried nor
+    counted; a broken row gives the JAX Session's message word for word,
+    its count and first index those of the numpy ``validate_batch``."""
     from repro.api import EvalError as JaxEvalError
     from repro.api import Session as JaxSession
     from repro_torch.core import session as port_session
+    net = get_cnn("resnet50")
+    if case in _BROKEN_ROWS + _BROKEN_PLANES:
+        planes = _corrupt_planes(case, len(net))
+        with pytest.raises(JaxEvalError) as want:
+            JaxSession(jax_get_board("zcu102")).evaluate(
+                jenc.DesignBatch(*planes), jax_get_cnn("resnet50"))
+        reached = []
+        monkeypatch.setattr(port_session, "evaluate_batch",
+                            lambda *a, **k: reached.append(a))
+        ses = Session(get_board("zcu102"), device="cpu", max_retries=2)
+        batch = tenc.DesignBatch(*(torch.as_tensor(a) for a in planes))
+        with pytest.raises(EvalError) as got:
+            ses.evaluate(batch, net)
+        assert got.value.code == want.value.code == EvalError.INVALID_INPUT
+        assert reached == []
+        assert ses.stats.batch_designs == ses.stats.retried == 0
+        if case in _BROKEN_ROWS:
+            bad = np.nonzero(~tenc.validate_batch(batch, len(net)))[0]
+            assert str(got.value) == str(want.value)
+            assert f"{bad.size} invalid DesignBatch row(s), first at index "\
+                f"{bad[0]} (" in str(got.value)
+        return
     if case == "13_segments":
-        net = get_cnn("vgg16")
         with pytest.raises(JaxEvalError) as want:
             JaxSession(jax_get_board("zc706")).evaluate(
                 [_SEGMENTS_13], jax_get_cnn("vgg16"))
         with pytest.raises(EvalError) as got:
             Session(get_board("zc706"), device="cpu").evaluate(
-                [_SEGMENTS_13], net)
+                [_SEGMENTS_13], get_cnn("vgg16"))
         assert want.value.code == EvalError.INVALID_INPUT
         assert got.value.code == want.value.code
         assert "more than 12 segments" in str(got.value)
         return
-    net = get_cnn("resnet50")
     ses = Session(get_board("zcu102"), device="cpu")
     if case == "list_eval_error":
         # an EvalError from inside passes unchanged, not caused by itself
@@ -204,6 +273,8 @@ def test_session_list_and_batch_errors_use_the_taxonomy(case, monkeypatch):
         designs = ["{L1-Last:CE1-CE4}"]
     else:
         monkeypatch.setattr(port_session, "evaluate_batch", _fault)
+        monkeypatch.setattr(port_session.time, "sleep", lambda s: None)
+        ses = Session(get_board("zcu102"), device="cpu", max_retries=2)
         designs = tsamplers.sample_mixed(np.random.default_rng(0), len(net),
                                          4)
     with pytest.raises(EvalError) as got:
@@ -211,6 +282,9 @@ def test_session_list_and_batch_errors_use_the_taxonomy(case, monkeypatch):
     assert got.value.code == EvalError.BACKEND_FAULT
     assert isinstance(got.value.__cause__, RuntimeError)
     assert "CUDA error 700" in str(got.value)
+    if case == "batch_fault":
+        # the batch passed its check: counted once over every retry
+        assert ses.stats.batch_designs == 4 and ses.stats.retried == 2
 
 
 def test_port_imports_neither_jax_nor_repro():

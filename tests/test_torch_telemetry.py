@@ -264,7 +264,8 @@ def test_the_profiler_flag_exists():
 def test_spans_reach_the_profiler_with_telemetry_off(disabled):
     """Under ``torch.profiler`` with telemetry off, one ``evaluate`` of a
     DesignBatch puts every span on the trace, each inside its parent,
-    and records nothing in the registry or a trace file."""
+    ``session.to_device`` before ``session.validate``, and records
+    nothing in the registry or a trace file."""
     net = get_cnn(NET)
     ses = Session(get_board(BOARD), device="cpu")
     batch = _design_batch(net)
@@ -274,6 +275,10 @@ def test_spans_reach_the_profiler_with_telemetry_off(disabled):
         for a, b in got[name]:
             assert any(pa <= a and b <= pb for pa, pb in got[parent]), \
                 (name, parent)
+    # the designs are copied to the session's device, then checked there
+    [(_, copied)], [(checked, _)] = got["session.to_device"], \
+        got["session.validate"]
+    assert copied <= checked
     assert _REGISTRY.size() == 0
     assert tel.trace_path() is None
 
