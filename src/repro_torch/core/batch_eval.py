@@ -36,7 +36,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kernels.mccm_eval import pair_tables, parallelism_search
+from ..kernels.mccm_eval import (pair_tables, parallelism_search,
+                                 search_plan)
 from . import telemetry
 from .blocks import CANDIDATES_DEFAULT
 from .device import DeviceSpec
@@ -824,6 +825,22 @@ def compose_metrics(design: DesignBatch, t: NetTables, dev: DeviceTables,
     }
 
 
+def _record_search_rows(sp, B: int, tables: NetTables,
+                        search: SearchTables) -> None:
+    """The layer rows of a block's search launch, by the card's launch
+    plan for its shape: the ``batch.max_L`` gauge (the padded rows), the
+    ``search.unstaged_rows`` counter (the network's rows past the staged
+    ones, which the kernel reads from L2) and the span's ``rows`` (the
+    network's) and ``staged_rows``.  Telemetry on only."""
+    plan = search_plan(B, tables.max_L, search.pair_prod.numel(),
+                       search.cand.numel())
+    sp.set_attr("rows", tables.L)
+    sp.set_attr("staged_rows", plan.staged_rows)
+    telemetry.gauge("batch.max_L", tables.max_L)
+    telemetry.count("search.unstaged_rows",
+                    max(0, tables.L - plan.staged_rows))
+
+
 def eval_design_block(design: DesignBatch, tables: NetTables,
                       dev: DeviceTables, search: SearchTables, *,
                       fm_tile_rows: int = 2) -> dict[str, torch.Tensor]:
@@ -833,7 +850,9 @@ def eval_design_block(design: DesignBatch, tables: NetTables,
     with telemetry.span("batch.block"):
         with telemetry.span("batch.ce_maps"):
             m = _ce_maps(design, tables, dev)
-        with telemetry.span("batch.search"):
+        with telemetry.span("batch.search") as sp:
+            if telemetry.enabled():
+                _record_search_rows(sp, design.batch, tables, search)
             pf, ph, pw, _cost = parallelism_search(m.pes_ce, _search_ce(m),
                                                    *search)
         with telemetry.span("batch.layer_state"):

@@ -111,7 +111,7 @@ def test_seg_scan_max_equal_jax(reverse):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("L", [160, 192])
+@pytest.mark.parametrize("L", [160, 192, 288])
 def test_pe_split_mac_sums_equal_jax(L):
     """The per-CE MAC sums that feed the PE split round as the reference's
     contraction does, for the layer paddings the tables use (multiples of
@@ -144,6 +144,32 @@ def test_slice_matches_jax_on_every_board(cnn):
                                       backend="ref")
             got = tbe.evaluate_batch(_db(db), tt, get_board(board))
             _assert_metrics(got, want, f"{cnn}/{board}/{label}")
+
+
+def test_densenet264_matches_jax_at_288_rows(monkeypatch):
+    """DenseNet-264 (264 layers, padded to 288 rows): the JAX package's own
+    DenseNet generator at its blocks gives the layer specs, and the port's
+    tables and whole slice equal the JAX package's on every board."""
+    import repro.cnn.densenet as jax_densenet
+    monkeypatch.setattr(jax_densenet, "_BLOCKS", (6, 12, 64, 48))
+    jnet, _ = jax_densenet.densenet121()
+    net = get_cnn("densenet264")
+    assert len(jnet) == len(net) == 264
+    jt = jbe.make_tables(jnet)
+    tt = tbe.make_tables(net, device="cpu")
+    assert tt.max_L == jt.F.shape[0] == 288
+    for k in tbe.NET_TABLE_FIELDS:
+        np.testing.assert_array_equal(getattr(tt, k).numpy(),
+                                      np.asarray(getattr(jt, k)), err_msg=k)
+    tmpl = jbe.encode_specs([make_arch(a, jnet, n) for a in ARCH_NAMES
+                             for n in (2, 5, 9, 11)], len(jnet))
+    mixed = jax_sample_mixed(np.random.default_rng(7), len(jnet), 64)
+    for board in BOARD_NAMES:
+        for label, db in (("templates", tmpl), ("mixed", mixed)):
+            want = jbe.evaluate_batch(db, jt, jax_get_board(board),
+                                      backend="ref")
+            got = tbe.evaluate_batch(_db(db), tt, get_board(board))
+            _assert_metrics(got, want, f"densenet264/{board}/{label}")
 
 
 def test_blocks_change_no_number():

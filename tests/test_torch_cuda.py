@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from repro_torch.api import Session, get_board, get_cnn
-from repro_torch.cnn.registry import CNN_NAMES
+from repro_torch.cnn.registry import CNN_NAMES, DEEP_CNN_NAMES
 from repro_torch.core.batch_eval import (_ce_maps, _pair_layer_tables,
                                          _search_ce, make_device_tables,
                                          make_tables, pes_hint)
@@ -86,7 +86,7 @@ def _assert_kernel_equals_plain(args, label):
     return ker
 
 
-@pytest.mark.parametrize("cnn", CNN_NAMES)
+@pytest.mark.parametrize("cnn", CNN_NAMES + DEEP_CNN_NAMES)
 def test_kernel_equals_plain_on_card(cuda, cnn):
     net = get_cnn(cnn)
     tmpl = encode_specs([make_arch(a, net, n) for a in ARCH_NAMES
@@ -116,16 +116,19 @@ def test_kernel_infeasible_ces_on_card(cuda):
     (180, 2520, 192, "L=192"),
     (180, 100_000, 192, "L=192, rows past the staged ones"),
     (240, 100_000, 256, "L=256, rows past the staged ones"),
+    (264, 2520, 288, "DenseNet-264, L=288, rows past the staged ones"),
 ])
 def test_kernel_equals_plain_past_the_ladder(cuda, net_layers, pes, L,
                                              shows):
-    """A board beyond the PES_HINTS ladder (no pruning: P = 324) and
-    synthetic nets padded to 192 and 256 layers; where L·(P + K) floats
-    pass the shared memory, layers past the staged rows come from L2."""
+    """A board beyond the PES_HINTS ladder (no pruning: P = 324),
+    synthetic nets padded to 192 and 256 layers, and DenseNet-264's
+    designs on the ZCU102's PEs, padded to 288 layers; where L·(P + K)
+    floats pass the shared memory, layers past the staged rows come from
+    L2 (DenseNet-264: 241 staged, its last 23 live rows unstaged)."""
     from repro_torch.kernels.mccm_eval import last_launch, search_plan
     from torch_search_cases import port_inputs, synthetic_net
-    net = get_cnn("resnet50") if net_layers == 53 else \
-        synthetic_net(net_layers)
+    net = {53: get_cnn("resnet50"), 264: get_cnn("densenet264")}.get(
+        net_layers) or synthetic_net(net_layers)
     args = port_inputs(net, pes, 300, net_layers, device=cuda)
     P = args[2].shape[1]
     assert args[1].shape[1] == L and P == (324 if pes > 65536 else 219)
@@ -136,6 +139,9 @@ def test_kernel_equals_plain_past_the_ladder(cuda, net_layers, pes, L,
         assert plan.staged_rows < net_layers     # mapped rows unstaged
     else:
         assert plan.staged_rows == L
+    if net_layers == 264:
+        assert (plan.staged_rows, net_layers - plan.staged_rows) == (241, 23)
+        assert bool((args[1][:, plan.staged_rows:] >= 0).any())
 
 
 @pytest.mark.parametrize("B", [1, 17, 2047, 5000])

@@ -224,7 +224,7 @@ def _assert_plan_runs(plan, B, L, P, K):
 
 @pytest.mark.parametrize("cnn", ["resnet50", "resnet152", "vgg16",
                                  "mobilenetv2", "xception", "densenet121",
-                                 "resnet101"])
+                                 "resnet101", "densenet264"])
 def test_search_plan_fits_the_card(cnn):
     """For every CNN, at its padded L and at every L up to 256 the bucket
     ladder gives, and every pair list of a board, a bucket or none: the
@@ -243,7 +243,24 @@ def test_search_plan_fits_the_card(cnn):
     # the main path's chunk: one design a warp, one wave of blocks
     plan = search_plan(2048, L0, 219, 18)
     assert (plan.warps, plan.blocks, plan.designs_per_block) == (16, 128, 16)
-    assert plan.staged_rows == L0 and plan.pair_groups == 1
+    assert plan.staged_rows == min(L0, 241) and plan.pair_groups == 1
+
+
+def test_search_plan_at_densenet264_on_the_zcu102():
+    """DenseNet-264 pads to 288 rows; at the ZCU102's 219 pairs and 18
+    candidates a block stages 241 of them in 231,928 of its 232,448
+    shared-memory bytes, so its last 23 live rows are read from L2, at
+    the bulk cell's 100,000 designs as at the default chunk."""
+    from repro_torch.cnn.registry import get_cnn
+    from repro_torch.core.batch_eval import bucket_max_L
+    L = len(get_cnn("densenet264"))
+    assert bucket_max_L(L) == 288
+    for B in (2048, 100_000):
+        plan = search_plan(B, 288, 219, 18)
+        _assert_plan_runs(plan, B, 288, 219, 18)
+        assert (plan.staged_rows, plan.smem_bytes) == (241, 231_928)
+        assert L - plan.staged_rows == 23
+        assert mccm_ops.MAX_SMEM - plan.smem_bytes < 4 * (219 + 18)
 
 
 @pytest.mark.parametrize("P", [1, 31, 33, 384, 385, 1000])
@@ -310,17 +327,17 @@ def _assert_equal_to_jax(args, label):
 
 
 @pytest.mark.parametrize("n_layers,pes", [(53, 100_000), (180, 2520),
-                                          (180, 100_000)])
+                                          (180, 100_000), (264, 2520)])
 def test_plain_search_matches_jax_past_the_ladder(n_layers, pes):
-    """A board beyond the PES_HINTS ladder (no pruning: P = 324) and a net
-    padded to L = 192: the port's plain version equals the JAX reference
-    and the Pallas kernel bit for bit."""
+    """A board beyond the PES_HINTS ladder (no pruning: P = 324), a net
+    padded to L = 192 and DenseNet-264 at L = 288: the port's plain
+    version equals the JAX reference and the Pallas kernel bit for bit."""
     from repro_torch.cnn.registry import get_cnn
-    net = get_cnn("resnet50") if n_layers == 53 else \
-        synthetic_net(n_layers)
+    net = {53: get_cnn("resnet50"), 264: get_cnn("densenet264")}.get(
+        n_layers) or synthetic_net(n_layers)
     args = port_inputs(net, pes, 24, n_layers)
     assert args[2].shape[1] == (324 if pes > 65536 else 219)
-    assert args[1].shape[1] == (192 if n_layers == 180 else 160)
+    assert args[1].shape[1] == {53: 160, 180: 192, 264: 288}[n_layers]
     _assert_equal_to_jax(args, f"{n_layers}/{pes}")
 
 

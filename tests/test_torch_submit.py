@@ -48,7 +48,8 @@ from repro_torch.core.notation import parse
 from repro_torch.fpga.archs import ARCH_NAMES, make_arch
 from repro_torch.fpga.boards import get_board
 from test_torch_telemetry import (  # noqa: F401
-    BATCH_SPANS, _names, _with_port_spans, both_enabled)
+    BATCH_COUNTERS, BATCH_GAUGES, BATCH_SPANS, _names, _with_port_spans,
+    both_enabled)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -716,7 +717,8 @@ def test_submit_sequence_emits_the_same_names_as_jax(both_enabled):
         finally:
             ses.close()
     want, got = _names(jtel), _names(ttel)
-    assert got == _with_port_spans(want, BATCH_SPANS)
+    assert got == _with_port_spans(want, BATCH_SPANS, BATCH_COUNTERS,
+                                   BATCH_GAUGES)
     assert {"session.submit", "session.megabatch",
             "session.search_job"} <= set(got["spans"])
     assert {"resilience.rejected",

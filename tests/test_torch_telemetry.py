@@ -79,13 +79,25 @@ def disabled():
     tel.reset()
 
 
-def _with_port_spans(names: dict, spans) -> dict:
+#: the counters and gauges the port's batch path records that the JAX
+#: package's does not (``batch_eval._record_search_rows``), with what a
+#: zoo network reads: none of its rows is past the search's staged ones
+BATCH_COUNTERS = {"search.unstaged_rows": 0}
+BATCH_GAUGES = ("batch.max_L",)
+
+
+def _with_port_spans(names: dict, spans, counters=None, gauges=()) -> dict:
     """The JAX package's ``names`` (``_names``) with the port's own
-    ``spans`` added, and the ``span.<name>.s`` histogram of each."""
+    ``spans`` added, and the ``span.<name>.s`` histogram of each, and its
+    own ``counters`` (name -> count) and ``gauges``."""
     assert not set(spans) & set(names["spans"])
+    assert not set(counters or {}) & set(names["counters"])
+    assert not set(gauges) & set(names["gauges"])
     return dict(names, spans=sorted(set(names["spans"]) | set(spans)),
                 histograms=sorted(set(names["histograms"])
-                                  | {f"span.{s}.s" for s in spans}))
+                                  | {f"span.{s}.s" for s in spans}),
+                counters={**names["counters"], **(counters or {})},
+                gauges=sorted(set(names["gauges"]) | set(gauges)))
 
 
 def _names(mod) -> dict:
@@ -165,6 +177,8 @@ def test_disabled_path_records_nothing(disabled, tmp_path):
     ses.evaluate(["{L1-Last:CE1-CE4}"], net)
     ses.explore(net, n=64, strategy="search",
                 config=SearchConfig(pop_size=32))
+    deep = get_cnn("densenet264")          # search rows past the staged
+    ses.evaluate(["{L1-Last:CE1-CE4}"], deep)
     assert _REGISTRY.size() == 0
     assert tel.trace_path() is None
     snap = tel.snapshot()
@@ -209,7 +223,8 @@ def test_session_emits_the_same_names_as_jax(both_enabled):
         ses.explore(n, n=128, strategy="search",
                     config=cfg(pop_size=64, seed=0))
     want, got = _names(jtel), _names(tel)
-    assert got == _with_port_spans(want, BATCH_SPANS)
+    assert got == _with_port_spans(want, BATCH_SPANS, BATCH_COUNTERS,
+                                   BATCH_GAUGES)
     assert {"session.evaluate", "session.explore"} <= set(got["spans"])
     assert got["events"] == ["dse.generation"]
     assert got["counters"]["dse.generations"] == 2
@@ -225,6 +240,38 @@ def test_session_emits_the_same_names_as_jax(both_enabled):
     assert obs["stats"]["explore_calls"] == 2
     assert obs["telemetry"]["counters"]["session.explore_calls"] == 2
     assert obs["caches"]["net_tables"]["size"] == 1
+
+
+def test_search_rows_are_counted_from_the_launch_plan(disabled, tmp_path):
+    """DenseNet-264's 264 layer rows pad to 288; on the ZCU102's 219 pairs
+    the search's launch plan stages 241, so each launch (a CPU tile of 128
+    designs here) counts 23 rows past the staged ones, and its
+    ``batch.search`` span carries ``rows`` and ``staged_rows``.  A zoo
+    network, padded to 160 rows and staged whole, counts 0."""
+    from repro_torch.core.dse import sample_mixed
+    from repro_torch.kernels.mccm_eval import search_plan
+    tel.enable(str(tmp_path))
+    ses = Session(get_board("zcu102"), device="cpu")
+    deep = get_cnn("densenet264")
+    ses.evaluate(sample_mixed(np.random.default_rng(4), len(deep), 200),
+                 deep)
+    snap = tel.snapshot()
+    plan = search_plan(128, 288, 219, 18)
+    assert plan.staged_rows == 241 and len(deep) - plan.staged_rows == 23
+    assert snap["gauges"]["batch.max_L"] == 288
+    assert snap["counters"]["search.unstaged_rows"] == 2 * 23
+    spans = [l for l in tel.read_trace(tel.trace_path())
+             if l["type"] == "span" and l["name"] == "batch.search"]
+    assert [l["attrs"] for l in spans] == \
+        [{"rows": 264, "staged_rows": 241}] * 2
+    net = get_cnn("resnet50")
+    ses.evaluate(sample_mixed(np.random.default_rng(4), len(net), 50), net)
+    snap = tel.snapshot()
+    assert snap["gauges"]["batch.max_L"] == 160
+    assert snap["counters"]["search.unstaged_rows"] == 2 * 23
+    assert ses.observability()["telemetry"]["counters"][
+        "search.unstaged_rows"] == 2 * 23
+    ses.close()
 
 
 # --------------------------------------------------------------------------
